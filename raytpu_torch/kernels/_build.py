@@ -1,0 +1,83 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled by ``nvcc`` into a shared object under the package's git-ignored
+``_build/`` directory, keyed by a hash of the source and the flags, and
+loaded with ``ctypes``; the wrappers pass ``data_ptr()``s and the current
+stream. This needs neither ninja nor pybind11 and compiles in seconds,
+because no source includes PyTorch's headers.
+
+The flags pin the float rules the kernels share with their plain torch
+versions: no FMA contraction, IEEE division and square root, and no
+flush-to-zero. A missing ``nvcc`` or a failed build raises; nothing falls
+back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = [
+    "-arch=sm_90a", "-O3", "--fmad=false", "-prec-div=true",
+    "-prec-sqrt=true", "-ftz=false", "-std=c++17", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
+        "CUDA kernels cannot be built"
+    )
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` builds to with the current flags."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its shared object is missing, then load
+    it. The compiler's output, with ptxas's register and spill report, is
+    kept beside it as ``<so>.log``."""
+    so_path = library_path(name)
+    if not os.path.exists(so_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = so_path + f".tmp{os.getpid()}"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, name + ".cu"),
+             "-o", tmp],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {name}.cu (rc {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(so_path + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so_path)
+    return ctypes.CDLL(so_path)
+
+
+def build_log(name: str) -> str:
+    """The compiler output kept from the build of ``csrc/<name>.cu``."""
+    with open(library_path(name) + ".log") as f:
+        return f.read()

@@ -1,0 +1,258 @@
+"""raytpu_torch's host side against raytpu: the copied numpy modules (glTF
+loader, camera, BVH, strand tree) give identical arrays, every table of
+the port's pack is bit-equal to ``raytpu.scene.pack.pack_scene(
+as_numpy=True)``, the zlib PNG writer decodes to raytpu's pixels, and the
+port imports neither JAX nor raytpu."""
+
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import raytpu
+from raytpu.accel.bvh import build_bvh as rt_build_bvh
+from raytpu.accel.strandtree import build_strand_tree as rt_build_strand_tree
+from raytpu.io.metrics import ssim as rt_ssim
+from raytpu.io.png import write_png as rt_write_png
+from raytpu.scene.pack import flatten_world_triangles as rt_flatten
+from raytpu.scene.pack import pack_scene as rt_pack_scene
+from raytpu_torch.accel.bvh import build_bvh
+from raytpu_torch.accel.strandtree import build_strand_tree, validate_strand_tree
+from raytpu_torch.io.metrics import ssim
+from raytpu_torch.io.png import write_png
+from raytpu_torch.scene import camera as pt_camera
+from raytpu_torch.scene.gltf import load_scene
+from raytpu_torch.scene.pack import flatten_world_triangles, pack_scene
+
+from .test_production_parity import _grid_mesh
+from .tools.glb_writer import GlbBuilder, box, quad
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the gallery camera with its eye in front of the scene (the look-at
+# quirk makes eye [0, 2.5, 9] face away from it)
+EYE, AT, FOV = [0, 2.5, -9], [0, -0.5, 0], 0.7
+
+
+def _checker():
+    tex = np.zeros((8, 8, 4), np.uint8)
+    tex[..., 3] = 255
+    for y in range(8):
+        for x in range(8):
+            c = 220 if (x + y) % 2 == 0 else 60
+            tex[y, x, :3] = (c, c - 10 if c > 10 else 0, c)
+    return tex
+
+
+def write_scene(path, cells: int, textured: bool = True):
+    """The gallery layout of tests/test_production_parity.py: a floor grid
+    of 2*cells^2 triangles (checker-textured or plain), metal/glass/
+    diffuse boxes, an emissive quad and two lights. cells=36 is the
+    4096-slot gallery; cells=4 stays under 256 slots."""
+    b = GlbBuilder()
+    if textured:
+        floor_m = b.add_material(color=(1, 1, 1, 1),
+                                 texture=b.add_texture_rgba(_checker()))
+    else:
+        floor_m = b.add_material(color=(0.8, 0.8, 0.8, 1))
+    metal = b.add_material(color=(0.9, 0.8, 0.5, 1), metallic=1.0)
+    glass = b.add_material(color=(0.85, 0.9, 1.0, 1), ior=1.5)
+    diffuse = b.add_material(color=(0.7, 0.3, 0.3, 1))
+    glow = b.add_material(color=(1.0, 0.7, 0.3, 1), emission=5.0)
+    pos, nrm, uv, idx = _grid_mesh(cells, cells, 16.0)
+    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, floor_m, np.uint32)]),
+               translation=[0, -2, 0])
+    bp, bn, bu, bi = box()
+    for mat, at in ((metal, [-2.5, -1, 0]), (glass, [0, -1, 1.5]),
+                    (diffuse, [2.5, -1, 0])):
+        b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, mat, np.uint32)]),
+                   translation=at)
+    qp, qn, qu, qi = quad(size=2.0)
+    b.add_node(mesh=b.add_mesh([(qp, qn, qu, qi, glow, np.uint16)]),
+               translation=[0, 2.5, -2])
+    b.add_node(light=b.add_light(intensity=40.0), translation=[4, 5, 6])
+    b.add_node(light=b.add_light(color=(0.4, 0.6, 1.0), intensity=25.0),
+               translation=[-5, 4, 3])
+    b.add_node(camera=b.add_camera(aspect=1.5, yfov=0.6),
+               translation=[0, 1, -8])
+    b.write(path)
+
+
+@functools.lru_cache(maxsize=None)
+def scene_path(name: str) -> str:
+    """A GLB written once per process: "gallery" (4096 slots, textured),
+    "small" (<= 256 slots, textured) or "small_plain" (untextured)."""
+    cells, textured = {"gallery": (36, True), "small": (4, True),
+                       "small_plain": (4, False)}[name]
+    path = os.path.join(tempfile.mkdtemp(prefix="raytpu_torch_"),
+                        name + ".glb")
+    write_scene(path, cells, textured)
+    return path
+
+
+def _soup(ntri, seed=0):
+    rng = np.random.default_rng(seed)
+    p0 = (rng.random((ntri, 3), np.float32) - 0.5) * 10
+    e1 = rng.normal(size=(ntri, 3)).astype(np.float32)
+    e2 = rng.normal(size=(ntri, 3)).astype(np.float32)
+    return p0, e1, e2
+
+
+def _assert_same(a, b, what):
+    if isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        assert a == b, what
+
+
+@pytest.mark.parametrize("name", ["gallery", "small"])
+def test_gltf_copy_matches_raytpu(name):
+    want = raytpu.load_scene(scene_path(name))
+    got = load_scene(scene_path(name))
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if f.name == "textures":
+            assert len(a) == len(b) == 1
+            np.testing.assert_array_equal(a[0], b[0])
+        elif f.name == "camera":
+            np.testing.assert_array_equal(a.world, b.world)
+            np.testing.assert_array_equal(a.projection, b.projection)
+        else:
+            _assert_same(a, b, f.name)
+
+
+def test_camera_copy_matches_raytpu(tmp_path):
+    path = tmp_path / "camera.json"
+    path.write_text(json.dumps({"origin": EYE, "at": AT, "fov": FOV}))
+    for w, h in ((48, 32), (1920, 1080)):
+        want = raytpu.load_camera_json(str(path), w, h)
+        got = pt_camera.load_camera_json(str(path), w, h)
+        _assert_same(want.world, got.world, "world")
+        _assert_same(want.projection, got.projection, "projection")
+    _assert_same(raytpu.perspective_matrix(1.3, 0.5, 0.1, 50.0),
+                 pt_camera.perspective_matrix(1.3, 0.5, 0.1, 50.0), "persp")
+    _assert_same(raytpu.look_at([1, 2, 3], [0, 0, 1], [0, 1, 0]),
+                 pt_camera.look_at([1, 2, 3], [0, 0, 1], [0, 1, 0]), "look_at")
+
+
+def _geometry(which):
+    if which == "soup":
+        return _soup(700, seed=4)
+    return rt_flatten(raytpu.load_scene(scene_path("gallery")))[:3]
+
+
+@pytest.mark.parametrize("which", ["soup", "gallery"])
+def test_bvh_and_strand_tree_copies_match_raytpu(which):
+    p0, e1, e2 = _geometry(which)
+    want, want8 = rt_build_bvh(p0, e1, e2)
+    got, got8 = build_bvh(p0, e1, e2)
+    for f in dataclasses.fields(want):
+        _assert_same(getattr(want, f.name), getattr(got, f.name), f.name)
+    _assert_same(want8.node_rows, got8.node_rows, "node_rows")
+    tree = build_strand_tree(got)
+    validate_strand_tree(tree, got)
+    _assert_same(rt_build_strand_tree(want).rows, tree.rows, "strand rows")
+
+
+def _torch_tables(pack):
+    """Every table of a raytpu_torch pack as numpy, by raytpu's names."""
+    out = {k: getattr(pack, k).numpy() for k in (
+        "tri_row", "object_linear", "mat_table", "light_table", "n_lights_f",
+        "scene_bmin", "scene_bmax", "tex_atlas", "tex_size")}
+    out.update({k: getattr(pack.bvh, k).numpy() for k in (
+        "nodes", "leaf_tris", "strand_rows")})
+    return out
+
+
+def _raytpu_tables(pack):
+    out = {k: np.asarray(getattr(pack, k)) for k in (
+        "tri_row", "object_linear", "mat_table", "light_table", "n_lights_f",
+        "scene_bmin", "scene_bmax", "tex_atlas", "tex_size")}
+    out.update({k: getattr(pack.bvh, k) for k in (
+        "nodes", "leaf_tris", "strand_rows")})
+    return out
+
+
+@pytest.mark.parametrize("name", ["gallery", "small", "small_plain"])
+def test_pack_tables_bit_equal_raytpu(name):
+    """Every table bit-equal to raytpu's numpy pack. raytpu builds the
+    strand tree only above 256 slots; below, the port's rows are held
+    against raytpu's build_strand_tree on raytpu's own BVH."""
+    scene = raytpu.load_scene(scene_path(name))
+    want = _raytpu_tables(rt_pack_scene(scene, as_numpy=True))
+    pack = pack_scene(load_scene(scene_path(name)))
+    got = _torch_tables(pack)
+    if want["strand_rows"] is None:
+        assert pack.n_triangles <= 256
+        bvh, _ = rt_build_bvh(*rt_flatten(scene)[:3])
+        want["strand_rows"] = rt_build_strand_tree(bvh).rows
+    else:
+        assert pack.n_triangles > 256
+    for k, a in want.items():
+        b = got[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        # bit patterns: bitcast int columns and padding compare exactly
+        np.testing.assert_array_equal(
+            np.ascontiguousarray(a).view(np.uint8),
+            np.ascontiguousarray(b).view(np.uint8), err_msg=k)
+    assert pack.has_textures == (name != "small_plain")
+    moved = pack.to("cpu")
+    assert moved.has_textures == pack.has_textures
+    assert torch.equal(moved.bvh.strand_rows, pack.bvh.strand_rows)
+    assert torch.equal(moved.n_lights_f, pack.n_lights_f)
+
+
+def test_flatten_matches_raytpu():
+    scene = raytpu.load_scene(scene_path("gallery"))
+    for a, b in zip(rt_flatten(scene), flatten_world_triangles(scene)):
+        _assert_same(a, b, "flatten")
+
+
+def test_png_writer_decodes_to_raytpu_pixels(tmp_path):
+    rng = np.random.default_rng(5)
+    frame = rng.uniform(-0.2, 1.3, size=(17, 23, 4)).astype(np.float32)
+    frame[0, 0, 0] = np.nan
+    frame[1, 1, 1] = np.inf
+    frame[2, 2, 2] = -np.inf
+    write_png(str(tmp_path / "port.png"), frame)
+    rt_write_png(str(tmp_path / "raytpu.png"), frame)
+    got = Image.open(tmp_path / "port.png")
+    want = Image.open(tmp_path / "raytpu.png")
+    assert got.mode == want.mode == "RGB"
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_ssim_copy_matches_raytpu():
+    rng = np.random.default_rng(6)
+    a = rng.integers(0, 256, size=(40, 30, 3)).astype(np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-9, 10, size=a.shape), 0, 255)
+    assert ssim(a, b) == rt_ssim(a, b) < 1.0
+    assert ssim(a, a) == 1.0
+
+
+def test_package_imports_neither_jax_nor_raytpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import raytpu_torch, raytpu_torch.cli\n"
+        "for m in pkgutil.walk_packages(raytpu_torch.__path__, "
+        "'raytpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'raytpu'))\n"
+        "print(len([n for n in sys.modules if n.startswith('raytpu_torch')]))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 15  # every module was imported
