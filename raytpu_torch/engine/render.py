@@ -9,10 +9,13 @@ and the data-dependent material/RNG control flow replayed exactly
 seed rather than merely statistically.
 
 The main path, per tile: 32x32-block pixel layout, per-pixel RNG seeding,
-jittered camera rays, then ``_trace_paths``: every query goes through the
-strand walk (the CUDA kernel on a CUDA device, its plain version on the
-CPU); above 256 triangle slots the rays are coherence-sorted before each
-query except the primary one; ``_shade_core`` shades the hits.
+jittered camera rays, then ``_trace_paths`` (path mode) or ``_flat_shade``
+(flat mode). The route is raytpu's TPU branch: flat mode and every wave
+of a scene of <= 256 triangle slots go through the packet route's BVH8
+walk; every path-mode wave of a larger scene goes through the strand
+walk, with the rays coherence-sorted before each query except the primary
+one. Either kernel runs as CUDA on a CUDA device and as its plain version
+on the CPU. ``_shade_core`` shades the hits.
 
 Reference quirks reproduced on purpose (as in raytpu):
 
@@ -43,8 +46,10 @@ from ..kernels.intersect import (
     intersect_any_bruteforce,
     intersect_bruteforce,
 )
+from ..kernels.packet import make_packet_intersectors
 from ..kernels.strand import make_strand_intersectors
 from ..kernels.texture import sample_bilinear
+from ..scene.pack import SORT_MIN_TRIS
 from ..types import CameraPack, RenderConfig, ScenePack
 
 # f32 values held as Python floats (exactly representable, so every torch
@@ -52,7 +57,6 @@ from ..types import CameraPack, RenderConfig, ScenePack
 PI = float(np.float32(3.1415926))  # src/shader.wgsl:3
 INV_PI = float(np.float32(0.3183098))  # src/shader.wgsl:4
 F32_EPSILON = float(np.float32(1.1920929e-7))  # src/shader.wgsl:2
-SORT_MIN_TRIS = 256  # slots above which non-primary queries are sorted
 MORTON_BITS = 6  # origin quantisation bits per axis in the sort key
 NEG_INF = float("-inf")
 
@@ -324,13 +328,23 @@ def _shade_core(pack: ScenePack, ro, rd, hit, rng, active):
 
 
 def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
-                 bounces: int, mask=None, sort_bounced=False):
+                 bounces: int, mask=None, sort_bounced=False,
+                 bounce_pair=None, count_mask=None):
     """One full path per lane: the reference's ``pixel_color``
     (src/shader.wgsl:321-381), vectorised with masks. ``mask`` restricts
     which lanes trace at all (lanes outside return 0 radiance). Query
     schedule: immediate NEE, and with ``sort_bounced`` every query but
-    the primary one runs coherence-sorted. The bounce loop stops once no
-    lane is alive (a bounce over dead lanes changes nothing)."""
+    the primary one runs coherence-sorted. When ``bounce_pair`` (the
+    strand pair) is given, every wave uses it: primary, shadow and bounce,
+    as raytpu does by default. The bounce loop stops once no lane is alive
+    (a bounce over dead lanes changes nothing).
+
+    With ``count_mask`` also returns the number of ray queries issued by
+    masked lanes, as a Python int: 1 primary + 2 per bounce iteration a
+    lane survives (the reference's cost model, SURVEY.md §3.4)."""
+    if bounce_pair is not None:
+        closest, any_hit = bounce_pair
+    n_rays = int(count_mask.sum()) if count_mask is not None else None
     r = ro.shape[0]
     dev = ro.device
     radiance = torch.zeros((r, 4), dtype=torch.float32, device=dev)
@@ -376,6 +390,10 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
         ro = torch.where(bounce_on[:, None], sh["p"], ro)
         rd = torch.where(bounce_on[:, None], sh["scattered"], rd)
         alive = bounce_on
+        if n_rays is not None:
+            n_rays += 2 * int((alive & count_mask).sum())
+    if n_rays is not None:
+        return radiance * attenuation, rng, n_rays
     return radiance * attenuation, rng
 
 
@@ -396,17 +414,22 @@ def _flat_shade(pack: ScenePack, closest, ro, rd):
 # item that ports each
 _NOT_PORTED = {
     "bvh": "ROADMAP 1.10 (threaded-BVH walk)",
-    "packet": "ROADMAP 1.11 (packet kernel)",
     "binned": "ROADMAP 1.15 (binned kernel)",
 }
 
 
 def _choose_intersectors(pack: ScenePack, config: RenderConfig):
-    """Resolve config.intersector to ((closest, any), packet_mode).
+    """Resolve config.intersector to ((closest, any), packet_mode,
+    bounce_pair), as raytpu's TPU branch does.
 
-    "auto" and "strand" walk the strand tree (the CUDA kernel for a pack
-    on a CUDA device, its plain version on the CPU) in 32x32-block ray
-    order; "brute" is the torch sweep in row order."""
+    "auto" and "packet" give the packet route's pair; ``bounce_pair`` is
+    the strand pair when the pack has a strand tree (> 256 slots), else
+    None, and ``_trace_paths`` then sends every path-mode wave through it.
+    raytpu's VMEM budget check has no counterpart: on the card every table
+    lives in global memory. "strand" uses the strand pair everywhere and
+    raises on a pack without a tree. Each kernel is the CUDA one for a
+    pack on a CUDA device, its plain version on the CPU; both walk rays in
+    32x32-block order. "brute" is the torch sweep in row order."""
     which = config.intersector
     if config.bounce_backend != "sorted":
         raise NotImplementedError(
@@ -417,8 +440,14 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
         raise NotImplementedError(
             f"intersector={which!r} is not ported yet: {_NOT_PORTED[which]}"
         )
-    if which in ("auto", "strand"):
-        return make_strand_intersectors(pack), True
+    if which in ("auto", "packet"):
+        bounce_pair = None
+        if pack.bvh.strand_rows is not None:
+            bounce_pair = make_strand_intersectors(pack)
+        return make_packet_intersectors(pack), True, bounce_pair
+    if which == "strand":
+        pair = make_strand_intersectors(pack)
+        return pair, True, pair
     if which == "brute":
         def closest(ro, rd, tmin, tmax):
             return intersect_bruteforce(
@@ -430,7 +459,7 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
                 ro, rd, pack.tri_p0, pack.tri_e1, pack.tri_e2, tmin, tmax
             )
 
-        return (closest, any_hit), False
+        return (closest, any_hit), False, None
     raise ValueError(f"unknown intersector {which!r}")
 
 
@@ -472,7 +501,8 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
     on the pack's device. ``seed`` overrides config.seed."""
     w, h = config.width, config.height
     dev = pack.device
-    (closest, any_hit), packet_mode = _choose_intersectors(pack, config)
+    (closest, any_hit), packet_mode, bounce_pair = _choose_intersectors(
+        pack, config)
     px, py_local, unpermute = _pixel_layout(w, tile_h, packet_mode, dev)
     py = y0 + py_local
     rng = rngk.seed_pixels(px, py, w, config.chunk_size,
@@ -497,11 +527,59 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
             color, rng = _trace_paths(
                 pack, closest, any_hit, ro, rd, rng, config.bounces,
                 mask=in_grid, sort_bounced=sort_bounced,
+                bounce_pair=bounce_pair,
             )
         acc = acc + color
     img = acc / float(config.samples)
     img = torch.where(in_grid[:, None], img, 0.0)
     return unpermute(img)
+
+
+def count_rays(pack: ScenePack, camera: CameraPack,
+               config: RenderConfig) -> int:
+    """Count the ray queries the reference would issue for this frame: one
+    primary query per in-grid lane and sample plus, per bounce iteration a
+    lane survives, one shadow and one continuation query (the cost model
+    of src/shader.wgsl:321-381, SURVEY.md §3.4). Exact: it runs the real
+    trace loop with a counter, in path mode whatever ``config.mode`` says,
+    as raytpu's ``count_rays`` does. The total is a Python int."""
+    tile_h = _auto_tile_rows(config, pack.n_triangles)
+    total = 0
+    for y0 in range(0, config.height, tile_h):
+        rows = min(tile_h, config.height - y0)
+        total += _count_tile(pack, camera, y0, config, tile_h, rows)
+    return total
+
+
+def _count_tile(pack: ScenePack, camera: CameraPack, y0: int,
+                config: RenderConfig, tile_h: int, valid_rows: int) -> int:
+    w, h = config.width, config.height
+    dev = pack.device
+    (closest, any_hit), packet_mode, bounce_pair = _choose_intersectors(
+        pack, config)
+    px, py_local, _ = _pixel_layout(w, tile_h, packet_mode, dev)
+    py = y0 + py_local
+    rng = rngk.seed_pixels(px, py, w, config.chunk_size, config.seed)
+    # (py < y0 + valid_rows) also drops padding lanes that alias the next
+    # tile's pixels: they must not be counted twice
+    in_grid = _in_chunk_grid(px, py, w, h, config.chunk_size) & (
+        py < y0 + valid_rows)
+    pxf = px.to(torch.float32)
+    pyf = py.to(torch.float32)
+    sort_bounced = packet_mode and pack.n_triangles > SORT_MIN_TRIS
+    total = 0
+    for _ in range(config.samples):
+        rng, jx = rngk.rand(rng)
+        rng, jy = rngk.rand(rng)
+        ro, rd = cast_rays(pxf + jx, pyf + jy, camera.world,
+                           camera.projection, w, h)
+        _, rng, n = _trace_paths(
+            pack, closest, any_hit, ro, rd, rng, config.bounces,
+            mask=in_grid, sort_bounced=sort_bounced,
+            bounce_pair=bounce_pair, count_mask=in_grid,
+        )
+        total += n
+    return total
 
 
 def _auto_tile_rows(config: RenderConfig, n_tris: int) -> int:

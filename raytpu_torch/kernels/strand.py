@@ -131,9 +131,11 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
     return t_out, tri_out
 
 
-def _check_inputs(strand_rows, leaf_tris, ro, rd, tmax):
+def _check_inputs(tree_name, tree, leaf_tris, ro, rd, tmax):
+    """Raise ValueError unless the tree [N, 128], leaf rows [Nl, 80], rays
+    [R, 3] and tmax [R] are contiguous float32 tensors on one device."""
     dev = ro.device
-    for name, x, width in (("strand_rows", strand_rows, 128),
+    for name, x, width in ((tree_name, tree, 128),
                            ("leaf_tris", leaf_tris, 80), ("ro", ro, 3),
                            ("rd", rd, 3)):
         if x.dtype != torch.float32 or x.device != dev:
@@ -180,7 +182,7 @@ def strand_query_cuda(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
     if ro.device.type != "cuda":
         raise ValueError(f"strand_query_cuda needs CUDA tensors, got "
                          f"{ro.device}")
-    _check_inputs(strand_rows, leaf_tris, ro, rd, tmax)
+    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax)
     lib = _library()
     r = ro.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=ro.device)
@@ -224,27 +226,35 @@ def _check_baked_tmin(tmin, baked: float, what: str):
         )
 
 
+def _per_ray(tmax, ro):
+    """tmax (a scalar or [R]) as a contiguous float32 [R] on ro's device."""
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=ro.device)
+    return tmax.expand(ro.shape[0]).contiguous()
+
+
 def make_strand_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
     signature over ``pack.bvh.strand_rows``. tmin is baked: 0.001 for
-    closest-hit and 0.0 for any-hit; another value raises."""
+    closest-hit and 0.0 for any-hit; another value raises. A pack without
+    a strand tree (<= 256 slots) raises ValueError."""
+    if pack.bvh.strand_rows is None:
+        raise ValueError(
+            "intersector='strand' needs a strand tree; scenes above "
+            "the sort threshold pack one by default"
+        )
     tree = pack.bvh.strand_rows.contiguous()
     leaves = pack.bvh.leaf_tris.contiguous()
-
-    def per_ray(tmax, ro):
-        tmax = torch.as_tensor(tmax, dtype=torch.float32, device=ro.device)
-        return tmax.expand(ro.shape[0]).contiguous()
 
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "strand closest")
         t, tri = strand_query(tree, leaves, ro.contiguous(), rd.contiguous(),
-                              per_ray(tmax, ro), CLOSEST_TMIN, False)
+                              _per_ray(tmax, ro), CLOSEST_TMIN, False)
         return Hit(t=t, tri=tri, valid=tri >= 0)
 
     def any_fn(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, ANY_TMIN, "strand any-hit")
         _, tri = strand_query(tree, leaves, ro.contiguous(), rd.contiguous(),
-                              per_ray(tmax, ro), ANY_TMIN, True)
+                              _per_ray(tmax, ro), ANY_TMIN, True)
         return tri >= 0
 
     return closest, any_fn

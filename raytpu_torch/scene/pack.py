@@ -10,11 +10,13 @@ numpy and then placed on the requested device:
 * **BVH leaf ordering.** Triangles are stored in BVH leaf order with
   ``leaf_size`` alignment and degenerate padding, so a leaf visit reads
   one contiguous row of ``leaf_tris``.
-* **Strand tree for every scene.** The strand walk is the port's only
-  traversal kernel, so the octant-threaded tree is built whatever the
-  scene size (raytpu builds it only above its bounce-sort threshold).
-  Per-ray results do not depend on the route: ties break to the lowest
-  slot.
+* **Two traversal layouts.** The 8-wide BVH (``node8_rows``) is kept for
+  every scene: the packet route walks it for flat mode and for every wave
+  of a scene of <= 256 slots. Its depth is checked against the packet
+  walk's stack bound here, as raytpu does. The octant-threaded strand
+  tree is built only above 256 slots (raytpu's bounce-sort threshold),
+  where it serves every path-mode wave; smaller scenes have none. Per-ray
+  results do not depend on the route: ties break to the lowest slot.
 """
 
 from __future__ import annotations
@@ -22,11 +24,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..accel.bvh import LEAF_SIZE, build_bvh
+from ..accel.bvh import LEAF_SIZE, build_bvh, bvh8_depth
 from ..accel.strandtree import build_strand_tree
+from ..kernels.packet import STACK_DEPTH
 from ..types import BvhPack, CameraPack, ScenePack
 from .camera import CameraData
 from .gltf import SceneData
+
+# slots above which a scene gets a strand tree and its non-primary queries
+# are coherence-sorted (raytpu's RAYTPU_SORT_MIN_TRIS default)
+SORT_MIN_TRIS = 256
 
 
 def flatten_world_triangles(scene: SceneData):
@@ -101,15 +108,25 @@ def _bitcast_i32_to_f32(x: np.ndarray) -> np.ndarray:
 
 def pack_scene(scene: SceneData, device="cpu",
                leaf_size: int = LEAF_SIZE) -> ScenePack:
-    """Build the ScenePack (BVH and strand tree included) on ``device``.
+    """Build the ScenePack (both BVH layouts, and the strand tree above
+    256 slots) on ``device``.
 
     This is also where raytpu's numpy-level scene data crosses into the
     port: every table is the array raytpu's ``pack_scene(as_numpy=True)``
-    builds (the strand tree aside, which raytpu builds only above 256
-    slots), as a tensor on ``device``."""
+    builds, as a tensor on ``device``. Raises ValueError for a BVH8 too
+    deep for the packet walk's stack, as raytpu does."""
     p0, e1, e2, vi, mat, obj = flatten_world_triangles(scene)
 
-    bvh, _ = build_bvh(p0, e1, e2, leaf_size=leaf_size)
+    bvh, bvh8 = build_bvh(p0, e1, e2, leaf_size=leaf_size)
+
+    # the packet walk's per-ray stack must provably hold the deepest
+    # traversal (<= 8 pushes per level); reject pathological trees here
+    depth = bvh8_depth(bvh8.node_rows)
+    if 8 * depth + 8 > STACK_DEPTH:
+        raise ValueError(
+            f"BVH8 depth {depth} exceeds the packet kernel stack bound "
+            f"(needs {8 * depth + 8} slots, STACK_DEPTH={STACK_DEPTH})"
+        )
 
     # reorder triangles into BVH leaf order; -1 entries become degenerate
     # padding triangles (e1 = e2 = 0 can never be hit). Pad the slot count
@@ -228,8 +245,10 @@ def pack_scene(scene: SceneData, device="cpu",
         tex_size=conv(np.asarray(sizes, np.int32)),
         bvh=BvhPack(
             nodes=conv(nodes),
+            node8_rows=conv(bvh8.node_rows),
             leaf_tris=conv(leaf_tris),
-            strand_rows=conv(build_strand_tree(bvh).rows),
+            strand_rows=(conv(build_strand_tree(bvh).rows)
+                         if n_slots > SORT_MIN_TRIS else None),
         ),
         has_textures=len(scene.textures) > 0,
     )

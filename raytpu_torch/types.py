@@ -12,8 +12,12 @@ slice reads:
 * ``mat_table``   [M, 16]  metallic/roughness/emission/ior/texture ids + rgba
 * ``light_table`` [L, 8]   position + colour
 * ``bvh.nodes``   [N, 8]   bmin, bmax, miss link, leaf row (bitcast int32)
+* ``bvh.node8_rows`` [N8, 128]  the 8-wide BVH of the packet route: child k
+                           at columns 16k..16k+6 (bmin, bmax, then the link
+                           as int32 bits: child node, or ~leaf_row)
 * ``bvh.leaf_tris`` [Nl, 80]  8 triangles x (p0, e1, e2, pad) world space
-* ``bvh.strand_rows`` [ceil(N/2), 128]  the octant-threaded strand tree
+* ``bvh.strand_rows`` [ceil(N/2), 128]  the octant-threaded strand tree,
+                           or None (scenes of <= 256 slots have none)
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ class RenderConfig:
 
 
 def _to(obj, device):
-    """Copy of a tensor dataclass with every tensor field moved."""
+    """Copy of a tensor dataclass with every tensor field moved (None
+    fields stay None)."""
     return replace(obj, **{
         f.name: getattr(obj, f.name).to(device)
         for f in fields(obj)
@@ -57,8 +62,10 @@ def _to(obj, device):
 @dataclass(frozen=True)
 class BvhPack:
     nodes: torch.Tensor  # [N, 8] f32 (threaded layout; cols 6/7 bitcast i32)
+    node8_rows: torch.Tensor  # [N8, 128] f32 (BVH8; link cols bitcast i32)
     leaf_tris: torch.Tensor  # [Nl, 80] f32; slot of row j, lane k = 8j + k
-    strand_rows: torch.Tensor  # [ceil(N/2), 128] f32 (accel/strandtree.py)
+    # [ceil(N/2), 128] f32 (accel/strandtree.py); None up to 256 slots
+    strand_rows: Optional[torch.Tensor] = None
 
     def to(self, device) -> "BvhPack":
         return _to(self, device)

@@ -162,13 +162,17 @@ def test_bvh_and_strand_tree_copies_match_raytpu(which):
     _assert_same(rt_build_strand_tree(want).rows, tree.rows, "strand rows")
 
 
+_BVH_TABLES = ("nodes", "node8_rows", "leaf_tris", "strand_rows")
+
+
 def _torch_tables(pack):
-    """Every table of a raytpu_torch pack as numpy, by raytpu's names."""
+    """Every table of a raytpu_torch pack as numpy (None stays None), by
+    raytpu's names."""
     out = {k: getattr(pack, k).numpy() for k in (
         "tri_row", "object_linear", "mat_table", "light_table", "n_lights_f",
         "scene_bmin", "scene_bmax", "tex_atlas", "tex_size")}
-    out.update({k: getattr(pack.bvh, k).numpy() for k in (
-        "nodes", "leaf_tris", "strand_rows")})
+    out.update({k: None if getattr(pack.bvh, k) is None
+                else getattr(pack.bvh, k).numpy() for k in _BVH_TABLES})
     return out
 
 
@@ -176,28 +180,27 @@ def _raytpu_tables(pack):
     out = {k: np.asarray(getattr(pack, k)) for k in (
         "tri_row", "object_linear", "mat_table", "light_table", "n_lights_f",
         "scene_bmin", "scene_bmax", "tex_atlas", "tex_size")}
-    out.update({k: getattr(pack.bvh, k) for k in (
-        "nodes", "leaf_tris", "strand_rows")})
+    out.update({k: getattr(pack.bvh, k) for k in _BVH_TABLES})
     return out
 
 
 @pytest.mark.parametrize("name", ["gallery", "small", "small_plain"])
 def test_pack_tables_bit_equal_raytpu(name):
-    """Every table bit-equal to raytpu's numpy pack. raytpu builds the
-    strand tree only above 256 slots; below, the port's rows are held
-    against raytpu's build_strand_tree on raytpu's own BVH."""
+    """Every table bit-equal to raytpu's numpy pack, the BVH8 rows
+    included; like raytpu, the port builds the strand tree only above 256
+    slots and leaves it None below."""
     scene = raytpu.load_scene(scene_path(name))
     want = _raytpu_tables(rt_pack_scene(scene, as_numpy=True))
     pack = pack_scene(load_scene(scene_path(name)))
     got = _torch_tables(pack)
-    if want["strand_rows"] is None:
-        assert pack.n_triangles <= 256
-        bvh, _ = rt_build_bvh(*rt_flatten(scene)[:3])
-        want["strand_rows"] = rt_build_strand_tree(bvh).rows
+    if pack.n_triangles <= 256:
+        assert want["strand_rows"] is None and got["strand_rows"] is None
     else:
-        assert pack.n_triangles > 256
+        assert want["strand_rows"] is not None
     for k, a in want.items():
         b = got[k]
+        if a is None:
+            continue
         assert a.dtype == b.dtype and a.shape == b.shape, k
         # bit patterns: bitcast int columns and padding compare exactly
         np.testing.assert_array_equal(
@@ -206,7 +209,13 @@ def test_pack_tables_bit_equal_raytpu(name):
     assert pack.has_textures == (name != "small_plain")
     moved = pack.to("cpu")
     assert moved.has_textures == pack.has_textures
-    assert torch.equal(moved.bvh.strand_rows, pack.bvh.strand_rows)
+    # link columns hold int32 bits (~0 reads as a NaN): compare bits
+    assert torch.equal(moved.bvh.node8_rows.view(torch.int32),
+                       pack.bvh.node8_rows.view(torch.int32))
+    if pack.bvh.strand_rows is None:
+        assert moved.bvh.strand_rows is None
+    else:
+        assert torch.equal(moved.bvh.strand_rows, pack.bvh.strand_rows)
     assert torch.equal(moved.n_lights_f, pack.n_lights_f)
 
 

@@ -1,5 +1,7 @@
-"""The path-mode slice as a whole: raytpu_torch.engine.render against
-raytpu's engine on the CPU, and the CLI.
+"""The port's engine as a whole: raytpu_torch.engine.render against
+raytpu's engine on the CPU (the packet route for flat mode and scenes of
+<= 256 slots, the strand route for path waves above), its routing,
+``count_rays``, and the CLI.
 
 Frame tolerance: XLA:CPU contracts multiply-adds into FMAs and its
 sin/cos/sqrt differ from torch's in the last ulp, so most f32 pixels of
@@ -26,6 +28,7 @@ from raytpu_torch import cli
 from raytpu_torch.engine import render
 from raytpu_torch.io.png import write_png
 from raytpu_torch.kernels.intersect import intersect_bruteforce
+from raytpu_torch.kernels.packet import packet_query_cuda
 from raytpu_torch.kernels.strand import strand_query_cuda
 from raytpu_torch.scene.camera import camera_from_lookat, load_camera_json
 from raytpu_torch.scene.gltf import load_scene
@@ -34,6 +37,7 @@ from raytpu_torch.types import RenderConfig
 
 from .imgdiff import assert_images_equiv
 from .test_torch_host import AT, EYE, FOV, scene_path
+from .tools.glb_writer import GlbBuilder, box, quad
 
 CFG = dict(width=48, height=32, seed=11, samples=2, bounces=4,
            chunk_size=16)
@@ -139,11 +143,27 @@ def test_flat_mode_matches_raytpu():
 
 
 def test_brute_route_matches_strand_route():
-    (pack, cam), _ = _packs("small")
-    strand = render.render_frame(pack, cam, RenderConfig(**CFG))
+    (pack, cam), _ = _packs("gallery")
+    assert pack.bvh.strand_rows is not None
+    strand = render.render_frame(pack, cam,
+                                 RenderConfig(**CFG, intersector="strand"))
     brute = render.render_frame(pack, cam,
                                 RenderConfig(**CFG, intersector="brute"))
     _assert_png_equiv(strand, brute)
+
+
+def test_packet_route_matches_brute_route():
+    (pack, cam), _ = _packs("small")
+    assert pack.bvh.strand_rows is None
+    packet = render.render_frame(pack, cam,
+                                 RenderConfig(**CFG, intersector="packet"))
+    brute = render.render_frame(pack, cam,
+                                RenderConfig(**CFG, intersector="brute"))
+    assert _lit(packet) > 0.5
+    _assert_png_equiv(packet, brute)
+    with pytest.raises(ValueError, match="strand tree"):
+        render.render_tile(pack, cam, 0,
+                           RenderConfig(**CFG, intersector="strand"), 8)
 
 
 def test_tiles_stitch_to_the_frame():
@@ -156,12 +176,111 @@ def test_tiles_stitch_to_the_frame():
     assert rows == [12, 12, 8]
 
 
-@pytest.mark.parametrize("which", ["bvh", "packet", "binned"])
+@pytest.mark.parametrize("which", ["bvh", "binned"])
 def test_unported_routes_raise(which):
     (pack, cam), _ = _packs("small")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render.render_tile(pack, cam, 0, RenderConfig(**CFG, intersector=which),
                            8)
+
+
+def write_pbr_nee(path):
+    """bench.py's pbr+nee layout (BASELINE config 4): a diffuse backdrop,
+    metal/glass/diffuse boxes, an emissive panel and one light, viewed
+    through its glTF camera: all four material branches and NEE, 40
+    triangles."""
+    b = GlbBuilder()
+    diffuse = b.add_material(color=(0.7, 0.7, 0.7, 1), ior=1.1)
+    metal = b.add_material(color=(0.9, 0.8, 0.6, 1), metallic=1.0)
+    glass = b.add_material(color=(0.9, 0.9, 1.0, 1), ior=1.5)
+    glow = b.add_material(color=(1.0, 0.5, 0.2, 1), emission=6.0)
+    pos, nrm, uv, idx = quad(size=10.0)
+    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, diffuse, np.uint16)]),
+               translation=[0, 0, -4])
+    bp, bn, bu, bi = box()
+    for m, x in ((metal, -3.0), (glass, 0.0), (diffuse, 3.0)):
+        b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, m, np.uint32)]),
+                   translation=[x, 0, -1.5])
+    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, glow, np.uint16)]),
+               matrix=[0.2, 0, 0, 0, 0, 0.2, 0, 0, 0, 0, 0.2, 0, 0, 4, 0, 1])
+    b.add_node(light=b.add_light(intensity=50.0), translation=[0, 5, 8])
+    b.add_node(camera=b.add_camera(1.0, 0.8), translation=[0, 0, 12])
+    b.write(path)
+
+
+def test_pbr_nee_frame_matches_raytpu(tmp_path):
+    """The packet route through all four material branches and NEE,
+    against raytpu's default CPU route, at 32x32, 2 spp, 4 bounces."""
+    path = str(tmp_path / "pbr_nee.glb")
+    write_pbr_nee(path)
+    scene = load_scene(path)
+    pack = pack_scene(scene)
+    assert pack.n_triangles <= 256 and pack.bvh.strand_rows is None
+    cfg = dict(width=32, height=32, seed=1, samples=2, bounces=4,
+               chunk_size=32)
+    port = render.render_frame(pack, pack_camera(scene.camera),
+                               RenderConfig(**cfg))
+    rscene = raytpu.load_scene(path)
+    ref = rt_render.render_frame(rt_pack_scene(rscene),
+                                 rt_pack_camera(rscene.camera),
+                                 raytpu.RenderConfig(**cfg))
+    assert np.isfinite(port).all() and _lit(port) > 0.3
+    _assert_png_equiv(port, ref)
+
+
+def _spy(monkeypatch, calls):
+    """Wrap both intersector factories so every query records its route."""
+    def wrap(name, factory):
+        def make(pack):
+            fns = factory(pack)
+
+            def tag(fn, kind):
+                def query(*args):
+                    calls.add(f"{name} {kind}")
+                    return fn(*args)
+                return query
+            return tag(fns[0], "closest"), tag(fns[1], "any")
+        return make
+
+    monkeypatch.setattr(render, "make_packet_intersectors",
+                        wrap("packet", render.make_packet_intersectors))
+    monkeypatch.setattr(render, "make_strand_intersectors",
+                        wrap("strand", render.make_strand_intersectors))
+
+
+@pytest.mark.parametrize("name,mode,want", [
+    ("small", "path", {"packet closest", "packet any"}),
+    ("small", "flat", {"packet closest"}),
+    ("gallery", "flat", {"packet closest"}),
+    ("gallery", "path", {"strand closest", "strand any"}),
+])
+def test_auto_routes_like_raytpu_tpu_branch(monkeypatch, name, mode, want):
+    """"auto": packet for flat mode and every wave of a <= 256-slot scene,
+    strand for every path wave of a scene with a strand tree."""
+    calls = set()
+    _spy(monkeypatch, calls)
+    (pack, cam), _ = _packs(name)
+    cfg = RenderConfig(width=16, height=8, seed=2, samples=1, bounces=2,
+                       chunk_size=8, mode=mode)
+    frame = render.render_tile(pack, cam, 0, cfg, 8)
+    assert frame.shape == (8, 16, 4)
+    assert calls == want
+
+
+@pytest.mark.parametrize("name,tile_rows", [
+    ("small", None), ("small", 12), ("gallery", None), ("gallery", 12)])
+def test_count_rays_equals_raytpu(name, tile_rows):
+    """Exact: the same query count as raytpu's count_rays at 48x32 (tiles
+    of 12 rows leave padding rows in the last tile)."""
+    (pack, cam), (rpack, rcam) = _packs(name)
+    cfg = dict(CFG, tile_rows=tile_rows)
+    got = render.count_rays(pack, cam, RenderConfig(**cfg))
+    want = rt_render.count_rays(rpack, rcam, raytpu.RenderConfig(**cfg))
+    assert isinstance(got, int)
+    assert got == want
+    # at least every in-grid primary query, at most 1 + 2*bounces per lane
+    lanes = 48 * 32 * CFG["samples"]
+    assert lanes < got <= lanes * (1 + 2 * CFG["bounces"])
 
 
 def _cli_args(tmp_path, out="out.png", camera=True):
@@ -177,7 +296,7 @@ def _cli_args(tmp_path, out="out.png", camera=True):
 
 
 def test_cli_writes_the_rendered_png(tmp_path):
-    before = strand_query_cuda.launches
+    before = strand_query_cuda.launches, packet_query_cuda.launches
     assert cli.main(_cli_args(tmp_path)) == 0
     cfg = RenderConfig(width=40, height=24, seed=3, samples=1, bounces=2,
                        chunk_size=8)
@@ -189,7 +308,8 @@ def test_cli_writes_the_rendered_png(tmp_path):
     assert (tmp_path / "out.png").read_bytes() == (
         tmp_path / "want.png").read_bytes()
     assert _lit(frame) > 0.3
-    assert strand_query_cuda.launches == before  # CPU: the plain version
+    # CPU: the plain versions
+    assert (strand_query_cuda.launches, packet_query_cuda.launches) == before
     # without --camera the scene's glTF camera is used
     assert cli.main(_cli_args(tmp_path, "gltf.png", camera=False)) == 0
     assert (tmp_path / "gltf.png").stat().st_size > 0

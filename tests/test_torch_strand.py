@@ -142,13 +142,20 @@ def test_plain_walk_any_hit_matches_both_brutes(case):
 def _tie_scene():
     """40 small triangles plus 11 exact copies of triangle 0 (12 copies over
     two leaves), and 500 rays aimed at that triangle's centroid."""
+    bvh, _, per, order, ro, rd = _tie_geometry()
+    return build_strand_tree(bvh).rows, per, order, ro, rd
+
+
+def _tie_geometry():
+    """The tie scene's (bvh, bvh8, slot-ordered rows [S, 10], slot ->
+    triangle, ro, rd)."""
     r = np.random.default_rng(7)
     p0 = (r.random((40, 3), np.float32) - 0.5) * 10
     e1 = (r.normal(size=(40, 3)) * 0.3).astype(np.float32)
     e2 = (r.normal(size=(40, 3)) * 0.3).astype(np.float32)
     p0, e1, e2 = (np.concatenate([a, np.repeat(a[:1], 11, 0)])
                   for a in (p0, e1, e2))
-    bvh, _ = build_bvh(p0, e1, e2)
+    bvh, bvh8 = build_bvh(p0, e1, e2)
     order = bvh.tri_order
     per = np.zeros((order.shape[0], 10), np.float32)
     v = order >= 0
@@ -158,7 +165,7 @@ def _tie_scene():
     ro = (r.random((500, 3), np.float32) - 0.5) * 12
     rd = c - ro
     rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
-    return build_strand_tree(bvh).rows, per, order, ro, rd
+    return bvh, bvh8.node_rows, per, order, ro, rd
 
 
 def test_plain_walk_ties_break_to_lowest_slot():
