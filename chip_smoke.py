@@ -2,16 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from source (strand walk and the packet route's
-BVH8 walk, one nvcc each, in parallel), holds each bit for bit against its
-plain torch version, renders small frames (path and flat mode) on the card
-and on the CPU, then drives the entry point ``raytpu_torch.cli.main`` in
-this process, so each kernel's launch count can be read:
+Builds the CUDA kernels from source (strand walk, the packet route's
+BVH8 walk and the binned route's treelet walk, one nvcc each, in
+parallel), holds each bit for bit against its plain torch version (phases
+3, 3b, 3c), renders small frames on the card and on the CPU (phase 4, the
+packet route in path and flat mode; phase 4b, the binned route on a
+stream pack), then drives the entry points in this process, so each
+kernel's launch count can be read:
 
-* phase 5, the strand route: path mode at the repo's headline
-  configuration (1920x1080, 1 spp, 4 bounces, a 259k-triangle gallery);
-* phase 6, the packet route at bench.py's settings: (a) the pbr+nee scene,
-  (b) a cube stand-in, (c) flat mode on the gallery at 1920x1080.
+* phase 5, the strand route through ``raytpu_torch.cli.main``: path mode
+  at the repo's headline configuration (1920x1080, 1 spp, 4 bounces, a
+  259k-triangle gallery);
+* phase 6, the packet route through the CLI at bench.py's settings: (a)
+  the pbr+nee scene, (b) a cube stand-in, (c) flat mode on the gallery at
+  1920x1080;
+* phase 7a, the binned route at bench.py's config 6 shape through
+  ``pack_scene(tables="stream")`` and ``render_frame``: the gallery scaled
+  to 2.9M triangles at 640x360, 1 spp, 4 bounces;
+* phase 7b, deferred NEE beside the strand route: phase 5's scene and
+  configuration with ``bounce_backend="binned"``, held to phase 5's frame.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record and ``{"ok": true, "device":
@@ -45,6 +54,12 @@ KERNELS = {
         route="cuda",
         source="raytpu_torch/kernels/csrc/packet_walk.cu",
         replaces="raytpu/kernels/intersect_pallas.py:71",
+    ),
+    "binned": dict(
+        name="binned_walk",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/binned_walk.cu",
+        replaces="raytpu/kernels/binned.py:50",
     ),
 }
 F32_MAX = float(np.float32(3.40282347e38))
@@ -84,7 +99,7 @@ def soup_rays(n, seed):
 
 def tie_scene():
     """40 small triangles plus 11 exact copies of triangle 0 (12 copies
-    over two leaves) and 500 rays aimed at it: (bvh, BVH8 rows,
+    over two leaves) and 500 rays aimed at it: (bvh, bvh8,
     slot-ordered triangle rows [S, 10], slot -> triangle, ro, rd)."""
     from raytpu_torch.accel.bvh import build_bvh
 
@@ -104,7 +119,7 @@ def tie_scene():
     ro = (r.random((500, 3), np.float32) - 0.5) * 12
     rd = c - ro
     rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
-    return bvh, bvh8.node_rows, per, order, ro, rd
+    return bvh, bvh8, per, order, ro, rd
 
 
 def kernel_fns(which: str):
@@ -127,20 +142,36 @@ def kernel_fns(which: str):
     return lambda bvh, rows8: rows8, packet_query_cuda, packet_query_torch
 
 
-def reset_launches() -> None:
+def _wrappers() -> dict:
+    from raytpu_torch.kernels.binned import binned_walk_cuda
     from raytpu_torch.kernels.packet import packet_query_cuda
     from raytpu_torch.kernels.strand import strand_query_cuda
 
-    strand_query_cuda.launches = 0
-    packet_query_cuda.launches = 0
+    return dict(strand=strand_query_cuda, packet=packet_query_cuda,
+                binned=binned_walk_cuda)
+
+
+def reset_launches() -> None:
+    """Every launch count, and the binned queries' round counts, to 0."""
+    from raytpu_torch.kernels.binned import QUERY_STATS
+
+    for fn in _wrappers().values():
+        fn.launches = 0
+    QUERY_STATS.update(queries=0, rounds=0, max_rounds=0)
 
 
 def read_launches() -> dict:
-    from raytpu_torch.kernels.packet import packet_query_cuda
-    from raytpu_torch.kernels.strand import strand_query_cuda
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
-    return dict(strand=strand_query_cuda.launches,
-                packet=packet_query_cuda.launches)
+
+def rounds_note() -> str:
+    """The binned queries' round counts since the last reset."""
+    from raytpu_torch.kernels.binned import QUERY_STATS
+
+    q = QUERY_STATS
+    per = q["rounds"] / q["queries"] if q["queries"] else 0.0
+    return (f"{q['queries']} binned queries, {per:.2f} rounds per query "
+            f"(max {q['max_rounds']})")
 
 
 def t_err(a, b) -> float:
@@ -297,9 +328,9 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
                      f"{int((ark >= 0).sum())} blocked, vs brute "
                      f"{bad} closest / {bad_any} any-hit mismatches")
     # ties: 12 identical triangles over two leaves; the lowest slot wins
-    bvh, rows8, per, order, ro_np, rd_np = tie_scene()
+    bvh, bvh8, per, order, ro_np, rd_np = tie_scene()
     cu = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        tree_of(bvh, rows8), per.reshape(-1, 80), ro_np, rd_np,
+        tree_of(bvh, bvh8.node_rows), per.reshape(-1, 80), ro_np, rd_np,
         np.full(ro_np.shape[0], F32_MAX, np.float32))]
     _, tie_k = kernel(*cu, 0.001, False)
     hb = intersect_bruteforce(cu[2], cu[3], cu[1].reshape(-1, 10)[:, 0:3],
@@ -313,6 +344,131 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
           "rays (closest t/tri, any-hit blocked); " + "; ".join(notes))
     if total_bad:
         fail(f"{name}: {total_bad} kernel-vs-brute mismatches")
+
+
+def treelet_soup(ntri: int, budget: int):
+    """A soup cut into treelets at ``budget`` rows: (treelet arrays,
+    slot-ordered triangle rows [S, 10], slot -> triangle) as numpy."""
+    from raytpu_torch.accel.bvh import build_bvh
+    from raytpu_torch.accel.treelets import build_treelets
+
+    p0, e1, e2 = soup(ntri)
+    bvh, bvh8 = build_bvh(p0, e1, e2)
+    order = bvh.tri_order
+    per = np.zeros((order.shape[0], 10), np.float32)
+    v = order >= 0
+    per[v, 0:3], per[v, 3:6], per[v, 6:9] = (
+        p0[order[v]], e1[order[v]], e2[order[v]])
+    return build_treelets(bvh8, per.reshape(-1, 80), budget_rows=budget), \
+        per, order
+
+
+def tl_pack(tl, dev):
+    """The treelet tables as the attributes make_binned_query reads."""
+    import torch
+
+    return type("TreeletPack", (), {k: torch.from_numpy(
+        np.ascontiguousarray(getattr(tl, a))).to(dev) for k, a in (
+        ("tl_nodes", "tnodes"), ("tl_leaves", "tleaves"),
+        ("tl_bmin", "tbox_min"), ("tl_bmax", "tbox_max"))})
+
+
+def phase_binned_kernel(errs: list) -> None:
+    """Phase 3c: binned_walk vs its plain version on CUDA tensors (t bits
+    and tri) on 3 soups x 65536 rays, treelets at budgets 48 and 2048, each
+    ray on a random treelet, with closest, shadow and dead lanes and
+    random incoming best t and slots; then the whole binned query on the
+    card against the brute sweep on 4096 rays of each soup (closest t and
+    triangle, shadow blocked) and on the tie scene."""
+    import torch
+
+    from raytpu_torch.accel.treelets import build_treelets
+    from raytpu_torch.kernels.binned import (
+        binned_walk_cuda,
+        binned_walk_torch,
+        make_binned_query,
+    )
+    from raytpu_torch.kernels.intersect import (
+        intersect_any_bruteforce,
+        intersect_bruteforce,
+    )
+
+    dev = "cuda"
+    n = 65536
+    total_bad = 0
+    notes = []
+    reset_launches()
+    for ntri in (300, 3000, 30000):
+        for budget in (48, 2048):
+            tl, per, order = treelet_soup(ntri, budget)
+            rng = np.random.default_rng(ntri + budget)
+            ro_np, rd_np = soup_rays(n, seed=ntri)
+            shadow = rng.random(n) < 0.4
+            tmax = np.where(shadow, rng.uniform(1, 12, n), F32_MAX)
+            incoming = ~shadow & (rng.random(n) < 0.3)
+            tmax[incoming] = rng.uniform(1, 12, int(incoming.sum()))
+            tmax[::7] = -np.inf
+            tri0 = np.where(incoming, rng.integers(0, per.shape[0], n), -1)
+            tid = rng.integers(0, tl.n_treelets, n)
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in (tl.tnodes, tl.tleaves, tid.astype(np.int32),
+                              ro_np, rd_np, tmax.astype(np.float32),
+                              shadow.astype(np.float32),
+                              tri0.astype(np.int32))]
+            tk, trk = binned_walk_cuda(*args, 0.001, 0.0)
+            tp, trp = binned_walk_torch(*args, 0.001, 0.0)
+            torch.cuda.synchronize()
+            if not (same_bits(tk, tp) and torch.equal(trk, trp)):
+                fail(f"binned_walk {ntri} tris budget {budget}: kernel != "
+                     f"plain on {int((tk != tp).sum())} t, "
+                     f"{int((trk != trp).sum())} tri")
+            errs.append(t_err(tk, tp))
+            notes.append(f"{ntri} tris budget {budget}: {tl.n_treelets} "
+                         f"treelets, {int((trk >= 0).sum())} hits/blocked")
+        # the whole query on the card (treelets at budget 48) vs the sweep
+        tl, per, order = treelet_soup(ntri, 48)
+        ro = torch.from_numpy(ro_np[:4096]).to(dev)
+        rd = torch.from_numpy(rd_np[:4096]).to(dev)
+        smask = torch.zeros(4096, device=dev)
+        smask[1::2] = 1.0
+        tmax = torch.where(smask == 1.0, 6.0, F32_MAX)
+        tmax[3::10] = 5.0  # finite closest-hit bound (open)
+        tmax[::7] = float("-inf")
+        t, tri = make_binned_query(tl_pack(tl, dev))(
+            ro, rd, tmax, smask, tmin=0.001, shadow_tmin=0.0)
+        rows = torch.from_numpy(per).to(dev)
+        c = smask == 0.0
+        hb = intersect_bruteforce(ro[c], rd[c], rows[:, 0:3], rows[:, 3:6],
+                                  rows[:, 6:9], 0.001, tmax[c], chunk=8)
+        bad = brute_mismatches(t[c], tri[c], hb.t, hb.tri,
+                               torch.from_numpy(order).to(dev))
+        bb = intersect_any_bruteforce(ro[~c], rd[~c], rows[:, 0:3],
+                                      rows[:, 3:6], rows[:, 6:9], 0.0,
+                                      tmax[~c], chunk=8)
+        bad_any = int(((tri[~c] >= 0) != bb).sum())
+        total_bad += bad + bad_any
+        notes.append(f"query vs brute: {bad} closest / {bad_any} shadow "
+                     "mismatches")
+    # ties: 12 identical triangles over two leaves; the lowest slot wins
+    _, bvh8, per, order, ro_np, rd_np = tie_scene()
+    tl = build_treelets(bvh8, per.reshape(-1, 80))
+    ro, rd, rows = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in (ro_np, rd_np, per))
+    tmax = torch.full((ro_np.shape[0],), F32_MAX, device=dev)
+    _, tie_k = make_binned_query(tl_pack(tl, dev))(
+        ro, rd, tmax, torch.zeros_like(tmax), tmin=0.001, shadow_tmin=0.0)
+    hb = intersect_bruteforce(ro, rd, rows[:, 0:3], rows[:, 3:6],
+                              rows[:, 6:9], 0.001, tmax, chunk=8)
+    tie_bad = int((tie_k != hb.tri).sum())
+    total_bad += tie_bad
+    notes.append(f"tie scene: {tie_bad} slot mismatches")
+    torch.cuda.synchronize()
+    print(f"phase 3c binned_walk vs plain: bit-equal on 3 soups x 65536 "
+          f"rays x budgets 48/2048 (t/tri, mixed closest/shadow/dead lanes); "
+          + "; ".join(notes) + f"; {rounds_note()}, "
+          f"{read_launches()['binned']} binned_walk launches")
+    if total_bad:
+        fail(f"binned query: {total_bad} mismatches against the brute sweep")
 
 
 def _writer():
@@ -414,6 +570,97 @@ def phase_card_vs_cpu(tmp: str):
             fail(f"the card's {mode} frame did not take the packet route")
     print(f"phase 4 card vs cpu: {slots} slots, 64x64 2spp 4 bounces; "
           + "; ".join(notes))
+
+
+def png_diff(a, b) -> tuple:
+    """(PNG pixels that differ, their share, SSIM) of two f32 frames as the
+    PNGs the user gets (tests/imgdiff.py's bar: share <= 0.02, SSIM >=
+    0.99)."""
+    from raytpu_torch.io.metrics import ssim
+    from raytpu_torch.io.png import quantize_rgba32f
+
+    qa, qb = quantize_rgba32f(a), quantize_rgba32f(b)
+    diff = np.any(qa != qb, axis=-1)
+    return int(diff.sum()), float(diff.mean()), ssim(qa, qb)
+
+
+def with_budget(pack, scene, budget: int):
+    """The pack with its treelets rebuilt at ``budget`` rows."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.accel.bvh import build_bvh
+    from raytpu_torch.accel.treelets import build_treelets
+    from raytpu_torch.scene.pack import flatten_world_triangles
+
+    bvh8 = build_bvh(*flatten_world_triangles(scene)[:3])[1]
+    tl = build_treelets(bvh8, pack.bvh.leaf_tris.cpu().numpy(),
+                        budget_rows=budget)
+    dev = pack.device
+    return dataclasses.replace(pack, **{
+        k: torch.from_numpy(a).to(dev) for k, a in (
+            ("tl_nodes", tl.tnodes), ("tl_leaves", tl.tleaves),
+            ("tl_bmin", tl.tbox_min), ("tl_bmax", tl.tbox_max))})
+
+
+def phase_binned_card_vs_cpu(tmp: str):
+    """Phase 4b: a ~5,000-triangle gallery packed tables="stream",
+    rendered through intersector="binned" on the card and on the CPU at
+    64x64, 2 spp, 4 bounces, with the default treelets and rebuilt at
+    budget 64: the PNG pixels must agree within tests/imgdiff.py's bar,
+    and the card's frame must run every query through binned_walk."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.scene.camera import camera_from_lookat
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.types import RenderConfig
+
+    path = os.path.join(tmp, "gallery5k.glb")
+    write_gallery(path, cells=50)
+    scene = load_scene(path)
+    cam = camera_from_lookat([0, 2.5, -9], [0, -0.5, 0], 0.7, 64, 64)
+    packs = {dev: (pack_scene(scene, dev, tables="stream"),
+                   pack_camera(cam, dev)) for dev in ("cuda", "cpu")}
+    base = packs["cuda"][0]
+    if base.bvh.node8_rows is not None or base.tl_nodes is None:
+        fail("the stream pack kept its BVH8 rows or has no treelets")
+    cfg = RenderConfig(width=64, height=64, seed=3, samples=2, bounces=4,
+                       chunk_size=16, intersector="binned")
+    notes = []
+    for label, budget in (("default treelets", None), ("budget 64", 64)):
+        if budget is not None:
+            packs = {dev: (with_budget(packs[dev][0], scene, budget),
+                           packs[dev][1]) for dev in packs}
+        reset_launches()
+        t0 = time.perf_counter()
+        card = render_frame(*packs["cuda"], cfg)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = read_launches()
+        rounds = rounds_note()
+        t0 = time.perf_counter()
+        cpu = render_frame(*packs["cpu"], cfg)
+        cpu_s = time.perf_counter() - t0
+        n_diff, frac, s = png_diff(card, cpu)
+        raw = float(np.any(card != cpu, axis=-1).mean())
+        lit = float((card.max(-1) > 0).mean())
+        notes.append(
+            f"{label} ({packs['cuda'][0].tl_nodes.shape[0]} treelets): "
+            f"{n_diff} PNG pixels differ ({frac:.4f}; {raw:.4f} of f32 "
+            f"pixels), SSIM {s:.5f}, {lit:.3f} non-black, card {card_s:.2f} "
+            f"s / cpu {cpu_s:.2f} s, {counts['binned']} binned_walk / "
+            f"{counts['strand']} strand_walk / {counts['packet']} packet_walk "
+            f"launches, {rounds}")
+        if frac > 0.02 or s < 0.99 or lit < 0.1:
+            fail(f"card and CPU binned frames disagree ({label})")
+        if counts["binned"] == 0 or counts["strand"] or counts["packet"]:
+            fail(f"the card's binned frame did not run on binned_walk alone "
+                 f"({label})")
+    print(f"phase 4b binned card vs cpu: {base.n_triangles} slots, stream "
+          "pack, 64x64 2spp 4 bounces; " + "; ".join(notes))
 
 
 def read_png_rgb(path: str) -> np.ndarray:
@@ -531,7 +778,8 @@ def phase_main(tmp: str, errs: list) -> dict:
 
     t0 = time.perf_counter()
     scene = load_scene(glb)
-    pack = pack_scene(scene, "cuda")
+    with timed_treelets() as tl_s:
+        pack = pack_scene(scene, "cuda")
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     n_tris = sum(int(scene.prim_index_count[p]) // 3
@@ -541,7 +789,7 @@ def phase_main(tmp: str, errs: list) -> dict:
     frame_s = []
     for _ in range(2):
         t0 = time.perf_counter()
-        render_frame(pack, cam, cfg)
+        frame = render_frame(pack, cam, cfg)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
 
@@ -550,11 +798,11 @@ def phase_main(tmp: str, errs: list) -> dict:
     ms, plain_ms, bad = wave_check("strand", pack.bvh.strand_rows, pack, ro,
                                    rd, errs)
     print(f"phase 5 main path: {n_tris} triangles ({pack.n_triangles} slots), "
-          f"pack {pack_s:.2f} s, frame 1 {frame_s[0]:.3f} s, frame 2 "
-          f"{frame_s[1]:.3f} s at {w}x{h} 1spp 4 bounces; primary wave "
-          f"{ro.shape[0]} rays: strand_walk {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms, bit-equal; vs brute on 4096 rays: {bad} "
-          "mismatches")
+          f"pack {pack_s:.2f} s (treelets {sum(tl_s):.2f} s of it), frame 1 "
+          f"{frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s at {w}x{h} 1spp 4 "
+          f"bounces; primary wave {ro.shape[0]} rays: strand_walk {ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on 4096 rays: "
+          f"{bad} mismatches")
     if bad:
         fail("primary wave: strand_walk disagrees with the brute sweep")
 
@@ -571,7 +819,29 @@ def phase_main(tmp: str, errs: list) -> dict:
     if counts["strand"] == 0 or counts["packet"] != 0:
         fail("the path waves of a >256-slot scene did not all take strand_walk")
     return dict(launches=counts["strand"], ms=ms, plain_ms=plain_ms,
-                glb=glb, cam_json=cam_json)
+                glb=glb, cam_json=cam_json, pack=pack, cam=cam, frame=frame)
+
+
+class timed_treelets:
+    """Context manager: the seconds of every treelet build that
+    ``pack_scene`` runs inside it, as a list."""
+
+    def __enter__(self):
+        from raytpu_torch.scene import pack as pack_mod
+
+        self.mod, self.real, self.secs = pack_mod, pack_mod.build_treelets, []
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            self.secs.append(time.perf_counter() - t0)
+            return out
+
+        pack_mod.build_treelets = timed
+        return self.secs
+
+    def __exit__(self, *exc):
+        self.mod.build_treelets = self.real
 
 
 def write_pbr_nee(path: str):
@@ -698,8 +968,171 @@ def phase_packet_route(tmp: str, main_rec: dict, errs: list) -> dict:
                 ms=cells[2]["ms"], plain_ms=cells[2]["plain_ms"])
 
 
+class recorded_walks:
+    """Context manager: the arguments of every treelet walk the binned
+    queries run inside it, as a list (the round loop looks the dispatcher
+    up at each call)."""
+
+    def __enter__(self):
+        from raytpu_torch.kernels import binned as binned_mod
+
+        self.mod, self.real, self.calls = (binned_mod, binned_mod.binned_walk,
+                                           [])
+
+        def record(*args):
+            self.calls.append(args)
+            return self.real(*args)
+
+        binned_mod.binned_walk = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.binned_walk = self.real
+
+
+def phase_stream(tmp: str, errs: list) -> dict:
+    """Phase 7a: the binned route at bench.py's config 6 shape
+    (bench.py:421-440): the gallery scaled to ~2.9M triangles, packed
+    tables="stream", 640x360, 1 spp, 4 bounces, chunk 8, seed 1,
+    intersector="binned", through render_frame. The largest binned_walk
+    launch of a frame is replayed through the kernel and its plain
+    version; the primary wave's binned closest hits are held to the
+    strand walk's on the same pack."""
+    import torch
+
+    from raytpu_torch.engine.render import count_rays, render_frame
+    from raytpu_torch.kernels.binned import (
+        binned_walk_cuda,
+        binned_walk_torch,
+        make_binned_intersectors,
+    )
+    from raytpu_torch.kernels.strand import make_strand_intersectors
+    from raytpu_torch.scene.camera import camera_from_lookat
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.types import RenderConfig
+
+    glb = os.path.join(tmp, "gallery_stream.glb")
+    write_gallery(glb, cells=1200)
+    w, h = 640, 360
+    t0 = time.perf_counter()
+    scene = load_scene(glb)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with timed_treelets() as tl_s:
+        pack = pack_scene(scene, "cuda", tables="stream")
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    n_tris = sum(int(c) // 3 for c in scene.prim_index_count)
+    n_tl, sn = pack.tl_nodes.shape[0], pack.tl_nodes.shape[1]
+    sl = pack.tl_leaves.shape[1]
+    tl_mb = (pack.tl_nodes.numel() + pack.tl_leaves.numel()) * 4 / 2**20
+    print(f"phase 7a pack: {n_tris} triangles ({pack.n_triangles} slots), "
+          f"glb load {load_s:.2f} s, pack_scene(tables='stream') "
+          f"{pack_s:.2f} s")
+    print(f"phase 7a treelets: built in {sum(tl_s):.2f} s; T {n_tl}, Sn {sn}, "
+          f"Sl {sl}; tl_nodes + tl_leaves {tl_mb:.1f} MB")
+    if pack.bvh.node8_rows is not None or pack.bvh.strand_rows is None:
+        fail("the stream pack kept its BVH8 rows or lost its strand tree")
+    cam = pack_camera(camera_from_lookat(
+        GALLERY_CAM["origin"], GALLERY_CAM["at"], GALLERY_CAM["fov"], w, h),
+        "cuda")
+    cfg = RenderConfig(width=w, height=h, seed=1, samples=1, bounces=4,
+                       chunk_size=8, intersector="binned")
+    frame_s = []
+    for i in range(2):
+        reset_launches()
+        with recorded_walks() as calls:
+            t0 = time.perf_counter()
+            frame = render_frame(pack, cam, cfg)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+        counts = read_launches()
+        rounds = rounds_note()
+    rays = count_rays(pack, cam, cfg)
+    lit = float((frame.max(-1) > 0).mean())
+    print(f"phase 7a frame: {w}x{h} 1spp 4 bounces, intersector='binned': "
+          f"frame 1 {frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s, "
+          f"count_rays {rays}, {rays / frame_s[1]:.4g} rays/s; "
+          f"{counts['binned']} binned_walk / {counts['strand']} strand_walk "
+          f"/ {counts['packet']} packet_walk launches; {rounds}; "
+          f"{lit:.3f} non-black")
+    if not np.isfinite(frame).all() or lit <= 0.10:
+        fail("phase 7a frame is not finite or mostly black")
+    if counts["binned"] == 0 or counts["strand"] or counts["packet"]:
+        fail("phase 7a did not run every query on binned_walk")
+
+    # the frame's launches: the kernel on each, the plain version on the
+    # largest (CUDA events)
+    sizes = [a[3].shape[0] for a in calls]
+    kernel_ms = [cuda_ms(lambda a=a: binned_walk_cuda(*a), reps=3)
+                 for a in calls]
+    big = calls[int(np.argmax(sizes))]
+    ms = kernel_ms[int(np.argmax(sizes))]
+    plain_ms = cuda_ms(lambda: binned_walk_torch(*big), reps=1)
+    tk, trk = binned_walk_cuda(*big)
+    tp, trp = binned_walk_torch(*big)
+    if not (same_bits(tk, tp) and torch.equal(trk, trp)):
+        fail("phase 7a: binned_walk != its plain version on a frame launch")
+    errs.append(t_err(tk, tp))
+    # primary wave: binned closest vs the strand walk on the same pack
+    ro, rd = primary_wave(cam, w, h, 8, 1)
+    tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
+    hb = make_binned_intersectors(pack)[0](ro, rd, 0.001, tmax)
+    hs = make_strand_intersectors(pack)[0](ro, rd, 0.001, tmax)
+    torch.cuda.synchronize()
+    bad = int((hb.tri != hs.tri).sum()) + int((hb.valid & (
+        hb.t.view(torch.int32) != hs.t.view(torch.int32))).sum())
+    print(f"phase 7a kernel: {len(calls)} launches in frame 2, "
+          f"{sum(sizes)} rays, kernel {sum(kernel_ms):.3f} ms in all; "
+          f"largest launch {max(sizes)} rays: binned_walk {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, bit-equal; primary wave {ro.shape[0]} rays: "
+          f"{int(hb.valid.sum())} hits, {bad} mismatches against strand_walk")
+    if bad:
+        fail("phase 7a: binned closest hits differ from the strand walk's")
+    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms)
+
+
+def phase_deferred(main_rec: dict) -> None:
+    """Phase 7b: phase 5's pack and configuration with
+    intersector="packet", bounce_backend="binned" (strand primary and last
+    shadow waves, deferred NEE in binned mixed bounces); its PNG against
+    phase 5's within tests/imgdiff.py's bar."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.types import RenderConfig
+
+    pack, cam = main_rec["pack"], main_rec["cam"]
+    cfg = RenderConfig(**MAIN_ARGS, intersector="packet",
+                       bounce_backend="binned")
+    frame_s = []
+    for _ in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        frame = render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        counts = read_launches()
+        rounds = rounds_note()
+    n_diff, frac, s = png_diff(frame, main_rec["frame"])
+    lit = float((frame.max(-1) > 0).mean())
+    print(f"phase 7b deferred NEE: {pack.n_triangles} slots "
+          f"({pack.tl_nodes.shape[0]} treelets), 1920x1080 1spp 4 bounces, "
+          f"intersector='packet' bounce_backend='binned': frame 1 "
+          f"{frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s; "
+          f"{counts['strand']} strand_walk / {counts['binned']} binned_walk / "
+          f"{counts['packet']} packet_walk launches; {rounds}; vs phase 5's "
+          f"frame: {n_diff} PNG pixels differ ({frac:.5f}), SSIM {s:.5f}; "
+          f"{lit:.3f} non-black")
+    if frac > 0.02 or s < 0.99:
+        fail("phase 7b frame disagrees with phase 5's")
+    if counts["strand"] == 0 or counts["binned"] == 0 or counts["packet"]:
+        fail("phase 7b did not take strand primary waves and binned bounces")
+
+
 def main() -> int:
-    errs: dict = {"strand": [], "packet": []}
+    errs: dict = {"strand": [], "packet": [], "binned": []}
     try:
         import raytpu_torch  # noqa: F401
     except ImportError as e:
@@ -712,11 +1145,15 @@ def main() -> int:
     phase_build()
     phase_kernel(errs["strand"], "strand", "3")
     phase_kernel(errs["packet"], "packet", "3b")
+    phase_binned_kernel(errs["binned"])
     with tempfile.TemporaryDirectory() as tmp:
         phase_card_vs_cpu(tmp)
+        phase_binned_card_vs_cpu(tmp)
         recs = {"strand": phase_main(tmp, errs["strand"])}
         recs["packet"] = phase_packet_route(tmp, recs["strand"],
                                             errs["packet"])
+        recs["binned"] = phase_stream(tmp, errs["binned"])
+        phase_deferred(recs["strand"])
     print(json.dumps({"kernels": [dict(
         KERNELS[k], launches=recs[k]["launches"], max_abs_err=max(errs[k]),
         ms=recs[k]["ms"], plain_ms=recs[k]["plain_ms"],

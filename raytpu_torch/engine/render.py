@@ -14,8 +14,12 @@ jittered camera rays, then ``_trace_paths`` (path mode) or ``_flat_shade``
 of a scene of <= 256 triangle slots go through the packet route's BVH8
 walk; every path-mode wave of a larger scene goes through the strand
 walk, with the rays coherence-sorted before each query except the primary
-one. Either kernel runs as CUDA on a CUDA device and as its plain version
-on the CPU. ``_shade_core`` shades the hits.
+one. A stream pack (no BVH8) takes the strand route, or the binned
+treelet route when it has no strand tree. The binned route, and
+``bounce_backend="binned"``, defer each bounce's shadow rays into the next
+bounce's mixed binned query (``_mixed_bounce_query``). Every kernel runs
+as CUDA on a CUDA device and as its plain version on the CPU.
+``_shade_core`` shades the hits.
 
 Reference quirks reproduced on purpose (as in raytpu):
 
@@ -46,6 +50,7 @@ from ..kernels.intersect import (
     intersect_any_bruteforce,
     intersect_bruteforce,
 )
+from ..kernels.binned import make_binned_intersectors, make_binned_query
 from ..kernels.packet import make_packet_intersectors
 from ..kernels.strand import make_strand_intersectors
 from ..kernels.texture import sample_bilinear
@@ -225,6 +230,32 @@ def _sorted_query(fn, pack, ro, rd, tmin, tmax, alive, returns_hit):
     return blocked
 
 
+def _mixed_bounce_query(mixed_fn, pack, ro, rd, alive, s_ro, s_rd, s_dist,
+                        s_on):
+    """One sorted mixed query serving a bounce's continuation rays AND the
+    previous bounce's deferred shadow rays (raytpu's
+    ``_mixed_bounce_query``): both sets are concatenated, coherence-sorted
+    together with ``_ray_sort_key`` and walked in one call; only ``tri``
+    is unsorted (shading recomputes everything from the triangle).
+    Returns (Hit for the continuation rays, blocked for the shadow rays)."""
+    r = ro.shape[0]
+    aro = torch.cat([ro, s_ro])
+    ard = torch.cat([rd, s_rd])
+    atm = torch.cat([torch.where(alive, F32_MAX, NEG_INF),
+                     torch.where(s_on, s_dist, NEG_INF)])
+    smask = torch.cat([torch.zeros(r, device=ro.device),
+                       torch.ones(r, device=ro.device)])
+    perm = torch.sort(_ray_sort_key(pack, aro, ard, torch.cat([alive, s_on])),
+                      stable=True)[1]
+    _, tri = mixed_fn(aro[perm], ard[perm], atm[perm], smask[perm],
+                      tmin=0.001, shadow_tmin=0.0)
+    tri_u = torch.empty_like(tri)
+    tri_u[perm] = tri
+    hit = Hit(t=torch.zeros(r, device=ro.device), tri=tri_u[:r],
+              valid=tri_u[:r] >= 0)
+    return hit, tri_u[r:] >= 0
+
+
 def _shade_core(pack: ScenePack, ro, rd, hit, rng, active):
     """The megakernel's per-bounce shading body (src/shader.wgsl:339-374
     up to the shadow query): face-forward + hit point + base colour +
@@ -329,7 +360,7 @@ def _shade_core(pack: ScenePack, ro, rd, hit, rng, active):
 
 def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
                  bounces: int, mask=None, sort_bounced=False,
-                 bounce_pair=None, count_mask=None):
+                 bounce_pair=None, count_mask=None, mixed_fn=None):
     """One full path per lane: the reference's ``pixel_color``
     (src/shader.wgsl:321-381), vectorised with masks. ``mask`` restricts
     which lanes trace at all (lanes outside return 0 radiance). Query
@@ -338,6 +369,14 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     strand pair) is given, every wave uses it: primary, shadow and bounce,
     as raytpu does by default. The bounce loop stops once no lane is alive
     (a bounce over dead lanes changes nothing).
+
+    With ``mixed_fn`` (a binned query) NEE is deferred, as raytpu's
+    ``use_mixed`` branch does it: bounce b's shadow rays ride bounce
+    b+1's continuation query in one mixed call (``_mixed_bounce_query``),
+    and the last bounce's shadow rays go through ``any_hit`` after the
+    loop. Each lane's pending NEE radiance lands before the next bounce's
+    emissive term, the reference's per-lane order, so the image is the
+    immediate schedule's up to triangle ties.
 
     With ``count_mask`` also returns the number of ray queries issued by
     masked lanes, as a Python int: 1 primary + 2 per bounce iteration a
@@ -354,17 +393,29 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     alive = torch.ones(r, dtype=torch.bool, device=dev)
     if mask is not None:
         alive = alive & mask
+    pend = None  # the deferred shadow rays: (p, ldir, dist, contrib, on)
 
     for b in range(bounces):
         if not bool(alive.any()):
             break
-        # dead lanes get tmax = -inf: no query may produce hits for them
-        tmax = torch.where(alive, F32_MAX, NEG_INF)
-        if sort_bounced and b > 0:
-            hit = _sorted_query(closest, pack, ro, rd, 0.001, tmax, alive,
-                                True)
+        if pend is not None:
+            # continuation + the previous bounce's shadow rays in ONE
+            # query; the deferred NEE lands BEFORE this bounce's emissive
+            # term (reference order)
+            p_p, p_dir, p_dist, p_contrib, p_on = pend
+            hit, blocked = _mixed_bounce_query(mixed_fn, pack, ro, rd, alive,
+                                               p_p, p_dir, p_dist, p_on)
+            radiance = radiance + torch.where(
+                (p_on & ~blocked)[:, None], p_contrib, 0.0
+            )
         else:
-            hit = closest(ro, rd, 0.001, tmax)
+            # dead lanes get tmax = -inf: no query may produce hits for them
+            tmax = torch.where(alive, F32_MAX, NEG_INF)
+            if sort_bounced and b > 0:
+                hit = _sorted_query(closest, pack, ro, rd, 0.001, tmax, alive,
+                                    True)
+            else:
+                hit = closest(ro, rd, 0.001, tmax)
         active = alive & hit.valid
 
         sh = _shade_core(pack, ro, rd, hit, rng, active)
@@ -376,15 +427,15 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
         )
 
         # --- next-event estimation visibility (:370-374) ---
-        shadow_tmax = torch.where(bounce_on, sh["dist"], NEG_INF)
-        if sort_bounced:
-            blocked = _sorted_query(any_hit, pack, sh["p"], sh["ldir"], 0.0,
-                                    shadow_tmax, bounce_on, False)
+        if mixed_fn is not None:
+            # the contribution is fixed here; only its visibility test
+            # waits for the next query
+            pend = (sh["p"], sh["ldir"], sh["dist"], sh["contrib"],
+                    bounce_on)
         else:
-            blocked = any_hit(sh["p"], sh["ldir"], 0.0, shadow_tmax)
-        radiance = radiance + torch.where(
-            (bounce_on & ~blocked)[:, None], sh["contrib"], 0.0
-        )
+            radiance = radiance + _nee(pack, any_hit, sh["p"], sh["ldir"],
+                                       sh["dist"], sh["contrib"], bounce_on,
+                                       sort_bounced)
 
         # continue the path (:376-377)
         ro = torch.where(bounce_on[:, None], sh["p"], ro)
@@ -392,9 +443,24 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
         alive = bounce_on
         if n_rays is not None:
             n_rays += 2 * int((alive & count_mask).sum())
+    if pend is not None and bool(pend[4].any()):
+        # the last bounce's shadow wave, alone (raytpu's resolve_last)
+        radiance = radiance + _nee(pack, any_hit, *pend, sort_bounced)
     if n_rays is not None:
         return radiance * attenuation, rng, n_rays
     return radiance * attenuation, rng
+
+
+def _nee(pack, any_hit, p, ldir, dist, contrib, on, sort_bounced):
+    """Next-event radiance: ``contrib`` where the shadow ray from ``p``
+    towards the light reaches it (an any-hit query over [0, dist])."""
+    shadow_tmax = torch.where(on, dist, NEG_INF)
+    if sort_bounced:
+        blocked = _sorted_query(any_hit, pack, p, ldir, 0.0, shadow_tmax, on,
+                                False)
+    else:
+        blocked = any_hit(p, ldir, 0.0, shadow_tmax)
+    return torch.where((on & ~blocked)[:, None], contrib, 0.0)
 
 
 def _flat_shade(pack: ScenePack, closest, ro, rd):
@@ -414,40 +480,81 @@ def _flat_shade(pack: ScenePack, closest, ro, rd):
 # item that ports each
 _NOT_PORTED = {
     "bvh": "ROADMAP 1.10 (threaded-BVH walk)",
-    "binned": "ROADMAP 1.15 (binned kernel)",
 }
 
 
 def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     """Resolve config.intersector to ((closest, any), packet_mode,
-    bounce_pair), as raytpu's TPU branch does.
+    mixed_fn, prefer_mixed, bounce_pair), as raytpu's TPU branch does.
 
-    "auto" and "packet" give the packet route's pair; ``bounce_pair`` is
+    "auto" is "packet" on a pack with the BVH8 rows; on a stream pack it
+    is "strand" when the pack has a strand tree, else "binned" when it has
+    treelets. "packet" gives the packet route's pair; ``bounce_pair`` is
     the strand pair when the pack has a strand tree (> 256 slots), else
     None, and ``_trace_paths`` then sends every path-mode wave through it.
-    raytpu's VMEM budget check has no counterpart: on the card every table
-    lives in global memory. "strand" uses the strand pair everywhere and
-    raises on a pack without a tree. Each kernel is the CUDA one for a
-    pack on a CUDA device, its plain version on the CPU; both walk rays in
-    32x32-block order. "brute" is the torch sweep in row order."""
+    With ``bounce_backend="binned"`` ``mixed_fn`` is the binned query,
+    which carries the deferred-NEE bounces. raytpu's VMEM budget check has
+    no counterpart: on the card every table lives in global memory.
+    "strand" uses the strand pair everywhere and raises on a pack without
+    a tree. "binned" runs every query through the treelets, with
+    ``prefer_mixed`` set (deferred NEE above 256 slots). Each kernel is the
+    CUDA one for a pack on a CUDA device, its plain version on the CPU;
+    all walk rays in 32x32-block order. "brute" is the torch sweep in row
+    order."""
     which = config.intersector
-    if config.bounce_backend != "sorted":
+    if config.bounce_backend == "mixed":
         raise NotImplementedError(
-            f"bounce_backend={config.bounce_backend!r} is not ported; "
-            "only 'sorted' runs"
+            "bounce_backend='mixed' is a retired raytpu arm (ROADMAP: Arms "
+            "not to port); use 'sorted' or 'binned'"
         )
+    if config.bounce_backend not in ("sorted", "binned"):
+        raise ValueError(f"unknown bounce_backend {config.bounce_backend!r}")
     if which in _NOT_PORTED:
         raise NotImplementedError(
             f"intersector={which!r} is not ported yet: {_NOT_PORTED[which]}"
         )
-    if which in ("auto", "packet"):
+    if which == "auto":
+        if pack.bvh.node8_rows is not None:
+            which = "packet"
+        elif pack.bvh.strand_rows is not None:
+            which = "strand"
+        elif pack.tl_nodes is not None:
+            which = "binned"
+        else:
+            raise ValueError("the pack has neither BVH8 rows, a strand tree "
+                             "nor treelets: nothing to route through")
+    if which == "binned":
+        if pack.tl_nodes is None:
+            raise ValueError(
+                "intersector='binned' needs treelet tables; pack the "
+                "scene with treelets='always' (or 'auto' above 4096 "
+                "triangles)"
+            )
+        return (make_binned_intersectors(pack), True, make_binned_query(pack),
+                True, None)
+    if which == "packet":
+        if pack.bvh.node8_rows is None:
+            raise ValueError(
+                "intersector='packet' needs the BVH8 rows, which a "
+                "tables='stream' pack drops; use 'auto', 'strand' or "
+                "'binned'"
+            )
+        mixed = None
+        if config.bounce_backend == "binned":
+            if pack.tl_nodes is None:
+                raise ValueError(
+                    "bounce_backend='binned' needs treelet tables; pack "
+                    "the scene with treelets='always' (or 'auto' above "
+                    "4096 triangles)"
+                )
+            mixed = make_binned_query(pack)
         bounce_pair = None
         if pack.bvh.strand_rows is not None:
             bounce_pair = make_strand_intersectors(pack)
-        return make_packet_intersectors(pack), True, bounce_pair
+        return make_packet_intersectors(pack), True, mixed, False, bounce_pair
     if which == "strand":
         pair = make_strand_intersectors(pack)
-        return pair, True, pair
+        return pair, True, None, False, pair
     if which == "brute":
         def closest(ro, rd, tmin, tmax):
             return intersect_bruteforce(
@@ -459,8 +566,22 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
                 ro, rd, pack.tri_p0, pack.tri_e1, pack.tri_e2, tmin, tmax
             )
 
-        return (closest, any_hit), False, None
+        return (closest, any_hit), False, None, False, None
     raise ValueError(f"unknown intersector {which!r}")
+
+
+def _route(pack: ScenePack, config: RenderConfig):
+    """(closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair)
+    for one tile: ``mixed_fn`` is None unless the waves are sorted and the
+    route prefers deferred NEE or ``bounce_backend`` is "binned" (raytpu's
+    ``use_mixed`` rule)."""
+    (closest, any_hit), packet_mode, mixed_fn, prefer_mixed, bounce_pair = (
+        _choose_intersectors(pack, config))
+    sort_bounced = packet_mode and pack.n_triangles > SORT_MIN_TRIS
+    use_mixed = sort_bounced and (prefer_mixed
+                                  or config.bounce_backend == "binned")
+    return (closest, any_hit, packet_mode, sort_bounced,
+            mixed_fn if use_mixed else None, bounce_pair)
 
 
 def _pixel_layout(w: int, tile_h: int, packet_mode: bool, device):
@@ -501,8 +622,8 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
     on the pack's device. ``seed`` overrides config.seed."""
     w, h = config.width, config.height
     dev = pack.device
-    (closest, any_hit), packet_mode, bounce_pair = _choose_intersectors(
-        pack, config)
+    closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair = (
+        _route(pack, config))
     px, py_local, unpermute = _pixel_layout(w, tile_h, packet_mode, dev)
     py = y0 + py_local
     rng = rngk.seed_pixels(px, py, w, config.chunk_size,
@@ -513,7 +634,6 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
 
     pxf = px.to(torch.float32)
     pyf = py.to(torch.float32)
-    sort_bounced = packet_mode and pack.n_triangles > SORT_MIN_TRIS
     acc = torch.zeros((px.shape[0], 4), dtype=torch.float32, device=dev)
     for _ in range(config.samples):
         # per-pixel jitter: + vec2(rand(), rand()) (src/shader.wgsl:413)
@@ -527,7 +647,7 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
             color, rng = _trace_paths(
                 pack, closest, any_hit, ro, rd, rng, config.bounces,
                 mask=in_grid, sort_bounced=sort_bounced,
-                bounce_pair=bounce_pair,
+                bounce_pair=bounce_pair, mixed_fn=mixed_fn,
             )
         acc = acc + color
     img = acc / float(config.samples)
@@ -555,8 +675,8 @@ def _count_tile(pack: ScenePack, camera: CameraPack, y0: int,
                 config: RenderConfig, tile_h: int, valid_rows: int) -> int:
     w, h = config.width, config.height
     dev = pack.device
-    (closest, any_hit), packet_mode, bounce_pair = _choose_intersectors(
-        pack, config)
+    closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair = (
+        _route(pack, config))
     px, py_local, _ = _pixel_layout(w, tile_h, packet_mode, dev)
     py = y0 + py_local
     rng = rngk.seed_pixels(px, py, w, config.chunk_size, config.seed)
@@ -566,7 +686,6 @@ def _count_tile(pack: ScenePack, camera: CameraPack, y0: int,
         py < y0 + valid_rows)
     pxf = px.to(torch.float32)
     pyf = py.to(torch.float32)
-    sort_bounced = packet_mode and pack.n_triangles > SORT_MIN_TRIS
     total = 0
     for _ in range(config.samples):
         rng, jx = rngk.rand(rng)
@@ -576,7 +695,7 @@ def _count_tile(pack: ScenePack, camera: CameraPack, y0: int,
         _, rng, n = _trace_paths(
             pack, closest, any_hit, ro, rd, rng, config.bounces,
             mask=in_grid, sort_bounced=sort_bounced,
-            bounce_pair=bounce_pair, count_mask=in_grid,
+            bounce_pair=bounce_pair, count_mask=in_grid, mixed_fn=mixed_fn,
         )
         total += n
     return total

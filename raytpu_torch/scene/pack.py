@@ -10,13 +10,17 @@ numpy and then placed on the requested device:
 * **BVH leaf ordering.** Triangles are stored in BVH leaf order with
   ``leaf_size`` alignment and degenerate padding, so a leaf visit reads
   one contiguous row of ``leaf_tris``.
-* **Two traversal layouts.** The 8-wide BVH (``node8_rows``) is kept for
-  every scene: the packet route walks it for flat mode and for every wave
-  of a scene of <= 256 slots. Its depth is checked against the packet
-  walk's stack bound here, as raytpu does. The octant-threaded strand
-  tree is built only above 256 slots (raytpu's bounce-sort threshold),
-  where it serves every path-mode wave; smaller scenes have none. Per-ray
-  results do not depend on the route: ties break to the lowest slot.
+* **Traversal layouts.** The 8-wide BVH (``node8_rows``) serves the
+  packet route (flat mode and every wave of a scene of <= 256 slots). Its
+  depth is checked against the packet walk's stack bound here, as raytpu
+  does. The octant-threaded strand tree is built only above 256 slots
+  (raytpu's bounce-sort threshold), where it serves every path-mode wave.
+  The binned route's treelet windows (accel/treelets.py) are built above
+  4096 slots, or as ``treelets=`` says. Per-ray results do not depend on
+  the route: ties break to the lowest slot.
+* **Stream packs.** ``tables="stream"`` drops ``node8_rows``, and also
+  ``leaf_tris`` when there is no strand tree, as raytpu's stream packs do;
+  such a scene renders through the strand or the binned route.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..accel.bvh import LEAF_SIZE, build_bvh, bvh8_depth
 from ..accel.strandtree import build_strand_tree
+from ..accel.treelets import build_treelets
 from ..kernels.packet import STACK_DEPTH
 from ..types import BvhPack, CameraPack, ScenePack
 from .camera import CameraData
@@ -34,6 +39,8 @@ from .gltf import SceneData
 # slots above which a scene gets a strand tree and its non-primary queries
 # are coherence-sorted (raytpu's RAYTPU_SORT_MIN_TRIS default)
 SORT_MIN_TRIS = 256
+# slots above which treelets="auto" builds the binned route's treelets
+TREELET_MIN_SLOTS = 4096
 
 
 def flatten_world_triangles(scene: SceneData):
@@ -106,15 +113,29 @@ def _bitcast_i32_to_f32(x: np.ndarray) -> np.ndarray:
     return x.astype(np.int32).view(np.float32)
 
 
-def pack_scene(scene: SceneData, device="cpu",
-               leaf_size: int = LEAF_SIZE) -> ScenePack:
-    """Build the ScenePack (both BVH layouts, and the strand tree above
-    256 slots) on ``device``.
+def pack_scene(scene: SceneData, device="cpu", leaf_size: int = LEAF_SIZE,
+               treelets: str = "auto", tables: str = "auto") -> ScenePack:
+    """Build the ScenePack on ``device``.
+
+    ``treelets``: "auto" builds the binned route's treelet windows for
+    scenes above 4096 slots; "always" and "never" force it.
+    ``tables``: "stream" drops the BVH8 rows, and the leaf rows too when
+    the scene has no strand tree (one is kept above 256 slots); "auto"
+    keeps every table. raytpu's "auto" drops the same tables for scenes
+    past the TPU kernels' VMEM budget on a TPU only; the port keeps them,
+    since on the card every table lives in global memory anyway, which is
+    raytpu's behaviour off a TPU.
 
     This is also where raytpu's numpy-level scene data crosses into the
     port: every table is the array raytpu's ``pack_scene(as_numpy=True)``
     builds, as a tensor on ``device``. Raises ValueError for a BVH8 too
-    deep for the packet walk's stack, as raytpu does."""
+    deep for the packet walk's stack, as raytpu does, or for an unknown
+    ``treelets``/``tables`` value."""
+    if treelets not in ("auto", "always", "never"):
+        raise ValueError(f"treelets={treelets!r}: want 'auto', 'always' or "
+                         "'never'")
+    if tables not in ("auto", "stream"):
+        raise ValueError(f"tables={tables!r}: want 'auto' or 'stream'")
     p0, e1, e2, vi, mat, obj = flatten_world_triangles(scene)
 
     bvh, bvh8 = build_bvh(p0, e1, e2, leaf_size=leaf_size)
@@ -230,8 +251,17 @@ def pack_scene(scene: SceneData, device="cpu",
 
     atlas, sizes = _pad_textures(scene.textures)
 
+    tl = None
+    if treelets == "always" or (treelets == "auto"
+                                and n_slots > TREELET_MIN_SLOTS):
+        tl = build_treelets(bvh8, leaf_tris)
+    stream = tables == "stream"
+    strand_rows = (build_strand_tree(bvh).rows if n_slots > SORT_MIN_TRIS
+                   else None)
+
     def conv(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x)).to(device)
 
     return ScenePack(
         tri_row=conv(tri_row),
@@ -245,12 +275,16 @@ def pack_scene(scene: SceneData, device="cpu",
         tex_size=conv(np.asarray(sizes, np.int32)),
         bvh=BvhPack(
             nodes=conv(nodes),
-            node8_rows=conv(bvh8.node_rows),
-            leaf_tris=conv(leaf_tris),
-            strand_rows=(conv(build_strand_tree(bvh).rows)
-                         if n_slots > SORT_MIN_TRIS else None),
+            node8_rows=None if stream else conv(bvh8.node_rows),
+            leaf_tris=(None if stream and strand_rows is None
+                       else conv(leaf_tris)),
+            strand_rows=conv(strand_rows),
         ),
         has_textures=len(scene.textures) > 0,
+        tl_nodes=None if tl is None else conv(tl.tnodes),
+        tl_leaves=None if tl is None else conv(tl.tleaves),
+        tl_bmin=None if tl is None else conv(tl.tbox_min),
+        tl_bmax=None if tl is None else conv(tl.tbox_max),
     )
 
 

@@ -14,10 +14,16 @@ slice reads:
 * ``bvh.nodes``   [N, 8]   bmin, bmax, miss link, leaf row (bitcast int32)
 * ``bvh.node8_rows`` [N8, 128]  the 8-wide BVH of the packet route: child k
                            at columns 16k..16k+6 (bmin, bmax, then the link
-                           as int32 bits: child node, or ~leaf_row)
-* ``bvh.leaf_tris`` [Nl, 80]  8 triangles x (p0, e1, e2, pad) world space
+                           as int32 bits: child node, or ~leaf_row); None
+                           in a ``tables="stream"`` pack
+* ``bvh.leaf_tris`` [Nl, 80]  8 triangles x (p0, e1, e2, pad) world space;
+                           None in a stream pack without a strand tree
 * ``bvh.strand_rows`` [ceil(N/2), 128]  the octant-threaded strand tree,
                            or None (scenes of <= 256 slots have none)
+* ``tl_nodes`` [T, Sn, 128], ``tl_leaves`` [T, Sl, 128], ``tl_bmin`` /
+  ``tl_bmax`` [T, 3]     the binned route's treelet windows
+                           (accel/treelets.py), or None when the scene was
+                           packed without treelets
 """
 
 from __future__ import annotations
@@ -44,8 +50,10 @@ class RenderConfig:
     bruteforce_max_tris: int = 2048  # tiling budget switch (_auto_tile_rows)
     # "auto" | "brute" | "bvh" | "packet" | "strand" | "binned"
     intersector: str = "auto"
-    # "sorted" only: coherence-sorted bounce queries ("mixed"/"binned" are
-    # raytpu's deferred-NEE backends, not ported)
+    # "sorted": coherence-sorted bounce queries with immediate NEE;
+    # "binned": deferred NEE, each bounce's shadow rays ride the next
+    # bounce's mixed binned query. raytpu's "mixed" is a retired arm and
+    # is refused.
     bounce_backend: str = "sorted"
 
 
@@ -62,8 +70,11 @@ def _to(obj, device):
 @dataclass(frozen=True)
 class BvhPack:
     nodes: torch.Tensor  # [N, 8] f32 (threaded layout; cols 6/7 bitcast i32)
-    node8_rows: torch.Tensor  # [N8, 128] f32 (BVH8; link cols bitcast i32)
-    leaf_tris: torch.Tensor  # [Nl, 80] f32; slot of row j, lane k = 8j + k
+    # [N8, 128] f32 (BVH8; link cols bitcast i32); None in a stream pack
+    node8_rows: Optional[torch.Tensor]
+    # [Nl, 80] f32; slot of row j, lane k = 8j + k; None in a stream pack
+    # without a strand tree
+    leaf_tris: Optional[torch.Tensor]
     # [ceil(N/2), 128] f32 (accel/strandtree.py); None up to 256 slots
     strand_rows: Optional[torch.Tensor] = None
 
@@ -88,6 +99,13 @@ class ScenePack:
     bvh: BvhPack
     # False when the scene has no textures: shading skips sampling
     has_textures: bool = False
+    # treelet windows of the binned route (accel/treelets.py,
+    # kernels/binned.py); None when packed without treelets
+    tl_nodes: Optional[torch.Tensor] = None  # [T, Sn, 128] f32
+    # [T, Sl, 128] f32; column 10k+9 holds triangle k's slot as int32 bits
+    tl_leaves: Optional[torch.Tensor] = None
+    tl_bmin: Optional[torch.Tensor] = None  # [T, 3] f32
+    tl_bmax: Optional[torch.Tensor] = None  # [T, 3] f32
 
     def to(self, device) -> "ScenePack":
         return _to(self, device)

@@ -1,0 +1,569 @@
+"""The binned treelet route (raytpu_torch.kernels.binned and the deferred-NEE
+engine mode) against raytpu on the CPU: the treelet copy, the stream and
+treelet tables of the pack, the treelet walk's plain version against
+raytpu's Pallas kernel (interpret mode) and the port's brute sweep, the
+round loop against raytpu's, frames and ``count_rays`` on a stream pack of
+the atrium, and the routing.
+
+Tolerances: ``tri`` and the blocked bit are exact. ``t`` is held bit-equal
+to the port's own brute sweep and to rtol 1e-4 against raytpu, whose
+interpret-mode kernels run under XLA:CPU's FMA contraction (the bar of
+tests/test_torch_strand.py).
+Frames are compared as PNG pixels with tests/imgdiff.py's cross-engine bar
+(<= 2% of pixels differ, SSIM >= 0.99). Triangles that spatial splits
+store in several slots carry identical data, so a slot is compared through
+the original triangle it holds."""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytpu
+from raytpu.accel.bvh import build_bvh as rt_build_bvh
+from raytpu.accel.treelets import build_treelets as rt_build_treelets
+from raytpu.engine import render as rt_render
+from raytpu.io.png import quantize_rgba32f
+from raytpu.kernels.binned import _binned_launch
+from raytpu.kernels.binned import make_binned_query as rt_make_binned_query
+from raytpu.scene.pack import flatten_world_triangles as rt_flatten
+from raytpu.scene.pack import pack_camera as rt_pack_camera
+from raytpu.scene.pack import pack_scene as rt_pack_scene
+from raytpu_torch.accel.bvh import build_bvh
+from raytpu_torch.accel.treelets import build_treelets, validate_treelets
+from raytpu_torch.engine import render
+from raytpu_torch.kernels import binned
+from raytpu_torch.kernels.binned import (
+    binned_walk,
+    binned_walk_cuda,
+    binned_walk_torch,
+    make_binned_intersectors,
+    make_binned_query,
+)
+from raytpu_torch.kernels.intersect import (
+    intersect_any_bruteforce,
+    intersect_bruteforce,
+)
+from raytpu_torch.scene.gltf import load_scene
+from raytpu_torch.scene.pack import pack_camera, pack_scene
+from raytpu_torch.types import RenderConfig
+
+from .imgdiff import assert_images_equiv
+from .test_intersect import _random_soup
+from .test_torch_host import scene_path
+
+F32_MAX = np.float32(3.40282347e38)
+FRAME = dict(width=32, height=24, seed=3, samples=1, chunk_size=8)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@functools.lru_cache(maxsize=None)
+def _soup(n_tris: int, seed: int, budget: int):
+    """A raytpu test soup (tests/test_binned.py's _soup_treelets) built by
+    both packages: (port treelets, raytpu treelets, bvh8, slot-ordered
+    p0/e1/e2, slot -> triangle, leaf rows [Nl, 80])."""
+    rng = np.random.default_rng(seed)
+    a, b, c = _random_soup(n_tris, rng)
+    p0, e1, e2 = a, b - a, c - a
+    bvh, bvh8 = build_bvh(p0, e1, e2)
+    order = bvh.tri_order
+    per = np.zeros((order.shape[0], 10), np.float32)
+    v = order >= 0
+    per[v, 0:3], per[v, 3:6], per[v, 6:9] = (
+        p0[order[v]], e1[order[v]], e2[order[v]])
+    leaf = per.reshape(-1, 80)
+    _, rt_bvh8 = rt_build_bvh(p0, e1, e2)
+    return dict(tl=build_treelets(bvh8, leaf, budget_rows=budget),
+                rt_tl=rt_build_treelets(rt_bvh8, leaf, budget_rows=budget),
+                bvh8=bvh8, p0=per[:, 0:3].copy(), e1=per[:, 3:6].copy(),
+                e2=per[:, 6:9].copy(), order=order, leaf=leaf)
+
+
+def _triangle(tri, order):
+    return np.where(tri >= 0, order[np.maximum(tri, 0)], -1)
+
+
+def _mixed_rays(n, seed, n_slots):
+    """Half closest, half shadow lanes with dead lanes of both, finite
+    incoming bounds and incoming slots on some closest lanes, and exactly
+    zero direction components."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    rd = d / np.linalg.norm(d, axis=1, keepdims=True)
+    rd[::11, 0] = 0.0
+    rd[5::13, 1] = -0.0
+    h = n // 2
+    tmax = np.full(n, F32_MAX, np.float32)
+    tmax[3:h:10] = rng.uniform(2, 12, len(range(3, h, 10)))
+    tmax[h:] = rng.uniform(1, 20, n - h)
+    tmax[::9] = -np.inf
+    smask = np.zeros(n, np.float32)
+    smask[h:] = 1.0
+    tri0 = np.full(n, -1, np.int32)
+    tri0[3:h:10] = rng.integers(0, n_slots, len(range(3, h, 10)))
+    return ro, rd, tmax, smask, tri0, h
+
+
+@pytest.mark.parametrize("which", ["soup", "atrium"])
+def test_treelet_copy_matches_raytpu(which):
+    """Bit-equal windows, boxes and leaf counts, budget 32 on a 3000
+    triangle soup (seed 7, a real frontier) and the default budget on
+    build_atrium(5000)'s BVH8; validate_treelets passes."""
+    if which == "soup":
+        s = _soup(3000, 7, 32)
+        got, want, bvh8 = s["tl"], s["rt_tl"], s["bvh8"]
+        assert got.n_treelets > 4
+    else:
+        p0, e1, e2 = rt_flatten(_atrium())[:3]
+        _, rt_bvh8 = rt_build_bvh(p0, e1, e2)
+        _, bvh8 = build_bvh(p0, e1, e2)
+        leaf = np.asarray(_packs()["rt_full"].bvh.leaf_tris)
+        got = build_treelets(bvh8, leaf)
+        want = rt_build_treelets(rt_bvh8, leaf)
+    validate_treelets(got, bvh8)
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
+                                      err_msg=f.name)
+
+
+@functools.lru_cache(maxsize=None)
+def _atrium():
+    """raytpu's build_atrium(5000) SceneData (6,656 slots): both packages
+    pack the same arrays."""
+    from benchmarks.scenes import build_atrium
+
+    return build_atrium(5000)
+
+
+@functools.lru_cache(maxsize=None)
+def _packs():
+    scene = _atrium()
+    return dict(
+        full=pack_scene(scene), stream=pack_scene(scene, tables="stream"),
+        rt_full=rt_pack_scene(scene, as_numpy=True),
+        rt_stream=rt_pack_scene(scene, tables="stream", as_numpy=True),
+        cam=pack_camera(scene.camera),
+        rt_cam=rt_pack_camera(scene.camera),
+    )
+
+
+_TABLES = ("tri_row", "scene_bmin", "scene_bmax", "tl_nodes", "tl_leaves",
+           "tl_bmin", "tl_bmax")
+_BVH_TABLES = ("nodes", "node8_rows", "leaf_tris", "strand_rows")
+
+
+@pytest.mark.parametrize("scene,treelets,tables", [
+    ("atrium", "auto", "auto"), ("atrium", "auto", "stream"),
+    ("small", "always", "auto"), ("small", "always", "stream"),
+    ("small", "auto", "auto")])
+def test_pack_tables_bit_equal_raytpu(scene, treelets, tables):
+    """The treelet and BVH tables bit-equal to raytpu's numpy pack, and
+    None exactly where raytpu's are: treelets above 4096 slots or when
+    forced, no BVH8 rows in a stream pack, no leaf rows in a stream pack
+    without a strand tree (<= 256 slots)."""
+    if scene == "atrium":
+        key = "stream" if tables == "stream" else "full"
+        got, want = _packs()[key], _packs()["rt_" + key]
+    else:
+        got = pack_scene(load_scene(scene_path("small")), treelets=treelets,
+                         tables=tables)
+        want = rt_pack_scene(raytpu.load_scene(scene_path("small")),
+                             treelets=treelets, tables=tables, as_numpy=True)
+    pairs = [(k, getattr(want, k), getattr(got, k)) for k in _TABLES]
+    pairs += [(k, getattr(want.bvh, k), getattr(got.bvh, k))
+              for k in _BVH_TABLES]
+    for k, a, b in pairs:
+        assert (a is None) == (b is None), k
+        if a is None:
+            continue
+        a = np.ascontiguousarray(a)
+        b = b.numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
+                                      err_msg=k)
+    assert (got.tl_nodes is not None) == (treelets == "always"
+                                          or got.n_triangles > 4096)
+    assert (got.bvh.node8_rows is None) == (tables == "stream")
+    assert (got.bvh.leaf_tris is None) == (tables == "stream"
+                                           and got.n_triangles <= 256)
+    moved = got.to("cpu")
+    assert (moved.tl_nodes is None) == (got.tl_nodes is None)
+
+
+def test_pack_rejects_unknown_options():
+    path = scene_path("small")
+    with pytest.raises(ValueError, match="treelets"):
+        pack_scene(load_scene(path), treelets="sometimes")
+    with pytest.raises(ValueError, match="tables"):
+        pack_scene(load_scene(path), tables="resident")
+
+
+def _packet_tids(n_treelets, n_rays, packet):
+    """One launch's treelet ids: each packet of ``packet`` lanes on one
+    treelet (raytpu's grid), cycling through the windows; (per packet,
+    per lane)."""
+    tid_pp = (np.arange(n_rays // packet) * 5 % n_treelets).astype(np.int32)
+    return tid_pp, np.repeat(tid_pp, packet)
+
+
+def test_plain_walk_matches_raytpu_launch():
+    """One launch on a 2000-triangle soup cut at budget 48 (seed 11):
+    1024 lanes in packets of 128, half closest (some with a finite
+    incoming bound and slot), half shadow, dead lanes of both, against
+    raytpu's _binned_launch in interpret mode lane for lane."""
+    s = _soup(2000, 11, 48)
+    tl = s["tl"]
+    assert tl.n_treelets > 4
+    rays = _mixed_rays(1024, 21, s["order"].shape[0])
+    ro, rd, tmax, smask, tri0, h = rays
+    tid_pp, tid = _packet_tids(tl.n_treelets, 1024, 128)
+    t, tri = binned_walk_torch(
+        _t(tl.tnodes), _t(tl.tleaves), _t(tid), _t(ro), _t(rd), _t(tmax),
+        _t(smask), _t(tri0), 0.001, 0.0)
+    t, tri = t.numpy(), tri.numpy()
+    want_t, want_tri = _binned_launch(
+        jnp.asarray(tl.tnodes), jnp.asarray(tl.tleaves), jnp.asarray(tid_pp),
+        *(jnp.asarray(a[:, i]) for a in (ro, rd) for i in range(3)),
+        jnp.asarray(tmax), jnp.asarray(smask), jnp.asarray(tri0),
+        tmin=0.001, shadow_tmin=0.0, packet=128, interpret=True)
+    want_t, want_tri = np.asarray(want_t), np.asarray(want_tri)
+    live = tmax >= 0
+    c = live & (smask == 0)
+    np.testing.assert_array_equal(_triangle(tri[c], s["order"]),
+                                  _triangle(want_tri[c], s["order"]))
+    np.testing.assert_allclose(t[c], want_t[c], rtol=1e-4)
+    # the incoming slot stays where no window triangle beats its bound
+    kept = c & (tri0 >= 0) & (tri == tri0)
+    assert kept.any() and (tri[c] >= 0).sum() > 50
+    sh = live & (smask == 1)
+    np.testing.assert_array_equal(tri[sh] >= 0, want_tri[sh] >= 0)
+    assert 0 < (tri[sh] >= 0).sum() < sh.sum()
+    # dead lanes: t = -inf; tri0 passes through a dead closest lane
+    assert (t[~live] == -np.inf).all()
+    np.testing.assert_array_equal(tri[~live], np.where(smask == 1, -1,
+                                                       tri0)[~live])
+
+
+def test_plain_walk_whole_tree_matches_raytpu_mixed_packet_kernel():
+    """One treelet holding the whole tree against raytpu's packet kernel
+    in its mixed form (packet_query(mixed=True), interpret mode), which
+    the port does not carry: the binned walk keeps its smask contract
+    lane for lane (300 triangles, 256 lanes)."""
+    from raytpu.kernels.intersect_pallas import packet_query
+
+    s = _soup(300, 5, 10_000)
+    tl = s["tl"]
+    assert tl.n_treelets == 1
+    ro, rd, tmax, smask, _, h = _mixed_rays(256, 8, 1)
+    tri0 = np.full(256, -1, np.int32)
+    t, tri = binned_walk_torch(
+        _t(tl.tnodes), _t(tl.tleaves), torch.zeros(256, dtype=torch.int32),
+        _t(ro), _t(rd), _t(tmax), _t(smask), _t(tri0), 0.001, 0.0)
+    t, tri = t.numpy(), tri.numpy()
+    want_t, want_tri = packet_query(
+        jnp.asarray(s["bvh8"].node_rows), jnp.asarray(s["leaf"]),
+        *(jnp.asarray(a[:, i]) for a in (ro, rd) for i in range(3)),
+        jnp.asarray(tmax), jnp.asarray(smask), tmin=0.001, mixed=True,
+        shadow_tmin=0.0, interpret=True, packet=256)
+    want_t, want_tri = np.asarray(want_t), np.asarray(want_tri)
+    live = tmax >= 0
+    c = live & (smask == 0)
+    np.testing.assert_array_equal(_triangle(tri[c], s["order"]),
+                                  _triangle(want_tri[c], s["order"]))
+    np.testing.assert_allclose(t[c], want_t[c], rtol=1e-4)
+    sh = live & (smask == 1)
+    np.testing.assert_array_equal(tri[sh] >= 0, want_tri[sh] >= 0)
+    assert (tri[c] >= 0).any() and (tri[sh] >= 0).any()
+
+
+def _soup_pack(s, lib):
+    conv = jnp.asarray if lib == "jax" else _t
+    tl = s["tl"] if lib == "torch" else s["rt_tl"]
+    return type("P", (), dict(
+        tl_nodes=conv(tl.tnodes), tl_leaves=conv(tl.tleaves),
+        tl_bmin=conv(tl.tbox_min), tl_bmax=conv(tl.tbox_max)))
+
+
+def _query_rays(s):
+    """tests/test_binned.py's 512 mixed rays (seed 11 after the soup)."""
+    rng = np.random.default_rng(11)
+    _random_soup(2000, rng)
+    n, h = 512, 256
+    ro = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    rd = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    sdist = rng.uniform(1, 20, h).astype(np.float32)
+    tmax = np.full(n, F32_MAX, np.float32)
+    tmax[h:] = sdist
+    tmax[5] = -np.inf
+    tmax[h + 9] = -np.inf
+    smask = np.zeros(n, np.float32)
+    smask[h:] = 1.0
+    return ro, rd, tmax, smask, h
+
+
+def test_query_matches_raytpu_and_port_brute():
+    """The round loop on tests/test_binned.py's case (2000 triangles,
+    budget 48, 512 mixed rays): closest lanes bit-equal in t to the port's
+    brute sweep and on the same triangle as it and as raytpu's binned
+    query (interpret mode, 128-ray packets); shadow lanes blocked exactly
+    where both sweeps say."""
+    s = _soup(2000, 11, 48)
+    ro, rd, tmax, smask, h = _query_rays(s)
+    binned.QUERY_STATS.update(queries=0, rounds=0, max_rounds=0)
+    t, tri = make_binned_query(_soup_pack(s, "torch"))(
+        _t(ro), _t(rd), _t(tmax), _t(smask), tmin=0.001, shadow_tmin=0.0)
+    t, tri = t.numpy(), tri.numpy()
+    assert binned.QUERY_STATS["queries"] == 1
+    assert binned.QUERY_STATS["rounds"] > 1
+    want_t, want_tri = rt_make_binned_query(
+        _soup_pack(s, "jax"), interpret=True, packet=128)(
+        jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(tmax),
+        jnp.asarray(smask), tmin=0.001, shadow_tmin=0.0)
+    want_t, want_tri = np.asarray(want_t), np.asarray(want_tri)
+    tri_p = [_t(s[k]) for k in ("p0", "e1", "e2")]
+    brute = intersect_bruteforce(_t(ro[:h]), _t(rd[:h]), *tri_p, 0.001,
+                                 _t(tmax[:h]), chunk=8)
+    live = tmax[:h] >= 0
+    order = s["order"]
+    np.testing.assert_array_equal(_triangle(tri[:h], order)[live],
+                                  _triangle(brute.tri.numpy(), order)[live])
+    np.testing.assert_array_equal(_triangle(tri[:h], order)[live],
+                                  _triangle(want_tri[:h], order)[live])
+    hit = live & (tri[:h] >= 0)
+    assert hit.mean() > 0.1
+    np.testing.assert_array_equal(t[:h][hit].view(np.int32),
+                                  brute.t.numpy()[hit].view(np.int32))
+    np.testing.assert_allclose(t[:h][hit], want_t[:h][hit], rtol=1e-4)
+    assert (tri[:h][~live] == -1).all()
+    blocked = intersect_any_bruteforce(_t(ro[h:]), _t(rd[h:]), *tri_p, 0.0,
+                                       _t(tmax[h:]), chunk=8).numpy()
+    live_s = tmax[h:] >= 0
+    np.testing.assert_array_equal((tri[h:] >= 0)[live_s], blocked[live_s])
+    np.testing.assert_array_equal((tri[h:] >= 0)[live_s],
+                                  (want_tri[h:] >= 0)[live_s])
+    assert (tri[h:][~live_s] == -1).all()
+    # cutting the loop short loses hits: the answer is exact only at the end
+    _, cut = make_binned_query(_soup_pack(s, "torch"), max_rounds=1)(
+        _t(ro), _t(rd), _t(tmax), _t(smask), tmin=0.001, shadow_tmin=0.0)
+    assert (cut.numpy() != tri).any()
+
+
+def test_intersectors_bake_tmin():
+    s = _soup(2000, 11, 48)
+    ro, rd, tmax, smask, h = _query_rays(s)
+    closest, any_fn = make_binned_intersectors(_soup_pack(s, "torch"))
+    hit = closest(_t(ro[:h]), _t(rd[:h]), 0.001, float(F32_MAX))
+    tri_p = [_t(s[k]) for k in ("p0", "e1", "e2")]
+    brute = intersect_bruteforce(_t(ro[:h]), _t(rd[:h]), *tri_p, 0.001,
+                                 float(F32_MAX), chunk=8)
+    assert torch.equal(hit.valid, brute.valid)
+    assert torch.equal(hit.t[hit.valid], brute.t[brute.valid])
+    blocked = any_fn(_t(ro[h:]), _t(rd[h:]), 0.0, _t(tmax[h:]))
+    assert torch.equal(blocked, intersect_any_bruteforce(
+        _t(ro[h:]), _t(rd[h:]), *tri_p, 0.0, _t(tmax[h:]), chunk=8))
+    with pytest.raises(ValueError):
+        closest(_t(ro), _t(rd), 0.0, float(F32_MAX))
+    with pytest.raises(ValueError):
+        any_fn(_t(ro), _t(rd), 0.001, float(F32_MAX))
+
+
+def test_dispatch_by_device_and_cuda_wrapper_refuses_cpu():
+    s = _soup(300, 5, 10_000)
+    ro, rd, tmax, smask, tri0, _ = _mixed_rays(256, 3, 1)
+    args = (_t(s["tl"].tnodes), _t(s["tl"].tleaves),
+            torch.zeros(256, dtype=torch.int32), _t(ro), _t(rd), _t(tmax),
+            _t(smask), _t(tri0), 0.001, 0.0)
+    before = binned_walk_cuda.launches
+    for x, y in zip(binned_walk(*args), binned_walk_torch(*args)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        binned_walk_cuda(*args)
+    assert binned_walk_cuda.launches == before
+
+
+def _small_budget(pack, lib):
+    """The pack with its treelets rebuilt at budget 64 (several rounds)."""
+    scene = _atrium()
+    p0, e1, e2 = rt_flatten(scene)[:3]
+    leaf = np.asarray(_packs()["rt_full"].bvh.leaf_tris)
+    if lib == "jax":
+        tl = rt_build_treelets(rt_build_bvh(p0, e1, e2)[1], leaf,
+                               budget_rows=64)
+        conv = jnp.asarray
+    else:
+        tl = build_treelets(build_bvh(p0, e1, e2)[1], leaf, budget_rows=64)
+        conv = _t
+    return dataclasses.replace(
+        pack, tl_nodes=conv(tl.tnodes), tl_leaves=conv(tl.tleaves),
+        tl_bmin=conv(tl.tbox_min), tl_bmax=conv(tl.tbox_max))
+
+
+def _png(frame):
+    return quantize_rgba32f(frame) / 255.0
+
+
+@pytest.mark.parametrize("case", ["binned", "binned_budget64",
+                                  "packet_bounce_binned"])
+def test_frame_matches_raytpu(case):
+    """build_atrium(5000) at 32x24, seed 3, chunk 8: the binned route on
+    the stream packs (2 bounces) against raytpu's frame with the same
+    configuration, the same with both packs' treelets rebuilt at budget 64
+    (several rounds per query), and the packet route with
+    bounce_backend='binned' on the full pack (3 bounces: strand primary
+    and last shadow waves, binned mixed bounces). raytpu runs that last
+    configuration's strand kernel in interpret mode for minutes on the
+    CPU, so its reference is raytpu's threaded-BVH frame of the same
+    scene, seed and depth, which raytpu holds equal to its deferred-NEE
+    frame up to triangle ties (render.py:635-642)."""
+    p = _packs()
+    if case == "packet_bounce_binned":
+        pack, rpack = p["full"], p["rt_full"]
+        extra = dict(bounces=3, intersector="packet", bounce_backend="binned")
+        rt_extra = dict(bounces=3, intersector="bvh")
+    else:
+        pack, rpack = p["stream"], p["rt_stream"]
+        extra = rt_extra = dict(bounces=2, intersector="binned")
+        if case == "binned_budget64":
+            pack = _small_budget(pack, "torch")
+            rpack = _small_budget(rpack, "jax")
+            assert pack.tl_nodes.shape[0] > 8
+    binned.QUERY_STATS.update(queries=0, rounds=0, max_rounds=0)
+    got = render.render_frame(pack, p["cam"], RenderConfig(**FRAME, **extra))
+    want = rt_render.render_frame(rpack, p["rt_cam"],
+                                  raytpu.RenderConfig(**FRAME, **rt_extra))
+    assert got.shape == (24, 32, 4) and np.isfinite(got).all()
+    assert float((quantize_rgba32f(got).max(-1) > 0).mean()) > 0.5
+    assert binned.QUERY_STATS["queries"] >= 2
+    if case == "binned_budget64":
+        assert binned.QUERY_STATS["max_rounds"] > 2
+    assert_images_equiv(_png(got), _png(want))
+
+
+def test_count_rays_equals_raytpu_on_the_binned_route():
+    p = _packs()
+    cfg = dict(FRAME, bounces=3, intersector="binned")
+    got = render.count_rays(p["stream"], p["cam"], RenderConfig(**cfg))
+    want = rt_render.count_rays(p["rt_stream"], p["rt_cam"],
+                                raytpu.RenderConfig(**cfg))
+    assert isinstance(got, int) and got == want
+    assert 32 * 24 < got <= 32 * 24 * 7
+
+
+def _spy(monkeypatch, calls):
+    """Wrap every intersector factory so each query records its route."""
+    def tag(fn, name):
+        def query(*args, **kwargs):
+            calls.add(name)
+            return fn(*args, **kwargs)
+        return query
+
+    def pair(name, factory):
+        def make(pack):
+            c, a = factory(pack)
+            return tag(c, f"{name} closest"), tag(a, f"{name} any")
+        return make
+
+    for attr, name in (("make_packet_intersectors", "packet"),
+                       ("make_strand_intersectors", "strand"),
+                       ("make_binned_intersectors", "binned")):
+        monkeypatch.setattr(render, attr,
+                            pair(name, getattr(render, attr)))
+    real = render.make_binned_query
+    monkeypatch.setattr(render, "make_binned_query",
+                        lambda pack: tag(real(pack), "binned mixed"))
+
+
+@pytest.mark.parametrize("pack_kind,cfg,want", [
+    ("stream", {}, {"strand closest", "strand any"}),
+    ("stream_small", {}, {"binned closest", "binned any"}),
+    ("stream", dict(intersector="binned"),
+     {"binned closest", "binned mixed", "binned any"}),
+    ("full", dict(intersector="packet", bounce_backend="binned"),
+     {"strand closest", "binned mixed", "strand any"}),
+    ("full", dict(bounce_backend="binned"),
+     {"strand closest", "binned mixed", "strand any"}),
+])
+def test_routes_like_raytpu_tpu_branch(monkeypatch, pack_kind, cfg, want):
+    """"auto" on a stream pack takes the strand route when it has a strand
+    tree and the binned route when it has none (a <= 256-slot scene); the
+    binned route defers NEE into mixed queries above 256 slots (primary
+    closest, mixed bounces, a last any-hit wave); bounce_backend='binned'
+    keeps the strand pair for the primary and last shadow waves."""
+    calls = set()
+    _spy(monkeypatch, calls)
+    if pack_kind == "stream_small":
+        pack = pack_scene(load_scene(scene_path("small")), treelets="always",
+                          tables="stream")
+        assert pack.bvh.strand_rows is None and pack.bvh.leaf_tris is None
+    else:
+        pack = _packs()[pack_kind]
+    config = RenderConfig(width=16, height=8, seed=2, samples=1, bounces=3,
+                          chunk_size=8, **cfg)
+    frame = render.render_tile(pack, _packs()["cam"], 0, config, 8)
+    assert frame.shape == (8, 16, 4)
+    assert calls == want
+
+
+def test_route_errors():
+    p = _packs()
+    small = pack_scene(load_scene(scene_path("small")))
+    assert small.tl_nodes is None
+    cfg = dict(width=16, height=8, seed=2, samples=1, bounces=2, chunk_size=8)
+    with pytest.raises(ValueError, match="treelet tables"):
+        render.render_tile(small, p["cam"], 0,
+                           RenderConfig(**cfg, intersector="binned"), 8)
+    with pytest.raises(ValueError, match="treelet tables"):
+        render.render_tile(small, p["cam"], 0,
+                           RenderConfig(**cfg, bounce_backend="binned"), 8)
+    with pytest.raises(ValueError, match="tables='stream'"):
+        render.render_tile(p["stream"], p["cam"], 0,
+                           RenderConfig(**cfg, intersector="packet"), 8)
+    with pytest.raises(NotImplementedError, match="Arms not to port"):
+        render.render_tile(p["full"], p["cam"], 0,
+                           RenderConfig(**cfg, bounce_backend="mixed"), 8)
+
+
+@pytest.mark.cuda
+def test_kernel_bit_equal_plain_on_cuda():
+    """binned_walk.cu against the plain version on the same CUDA tensors,
+    one launch over several windows (budget 48) and over one (budget
+    2048), and the whole query against the port's brute sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
+    for budget in (48, 2048):
+        s = _soup(3000, 0, budget)
+        rays = _mixed_rays(65536, 9, s["order"].shape[0])
+        _, tid = _packet_tids(s["tl"].n_treelets, 65536, 128)
+        ro, rd, tmax, smask, tri0, _ = rays
+        args = [x.cuda() for x in (
+            _t(s["tl"].tnodes), _t(s["tl"].tleaves), _t(tid), _t(ro), _t(rd),
+            _t(tmax), _t(smask), _t(tri0))]
+        before = binned_walk_cuda.launches
+        tk, trk = binned_walk_cuda(*args, 0.001, 0.0)
+        tp, trp = binned_walk_torch(*args, 0.001, 0.0)
+        torch.cuda.synchronize()
+        assert binned_walk_cuda.launches == before + 1
+        assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+        assert torch.equal(trk, trp)
+    s = _soup(2000, 11, 48)
+    ro, rd, tmax, smask, h = _query_rays(s)
+    pack = _soup_pack(s, "torch")
+    pack = type("P", (), {k: getattr(pack, k).cuda() for k in (
+        "tl_nodes", "tl_leaves", "tl_bmin", "tl_bmax")})
+    t, tri = make_binned_query(pack)(
+        _t(ro).cuda(), _t(rd).cuda(), _t(tmax).cuda(), _t(smask).cuda(),
+        tmin=0.001, shadow_tmin=0.0)
+    cpu_t, cpu_tri = make_binned_query(_soup_pack(s, "torch"))(
+        _t(ro), _t(rd), _t(tmax), _t(smask), tmin=0.001, shadow_tmin=0.0)
+    assert torch.equal(tri.cpu(), cpu_tri)
+    assert torch.equal(t.cpu().view(torch.int32), cpu_t.view(torch.int32))
