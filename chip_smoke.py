@@ -3,16 +3,20 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from source (strand walk, the packet route's
-BVH8 walk and the binned route's treelet walk, one nvcc each, in
-parallel), holds each bit for bit against its plain torch version (phases
-3, 3b, 3c), renders small frames on the card and on the CPU (phase 4, the
-packet route in path and flat mode; phase 4b, the binned route on a
-stream pack), then drives the entry points in this process, so each
-kernel's launch count can be read:
+BVH8 walk, the binned route's treelet walk, the block-scheduled strand
+walk and the per-step probe, one nvcc each, in parallel), holds each
+walk bit for bit against its plain torch version (phases 3, 3b, 3c, 3d),
+renders small frames on the card and on the CPU (phase 4, the packet
+route in path and flat mode; phase 4b, the binned route on a stream
+pack), then drives the entry points in this process, so each kernel's
+launch count can be read:
 
 * phase 5, the strand route through ``raytpu_torch.cli.main``: path mode
   at the repo's headline configuration (1920x1080, 1 spp, 4 bounces, a
-  259k-triangle gallery);
+  259k-triangle gallery), which runs raytpu's fused wave mode; the same
+  frame in query mode must give the same PNG;
+* phase 5b, phase 5's CLI run with ``RAYTPU_STRAND_PERSISTENT=0``: every
+  strand query on the block walk, the same PNG;
 * phase 6, the packet route through the CLI at bench.py's settings: (a)
   the pbr+nee scene, (b) a cube stand-in, (c) flat mode on the gallery at
   1920x1080;
@@ -20,17 +24,26 @@ kernel's launch count can be read:
   ``pack_scene(tables="stream")`` and ``render_frame``: the gallery scaled
   to 2.9M triangles at 640x360, 1 spp, 4 bounces;
 * phase 7b, deferred NEE beside the strand route: phase 5's scene and
-  configuration with ``bounce_backend="binned"``, held to phase 5's frame.
+  configuration with ``bounce_backend="binned"``, held to phase 5's frame;
+* phase 8, the per-step probe (``raytpu_torch.tools.step_bench``): every
+  arm on the card against its plain replay, then the full table.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record and ``{"ok": true, "device":
-{...}}``.
+{...}}``. Each kernel's bound is the larger of the bytes it must move
+over 3.35 TB/s and its operations over 67 TFLOP/s f32 (one H100 SXM's
+peaks). A walk's bytes are the distinct node and leaf rows that the
+per-ray plain walk reads on the measured rays, each once, plus the rays
+in and the results out; its operations are that walk's box and triangle
+tests. The block walk is held to the per-ray walk's work on its own wave:
+what its warps test beyond that is its own cost, not the function's.
 
 Needs a CUDA device, nvcc and the repo checkout; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -61,10 +74,39 @@ KERNELS = {
         source="raytpu_torch/kernels/csrc/binned_walk.cu",
         replaces="raytpu/kernels/binned.py:50",
     ),
+    "block": dict(
+        name="strand_block",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/strand_block.cu",
+        replaces="raytpu/kernels/strand.py:55",
+    ),
+    "step": dict(
+        name="step_bench",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/step_bench.cu",
+        replaces="benchmarks/step_bench.py:62",
+    ),
 }
+# one H100 SXM's peaks (NVIDIA's data sheet, at a 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per box test (6 sub, 6 mul, 4 max, 4 min, 1 compare) and per
+# Moller-Trumbore triangle test (cross 9, det 5, div 1, tvec 3, u 6,
+# cross 9, v 6, t 6, 8 compares and the u + v add)
+SLAB_OPS = 21
+TRI_OPS = 53
+# step_bench's full arm per state element and iteration: 3 for IDX, NEG
+# and RO, 12 for the six bounds, 4 max, 4 min, 1 compare (rolls and the
+# queue move data)
+STEP_FULL_OPS = 24
 F32_MAX = float(np.float32(3.40282347e38))
 MAIN_ARGS = dict(width=1920, height=1080, seed=1, chunk_size=64, samples=1,
                  bounces=4)
+# rays of phase 5b's frame on which strand_walk misses the brute sweep's
+# hit (strand_block finds it): the per-ray box test drops rare hits by
+# rounding (ROADMAP fault 3.4). Pinned so that any change, a fix
+# included, fails the phase until this number is updated.
+STRAND_WALK_LOST_HITS = 69
 GALLERY_CAM = {"origin": [0, 2.5, -9], "at": [0, -0.5, 0], "fov": 0.7}
 
 
@@ -97,24 +139,31 @@ def soup_rays(n, seed):
     return ro[idx], rd[idx]
 
 
-def tie_scene():
-    """40 small triangles plus 11 exact copies of triangle 0 (12 copies
-    over two leaves) and 500 rays aimed at it: (bvh, bvh8,
-    slot-ordered triangle rows [S, 10], slot -> triangle, ro, rd)."""
+def slot_rows(p0, e1, e2):
+    """A scene's (bvh, bvh8, slot-ordered triangle rows [S, 10], slot ->
+    triangle) for triangles p0/e1/e2."""
     from raytpu_torch.accel.bvh import build_bvh
 
-    r = np.random.default_rng(7)
-    p0 = (r.random((40, 3), np.float32) - 0.5) * 10
-    e1 = (r.normal(size=(40, 3)) * 0.3).astype(np.float32)
-    e2 = (r.normal(size=(40, 3)) * 0.3).astype(np.float32)
-    p0, e1, e2 = (np.concatenate([a, np.repeat(a[:1], 11, 0)])
-                  for a in (p0, e1, e2))
     bvh, bvh8 = build_bvh(p0, e1, e2)
     order = bvh.tri_order
     per = np.zeros((order.shape[0], 10), np.float32)
     v = order >= 0
     per[v, 0:3], per[v, 3:6], per[v, 6:9] = (
         p0[order[v]], e1[order[v]], e2[order[v]])
+    return bvh, bvh8, per, order
+
+
+def tie_scene():
+    """40 small triangles plus 11 exact copies of triangle 0 (12 copies
+    over two leaves) and 500 rays aimed at it: (bvh, bvh8,
+    slot-ordered triangle rows [S, 10], slot -> triangle, ro, rd)."""
+    r = np.random.default_rng(7)
+    p0 = (r.random((40, 3), np.float32) - 0.5) * 10
+    e1 = (r.normal(size=(40, 3)) * 0.3).astype(np.float32)
+    e2 = (r.normal(size=(40, 3)) * 0.3).astype(np.float32)
+    p0, e1, e2 = (np.concatenate([a, np.repeat(a[:1], 11, 0)])
+                  for a in (p0, e1, e2))
+    bvh, bvh8, per, order = slot_rows(p0, e1, e2)
     c = p0[0] + (e1[0] + e2[0]) / 3
     ro = (r.random((500, 3), np.float32) - 0.5) * 12
     rd = c - ro
@@ -145,10 +194,15 @@ def kernel_fns(which: str):
 def _wrappers() -> dict:
     from raytpu_torch.kernels.binned import binned_walk_cuda
     from raytpu_torch.kernels.packet import packet_query_cuda
-    from raytpu_torch.kernels.strand import strand_query_cuda
+    from raytpu_torch.kernels.strand import (
+        strand_block_query_cuda,
+        strand_query_cuda,
+    )
+    from raytpu_torch.tools.step_bench import step_bench_cuda
 
     return dict(strand=strand_query_cuda, packet=packet_query_cuda,
-                binned=binned_walk_cuda)
+                binned=binned_walk_cuda, block=strand_block_query_cuda,
+                step=step_bench_cuda)
 
 
 def reset_launches() -> None:
@@ -172,6 +226,45 @@ def rounds_note() -> str:
     per = q["rounds"] / q["queries"] if q["queries"] else 0.0
     return (f"{q['queries']} binned queries, {per:.2f} rounds per query "
             f"(max {q['max_rounds']})")
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for the block, restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its f32 rate, whichever is larger, and which it is
+    (with both counts and both times)."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                n_bytes=n_bytes, n_ops=n_ops, bytes_ms=bytes_ms,
+                ops_ms=ops_ms)
+
+
+def walk_bound(counts: dict, n_rays: int, ray_bytes: int) -> dict:
+    """A walk's bound from a plain walk's ``counts`` on its rays: the
+    distinct table bytes read, ``ray_bytes`` in and 8 out (t, tri) per
+    ray; the box and triangle tests."""
+    return bound(counts["bytes"] + n_rays * (ray_bytes + 8),
+                 counts["boxes"] * SLAB_OPS + counts["tris"] * TRI_OPS)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def t_err(a, b) -> float:
@@ -215,6 +308,40 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_frame(render) -> str:
+    """One call of ``render`` under torch.profiler: wall ms, device busy
+    ms (the union of the device's kernel and copy intervals) and its
+    share, the number of device events, and the six torch ops with the
+    most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    top = ", ".join(f"{e.key[6:]} {e.self_device_time_total / 1e3:.2f}"
+                    for e in ops)
+    return (f"wall {wall:.1f} ms, device busy {busy:.2f} ms "
+            f"({busy / wall:.1%}), {len(spans)} device events; most device "
+            f"ms: {top}")
 
 
 def phase_device():
@@ -265,7 +392,6 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
     mismatch fails the phase."""
     import torch
 
-    from raytpu_torch.accel.bvh import build_bvh
     from raytpu_torch.kernels.intersect import (
         intersect_any_bruteforce,
         intersect_bruteforce,
@@ -277,13 +403,7 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
     total_bad = 0
     notes = []
     for ntri in (5, 300, 3000):
-        p0, e1, e2 = soup(ntri)
-        bvh, bvh8 = build_bvh(p0, e1, e2)
-        order = bvh.tri_order
-        per = np.zeros((order.shape[0], 10), np.float32)
-        v = order >= 0
-        per[v, 0:3], per[v, 3:6], per[v, 6:9] = (
-            p0[order[v]], e1[order[v]], e2[order[v]])
+        bvh, bvh8, per, order = slot_rows(*soup(ntri))
         g = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in (
             ("tree", tree_of(bvh, bvh8.node_rows)),
             ("leaf", per.reshape(-1, 80)), ("order", order))}
@@ -349,16 +469,9 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
 def treelet_soup(ntri: int, budget: int):
     """A soup cut into treelets at ``budget`` rows: (treelet arrays,
     slot-ordered triangle rows [S, 10], slot -> triangle) as numpy."""
-    from raytpu_torch.accel.bvh import build_bvh
     from raytpu_torch.accel.treelets import build_treelets
 
-    p0, e1, e2 = soup(ntri)
-    bvh, bvh8 = build_bvh(p0, e1, e2)
-    order = bvh.tri_order
-    per = np.zeros((order.shape[0], 10), np.float32)
-    v = order >= 0
-    per[v, 0:3], per[v, 3:6], per[v, 6:9] = (
-        p0[order[v]], e1[order[v]], e2[order[v]])
+    _, bvh8, per, order = slot_rows(*soup(ntri))
     return build_treelets(bvh8, per.reshape(-1, 80), budget_rows=budget), \
         per, order
 
@@ -469,6 +582,133 @@ def phase_binned_kernel(errs: list) -> None:
           f"{read_launches()['binned']} binned_walk launches")
     if total_bad:
         fail(f"binned query: {total_bad} mismatches against the brute sweep")
+
+
+def strand_soup(ntri: int, dev: str):
+    """A soup's strand tree, leaf rows and slot -> triangle on ``dev``."""
+    import torch
+
+    from raytpu_torch.accel.strandtree import build_strand_tree
+
+    bvh, _, per, order = slot_rows(*soup(ntri))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        build_strand_tree(bvh).rows, per.reshape(-1, 80), order)]
+
+
+def same_triangles(tri_a, tri_b, order) -> bool:
+    """Hit/miss equal, and the same original triangle on every hit."""
+    import torch
+
+    hit = tri_a >= 0
+    return bool(torch.equal(hit, tri_b >= 0)) and bool(torch.equal(
+        order[tri_a.clamp(min=0).long()][hit],
+        order[tri_b.clamp(min=0).long()][hit]))
+
+
+def phase_block_kernel(errs: list) -> None:
+    """Phase 3d: strand_block vs its plain version on CUDA tensors on 3
+    soups (300 / 3,000 / 30,000 triangles) x 65,535 octant-sorted rays (not
+    a multiple of 32; every 7th lane dead; finite-tmax closest lanes),
+    closest and any-hit: t bits, tri and the per-strand counters equal.
+    Against strand_walk on the same rays: closest t bits equal, the same
+    original triangle, the same blocked bit. Against the brute sweep on
+    4096 rays of each soup and on the tie scene: no mismatch."""
+    import torch
+
+    from raytpu_torch.kernels.intersect import (
+        intersect_any_bruteforce,
+        intersect_bruteforce,
+    )
+    from raytpu_torch.kernels.strand import (
+        strand_block_query_cuda,
+        strand_block_query_torch,
+        strand_query_cuda,
+    )
+
+    dev = "cuda"
+    n = 65535
+    total_bad = 0
+    notes = []
+    for ntri in (300, 3000, 30000):
+        tree, leaf, order = strand_soup(ntri, dev)
+        ro_np, rd_np = soup_rays(65536, seed=ntri)
+        ro = torch.from_numpy(ro_np[:n]).to(dev)
+        rd = torch.from_numpy(rd_np[:n]).to(dev)
+        tmax_c = torch.full((n,), F32_MAX, device=dev)
+        tmax_c[3::10] = 5.0  # finite closest-hit bound (open)
+        tmax_c[::7] = float("-inf")  # dead lanes
+        tmax_s = torch.full((n,), 6.0, device=dev)  # shadow rays
+        tmax_s[::7] = float("-inf")
+        args = (tree, leaf, ro, rd)
+        tk, trk, sk = strand_block_query_cuda(*args, tmax_c, 0.001, False,
+                                              True)
+        tp, trp, sp = strand_block_query_torch(*args, tmax_c, 0.001, False,
+                                               True)
+        torch.cuda.synchronize()
+        if not (same_bits(tk, tp) and torch.equal(trk, trp)
+                and torch.equal(sk, sp)):
+            fail(f"strand_block {ntri} tris closest: kernel != plain on "
+                 f"{int((tk != tp).sum())} t, {int((trk != trp).sum())} tri, "
+                 f"{int((sk != sp).any(1).sum())} strands' counters")
+        dead = tmax_c < 0
+        if not (bool((trk[dead] == -1).all())
+                and bool((tk[dead] == float("-inf")).all())):
+            fail(f"strand_block {ntri} tris: a dead lane returned a hit")
+        _, ak, sak = strand_block_query_cuda(*args, tmax_s, 0.0, True, True)
+        _, ap, sap = strand_block_query_torch(*args, tmax_s, 0.0, True, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(ak, ap) and torch.equal(sak, sap)):
+            fail(f"strand_block {ntri} tris any-hit: kernel != plain on "
+                 f"{int((ak != ap).sum())} tri, "
+                 f"{int((sak != sap).any(1).sum())} strands' counters")
+        errs.append(t_err(tk, tp))
+        # the per-ray walk on the same rays
+        tw, trw = strand_query_cuda(*args, tmax_c, 0.001, False)
+        _, aw = strand_query_cuda(*args, tmax_s, 0.0, True)
+        torch.cuda.synchronize()
+        walk_bad = int((tk.view(torch.int32) != tw.view(torch.int32)).sum())
+        if not same_triangles(trk, trw, order):
+            walk_bad += 1
+        walk_bad += int(((ak >= 0) != (aw >= 0)).sum())
+        # the brute sweep on the first 4096 rays
+        m = 4096
+        rows = leaf.reshape(-1, 10)
+        hb = intersect_bruteforce(ro[:m], rd[:m], rows[:, 0:3], rows[:, 3:6],
+                                  rows[:, 6:9], 0.001, tmax_c[:m], chunk=8)
+        bad = brute_mismatches(tk[:m], trk[:m], hb.t, hb.tri, order)
+        bb = intersect_any_bruteforce(ro[:m], rd[:m], rows[:, 0:3],
+                                      rows[:, 3:6], rows[:, 6:9], 0.0,
+                                      tmax_s[:m], chunk=8)
+        bad_any = int(((ak[:m] >= 0) != bb).sum())
+        total_bad += bad + bad_any + walk_bad
+        steps, leaves = sk[:, 0].double(), sk[:, 1].double()
+        notes.append(
+            f"{ntri} tris: {int((trk >= 0).sum())} hits, "
+            f"{int((ak >= 0).sum())} blocked; steps per strand mean "
+            f"{float(steps.mean()):.1f} max {int(steps.max())}, leaf visits "
+            f"mean {float(leaves.mean()):.1f} max {int(leaves.max())}; vs "
+            f"strand_walk {walk_bad} mismatches; vs brute {bad} closest / "
+            f"{bad_any} any-hit mismatches")
+    # ties: 12 identical triangles over two leaves; the lowest slot wins
+    from raytpu_torch.accel.strandtree import build_strand_tree
+
+    bvh, _, per, _, ro_np, rd_np = tie_scene()
+    cu = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        build_strand_tree(bvh).rows, per.reshape(-1, 80), ro_np, rd_np,
+        np.full(ro_np.shape[0], F32_MAX, np.float32))]
+    _, tie_k = strand_block_query_cuda(*cu, 0.001, False)
+    rows = cu[1].reshape(-1, 10)
+    hb = intersect_bruteforce(cu[2], cu[3], rows[:, 0:3], rows[:, 3:6],
+                              rows[:, 6:9], 0.001, cu[4], chunk=8)
+    tie_bad = int((tie_k != hb.tri).sum())
+    total_bad += tie_bad
+    notes.append(f"tie scene: {tie_bad} slot mismatches")
+    print(f"phase 3d strand_block vs plain: bit-equal on 3 soups x {n} rays "
+          "(closest t/tri, any-hit tri, per-strand counters); "
+          + "; ".join(notes))
+    if total_bad:
+        fail(f"strand_block: {total_bad} mismatches against strand_walk or "
+             "the brute sweep")
 
 
 def _writer():
@@ -701,7 +941,8 @@ def primary_wave(cam, w: int, h: int, chunk: int, seed: int):
 def wave_check(which: str, tree, pack, ro, rd, errs: list):
     """A closest-hit wave through one kernel (CUDA events, 5 launches) and
     its plain version (1 run): (kernel ms, plain ms, mismatches against
-    the brute sweep on 4096 of its rays). Fails unless bit-equal."""
+    the brute sweep on 4096 of its rays, the bound from the plain walk's
+    counts). Fails unless bit-equal."""
     import torch
 
     from raytpu_torch.kernels.intersect import intersect_bruteforce
@@ -714,7 +955,8 @@ def wave_check(which: str, tree, pack, ro, rd, errs: list):
     plain_ms = cuda_ms(lambda: plain(tree, leaves, ro, rd, tmax, 0.001,
                                      False), reps=1)
     tk, trk = kernel(tree, leaves, ro, rd, tmax, 0.001, False)
-    tp, trp = plain(tree, leaves, ro, rd, tmax, 0.001, False)
+    counts = {}
+    tp, trp = plain(tree, leaves, ro, rd, tmax, 0.001, False, counts=counts)
     if not (same_bits(tk, tp) and torch.equal(trk, trp)):
         fail(f"primary wave: {KERNELS[which]['name']} != its plain version")
     errs.append(t_err(tk, tp))
@@ -727,7 +969,7 @@ def wave_check(which: str, tree, pack, ro, rd, errs: list):
                            pack.tri_row[hb.tri.clamp(min=0).long(), :9])
     bad = int(((trk[sub] >= 0) != hb.valid).sum()) + int(
         ((trk[sub] >= 0) & (tk[sub] != hb.t)).sum()) + (0 if same_tri else 1)
-    return ms, plain_ms, bad
+    return ms, plain_ms, bad, walk_bound(counts, ro.shape[0], 28)
 
 
 def cli_argv(glb: str, png: str, args: dict, cam_json=None, mode="path"):
@@ -759,10 +1001,13 @@ def run_cli(argv) -> tuple:
 
 def phase_main(tmp: str, errs: list) -> dict:
     """Phase 5: the strand route, path mode on the 259k-triangle gallery
-    at 1920x1080."""
+    at 1920x1080: two frames in the default schedule (fused wave mode at
+    this width), its work tier per bounce, two frames of the same pack
+    with RAYTPU_WAVE_MODE=query (0 PNG pixels may differ), the primary
+    wave through strand_walk and its plain version, then the CLI run."""
     import torch
 
-    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.engine.render import WAVE_STATS, render_frame
     from raytpu_torch.scene.camera import load_camera_json
     from raytpu_torch.scene.gltf import load_scene
     from raytpu_torch.scene.pack import pack_camera, pack_scene
@@ -786,17 +1031,38 @@ def phase_main(tmp: str, errs: list) -> dict:
                  for p in range(len(scene.prim_index_count)))
     cam = pack_camera(load_camera_json(cam_json, w, h), "cuda")
     cfg = RenderConfig(**MAIN_ARGS)
-    frame_s = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        frame = render_frame(pack, cam, cfg)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t0)
+
+    def frames():
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = render_frame(pack, cam, cfg)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, secs, dict(WAVE_STATS)
+
+    frame, frame_s, waves = frames()
+    with env(RAYTPU_WAVE_MODE="query"):
+        frame_q, query_s, waves_q = frames()
+    n_diff, frac, _ = png_diff(frame, frame_q)
+    print(f"phase 5 wave modes: default '{waves['mode']}', work width per "
+          f"bounce {waves['widths']}, frames {frame_s[0]:.3f} / "
+          f"{frame_s[1]:.3f} s; '{waves_q['mode']}' widths "
+          f"{waves_q['widths']}, frames {query_s[0]:.3f} / {query_s[1]:.3f} "
+          f"s; {n_diff} PNG pixels differ ({int(np.any(frame != frame_q, -1).sum())} "
+          "f32 pixels)")
+    if waves["mode"] != "fused" or waves_q["mode"] != "query" or n_diff:
+        fail("phase 5: the fused frame is not the query frame")
+    print("phase 5 profile, fused: "
+          + profile_frame(lambda: render_frame(pack, cam, cfg)))
+    with env(RAYTPU_WAVE_MODE="query"):
+        print("phase 5 profile, query: "
+              + profile_frame(lambda: render_frame(pack, cam, cfg)))
 
     # the kernel and its plain version on the frame's primary wave
     ro, rd = primary_wave(cam, w, h, MAIN_ARGS["chunk_size"], 1)
-    ms, plain_ms, bad = wave_check("strand", pack.bvh.strand_rows, pack, ro,
-                                   rd, errs)
+    ms, plain_ms, bad, bnd = wave_check("strand", pack.bvh.strand_rows, pack,
+                                        ro, rd, errs)
     print(f"phase 5 main path: {n_tris} triangles ({pack.n_triangles} slots), "
           f"pack {pack_s:.2f} s (treelets {sum(tl_s):.2f} s of it), frame 1 "
           f"{frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s at {w}x{h} 1spp 4 "
@@ -816,10 +1082,190 @@ def phase_main(tmp: str, errs: list) -> dict:
           f"{counts['packet']} packet_walk launches")
     if img.shape != (h, w, 3) or lit <= 0.10:
         fail("main-path PNG is wrong or mostly black")
-    if counts["strand"] == 0 or counts["packet"] != 0:
+    if counts["strand"] == 0 or counts["packet"] or counts["block"]:
         fail("the path waves of a >256-slot scene did not all take strand_walk")
-    return dict(launches=counts["strand"], ms=ms, plain_ms=plain_ms,
-                glb=glb, cam_json=cam_json, pack=pack, cam=cam, frame=frame)
+    return dict(launches=counts["strand"], ms=ms, plain_ms=plain_ms, **bnd,
+                glb=glb, cam_json=cam_json, png=png, pack=pack, cam=cam,
+                frame=frame)
+
+
+class recorded_block_queries:
+    """Context manager: the arguments of every block-walk query that the
+    strand factories made inside it run, as a list (the factory looks the
+    dispatcher up when it is called). The rays are copied: the fused wave
+    mode queries views of its path state, which it then updates in
+    place."""
+
+    def __enter__(self):
+        from raytpu_torch.kernels import strand as strand_mod
+
+        self.mod, self.real = strand_mod, strand_mod.strand_block_query
+        self.calls = []
+
+        def record(*args):
+            self.calls.append(args[:2] + tuple(a.clone() for a in args[2:5])
+                              + args[5:])
+            return self.real(*args)
+
+        strand_mod.strand_block_query = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.strand_block_query = self.real
+
+
+def phase_block_route(main_rec: dict, errs: list) -> dict:
+    """Phase 5b: phase 5's CLI run with RAYTPU_STRAND_PERSISTENT=0 (set
+    just before, restored just after): every strand query on strand_block.
+    Each of the frame's waves again through both walks: wherever they
+    disagree, strand_block must agree with the brute sweep (a warp tests a
+    leaf for all its lanes, so it finds hits that a lane's own box test
+    misses by rounding; strand_walk can lose them), and strand_walk must
+    miss it on exactly STRAND_WALK_LOST_HITS rays. The PNG within
+    tests/imgdiff.py's bar of phase 5's. On the largest sorted closest-hit
+    wave (the largest after the primary one): strand_block's ms beside
+    strand_walk's, the plain version (bit-equal with its counters); steps
+    and leaf visits per strand; the bound from the per-ray walk's work on
+    that wave's live lanes."""
+    import torch
+
+    from raytpu_torch.kernels.intersect import (
+        intersect_any_bruteforce,
+        intersect_bruteforce,
+    )
+    from raytpu_torch.kernels.strand import (
+        strand_block_query_cuda,
+        strand_block_query_torch,
+        strand_query_cuda,
+        strand_query_torch,
+    )
+
+    png = main_rec["png"].replace(".png", "_block.png")
+    argv = cli_argv(main_rec["glb"], png, MAIN_ARGS, main_rec["cam_json"])
+    with env(RAYTPU_STRAND_PERSISTENT="0"), recorded_block_queries() as calls:
+        cli_s, counts = run_cli(argv)
+    n_diff = int(np.any(read_png_rgb(png) != read_png_rgb(main_rec["png"]),
+                        axis=-1).sum())
+    sizes = [a[2].shape[0] for a in calls]
+    print(f"phase 5b block route: raytpu_torch.cli.main with "
+          f"RAYTPU_STRAND_PERSISTENT=0 -> rc 0 in {cli_s:.2f} s, "
+          f"{counts['block']} strand_block / {counts['strand']} strand_walk "
+          f"/ {counts['packet']} packet_walk launches, wave sizes {sizes}; "
+          f"{n_diff} PNG pixels differ from phase 5's")
+    if counts["block"] == 0 or counts["strand"] or counts["packet"]:
+        fail("phase 5b: the strand queries did not all run on strand_block")
+    # every wave of the frame again: the per-strand counters, and the
+    # per-ray walk on the same rays; where the two disagree, the brute
+    # sweep says which found the reference's hit
+    pack = main_rec["pack"]
+    steps, leaves, notes = [], [], []
+    block_wrong = walk_wrong = 0
+    for i, a in enumerate(calls):
+        tb, trb, st = strand_block_query_cuda(*a[:7], True)
+        tw, trw = strand_query_cuda(*a[:7])
+        steps.append(st[:, 0].double())
+        leaves.append(st[:, 1].double())
+        ro, rd, tmax, tmin, any_hit = a[2:7]
+        diff = (trb >= 0) != (trw >= 0)
+        if not any_hit:
+            diff |= tb.view(torch.int32) != tw.view(torch.int32)
+            diff |= (pack.tri_row[trb.clamp(min=0).long(), :9]
+                     != pack.tri_row[trw.clamp(min=0).long(), :9]).any(1)
+        idx = diff.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            continue
+        brute = (intersect_any_bruteforce if any_hit else
+                 intersect_bruteforce)(ro[idx], rd[idx], pack.tri_p0,
+                                       pack.tri_e1, pack.tri_e2, tmin,
+                                       tmax[idx])
+
+        def agrees(t, tri):
+            if any_hit:
+                return (tri[idx] >= 0) == brute
+            same_row = (pack.tri_row[tri[idx].clamp(min=0).long(), :9]
+                        == pack.tri_row[brute.tri.clamp(min=0).long(), :9]
+                        ).all(1)
+            return ((tri[idx] >= 0) == brute.valid) & (
+                ~brute.valid | (same_row & (t[idx] == brute.t)))
+
+        ab, aw = agrees(tb, trb), agrees(tw, trw)
+        block_wrong += int((~ab).sum())
+        walk_wrong += int((~aw).sum())
+        notes.append(f"wave {i} ({'any' if any_hit else 'closest'}): "
+                     f"{idx.numel()} rays differ; brute sides with "
+                     f"strand_block on {int((ab & ~aw).sum())}, strand_walk "
+                     f"on {int((aw & ~ab).sum())}, both on "
+                     f"{int((ab & aw).sum())}, neither on "
+                     f"{int((~ab & ~aw).sum())}")
+    steps_all, leaves_all = torch.cat(steps), torch.cat(leaves)
+    print("phase 5b strand_block vs strand_walk on the frame's waves: "
+          + ("; ".join(notes) or "no ray differs"))
+    print(f"phase 5b strand_walk vs brute where the walks differ: "
+          f"{walk_wrong} rays wrong (pinned at {STRAND_WALK_LOST_HITS}, "
+          "ROADMAP fault 3.4)")
+    if block_wrong:
+        fail(f"phase 5b: strand_block disagrees with the brute sweep on "
+             f"{block_wrong} rays where the walks differ")
+    if walk_wrong != STRAND_WALK_LOST_HITS:
+        fail(f"phase 5b: strand_walk loses {walk_wrong} hits, not the "
+             f"pinned {STRAND_WALK_LOST_HITS}: update the pin and ROADMAP "
+             "fault 3.4")
+    from raytpu_torch.io.metrics import ssim
+
+    img_b, img_w = read_png_rgb(png), read_png_rgb(main_rec["png"])
+    ssim_v = ssim(img_b, img_w)
+    print(f"phase 5b PNG vs phase 5's: {n_diff} pixels differ "
+          f"({n_diff / img_w[..., 0].size:.6f}), SSIM {ssim_v:.6f}")
+    if n_diff > 0.02 * img_w[..., 0].size or ssim_v < 0.99:
+        fail("phase 5b: the block route's PNG is outside the imgdiff bar")
+    big = max((i for i in range(1, len(calls)) if not calls[i][6]),
+              key=lambda i: sizes[i])
+    tree, leaf, ro, rd, tmax, tmin, any_hit = calls[big][:7]
+    ms = cuda_ms(lambda: strand_block_query_cuda(
+        tree, leaf, ro, rd, tmax, tmin, any_hit), reps=5)
+    walk_ms = cuda_ms(lambda: strand_query_cuda(
+        tree, leaf, ro, rd, tmax, tmin, any_hit), reps=5)
+    plain_ms = cuda_ms(lambda: strand_block_query_torch(
+        tree, leaf, ro, rd, tmax, tmin, any_hit), reps=1)
+    tk, trk, sk = strand_block_query_cuda(tree, leaf, ro, rd, tmax, tmin,
+                                          any_hit, True)
+    tp, trp, sp = strand_block_query_torch(tree, leaf, ro, rd, tmax, tmin,
+                                           any_hit, True)
+    tw, trw = strand_query_cuda(tree, leaf, ro, rd, tmax, tmin, any_hit)
+    torch.cuda.synchronize()
+    if not (same_bits(tk, tp) and torch.equal(trk, trp)
+            and torch.equal(sk, sp)):
+        fail("phase 5b: strand_block != its plain version on the largest wave")
+    errs.append(t_err(tk, tp))
+    # the same triangle as the per-ray walk (slots with identical rows)
+    hit = trk >= 0
+    walk_bad = int((hit != (trw >= 0)).sum()) + int(
+        (tk.view(torch.int32) != tw.view(torch.int32)).sum())
+    walk_bad += int((pack.tri_row[trk[hit].long(), :9]
+                     != pack.tri_row[trw[hit].long(), :9]).any(1).sum())
+    print(f"phase 5b largest wave: strand_block and strand_walk differ on "
+          f"{walk_bad} rays")
+    s_steps, s_leaves = sk[:, 0].double(), sk[:, 1].double()
+    print(f"phase 5b largest sorted closest-hit wave (call {big}, "
+          f"{ro.shape[0]} rays, "
+          f"{sk.shape[0]} strands): strand_block {ms:.3f} ms, strand_walk "
+          f"{walk_ms:.3f} ms, plain {plain_ms:.1f} ms, bit-equal with its "
+          f"counters; per strand steps mean "
+          f"{float(s_steps.mean()):.1f} max {int(s_steps.max())}, leaf visits "
+          f"mean {float(s_leaves.mean()):.1f} max {int(s_leaves.max())}; over "
+          f"the frame's {len(calls)} waves ({steps_all.numel()} strands) "
+          f"steps mean {float(steps_all.mean()):.1f} max "
+          f"{int(steps_all.max())}, leaf visits mean "
+          f"{float(leaves_all.mean()):.1f} max {int(leaves_all.max())}")
+    # the function's work: the per-ray walk's on the wave's live lanes
+    # (the warps' tests of dead lanes and of nodes a lane's own walk skips
+    # are the block walk's cost); every lane's ray in and result out
+    work = {}
+    live = tmax >= 0.0
+    strand_query_torch(tree, leaf, ro[live], rd[live], tmax[live], tmin,
+                       any_hit, counts=work)
+    return dict(launches=counts["block"], ms=ms, plain_ms=plain_ms,
+                **walk_bound(work, ro.shape[0], 28))
 
 
 class timed_treelets:
@@ -925,14 +1371,14 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
     rec = dict(launches=counts["packet"])
     if mode == "flat":
         ro, rd = primary_wave(cam, w, h, args["chunk_size"], args["seed"])
-        ms, plain_ms, bad = wave_check("packet", pack.bvh.node8_rows, pack,
-                                       ro, rd, errs)
+        ms, plain_ms, bad, bnd = wave_check("packet", pack.bvh.node8_rows,
+                                            pack, ro, rd, errs)
         line += (f"; primary wave {ro.shape[0]} rays: packet_walk {ms:.3f} "
                  f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on 4096 "
                  f"rays: {bad} mismatches")
         if bad:
             fail("primary wave: packet_walk disagrees with the brute sweep")
-        rec.update(ms=ms, plain_ms=plain_ms)
+        rec.update(ms=ms, plain_ms=plain_ms, **bnd)
     print(line)
     if img.shape != (h, w, 3) or lit <= min_lit:
         fail(f"cell {label}: PNG is wrong or has <= {min_lit} non-black")
@@ -964,8 +1410,7 @@ def phase_packet_route(tmp: str, main_rec: dict, errs: list) -> dict:
                          samples=1, bounces=1),
                     "flat", 0.10, tmp, errs),
     ]
-    return dict(launches=sum(c["launches"] for c in cells),
-                ms=cells[2]["ms"], plain_ms=cells[2]["plain_ms"])
+    return dict(cells[2], launches=sum(c["launches"] for c in cells))
 
 
 class recorded_walks:
@@ -1071,10 +1516,13 @@ def phase_stream(tmp: str, errs: list) -> dict:
     ms = kernel_ms[int(np.argmax(sizes))]
     plain_ms = cuda_ms(lambda: binned_walk_torch(*big), reps=1)
     tk, trk = binned_walk_cuda(*big)
-    tp, trp = binned_walk_torch(*big)
+    work = {}
+    tp, trp = binned_walk_torch(*big, counts=work)
     if not (same_bits(tk, tp) and torch.equal(trk, trp)):
         fail("phase 7a: binned_walk != its plain version on a frame launch")
     errs.append(t_err(tk, tp))
+    # per ray the treelet, ro, rd, tmax, smask and tri0 in
+    bnd = walk_bound(work, big[2].shape[0], 40)
     # primary wave: binned closest vs the strand walk on the same pack
     ro, rd = primary_wave(cam, w, h, 8, 1)
     tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
@@ -1090,7 +1538,7 @@ def phase_stream(tmp: str, errs: list) -> dict:
           f"{int(hb.valid.sum())} hits, {bad} mismatches against strand_walk")
     if bad:
         fail("phase 7a: binned closest hits differ from the strand walk's")
-    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms)
+    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms, **bnd)
 
 
 def phase_deferred(main_rec: dict) -> None:
@@ -1131,8 +1579,52 @@ def phase_deferred(main_rec: dict) -> None:
         fail("phase 7b did not take strand primary waves and binned bounces")
 
 
+def phase_step_bench(errs: list) -> dict:
+    """Phase 8: the per-step probe. Every arm at W = 8, 16 iterations on
+    the card against its plain replay (the final scratch and the last
+    carry bit-equal); then ``measure`` over every arm at W = 128, 2000
+    iterations (raytpu's defaults), the table printed, and the full arm's
+    plain replay at that size on the card, bit-equal and timed once."""
+    import torch
+
+    from raytpu_torch.tools import step_bench as sb
+
+    tree = sb.make_tree("cuda")
+    for arm in sb.ARMS:
+        out_k, acc_k, _ = sb.step_bench_cuda(tree, arm, 16, 8)
+        out_p, acc_p = sb.step_bench_torch(tree, arm, 16, 8)
+        torch.cuda.synchronize()
+        if not (same_bits(out_k, out_p) and same_bits(acc_k, acc_p)):
+            fail(f"step_bench {arm}: kernel != plain replay at W 8, 16 "
+                 f"iterations ({int((out_k != out_p).sum())} scratch, "
+                 f"{int((acc_k != acc_p).sum())} carry elements differ)")
+        errs.append(max(t_err(out_k, out_p), t_err(acc_k, acc_p)))
+    walkers, iters = 128, 2000
+    reset_launches()
+    rows = sb.measure(sb.ARMS, walkers, iters, repeats=5)
+    torch.cuda.synchronize()
+    launches = read_launches()["step"]
+    print(f"phase 8 step_bench: {len(sb.ARMS)} arms bit-equal to their plain "
+          f"replays at W 8, 16 iterations; W {walkers}, {iters} iterations, "
+          f"{launches} launches, launch floor {rows[0]['floor_ms']:.4f} ms:")
+    print(sb.format_table(rows))
+    full = rows[0]
+    plain_ms = cuda_ms(lambda: sb.step_bench_torch(tree, "full", iters,
+                                                   walkers), reps=1)
+    out_k, acc_k, _ = sb.step_bench_cuda(tree, "full", iters, walkers)
+    out_p, acc_p = sb.step_bench_torch(tree, "full", iters, walkers)
+    if not (same_bits(out_k, out_p) and same_bits(acc_k, acc_p)):
+        fail("step_bench full: kernel != plain replay at W 128")
+    errs.append(max(t_err(out_k, out_p), t_err(acc_k, acc_p)))
+    print(f"phase 8 full arm: kernel {full['ms']:.4f} ms, plain replay "
+          f"{plain_ms:.1f} ms, bit-equal")
+    return dict(launches=launches, ms=full["ms"], plain_ms=plain_ms,
+                **bound(nbytes(tree, out_k, acc_k),
+                        iters * walkers * 128 * STEP_FULL_OPS))
+
+
 def main() -> int:
-    errs: dict = {"strand": [], "packet": [], "binned": []}
+    errs: dict = {k: [] for k in KERNELS}
     try:
         import raytpu_torch  # noqa: F401
     except ImportError as e:
@@ -1146,17 +1638,28 @@ def main() -> int:
     phase_kernel(errs["strand"], "strand", "3")
     phase_kernel(errs["packet"], "packet", "3b")
     phase_binned_kernel(errs["binned"])
+    phase_block_kernel(errs["block"])
     with tempfile.TemporaryDirectory() as tmp:
         phase_card_vs_cpu(tmp)
         phase_binned_card_vs_cpu(tmp)
         recs = {"strand": phase_main(tmp, errs["strand"])}
+        recs["block"] = phase_block_route(recs["strand"], errs["block"])
         recs["packet"] = phase_packet_route(tmp, recs["strand"],
                                             errs["packet"])
         recs["binned"] = phase_stream(tmp, errs["binned"])
         phase_deferred(recs["strand"])
+    recs["step"] = phase_step_bench(errs["step"])
+    print("bounds: " + "; ".join(
+        f"{KERNELS[k]['name']} {r['n_bytes'] / 1e6:.1f} MB -> "
+        f"{r['bytes_ms']:.4f} ms, {r['n_ops'] / 1e9:.3f} G operations -> "
+        f"{r['ops_ms']:.4f} ms" for k, r in recs.items()))
+    # no single PyTorch call computes a BVH walk or the probe: library_ms
+    # is null for every kernel
     print(json.dumps({"kernels": [dict(
         KERNELS[k], launches=recs[k]["launches"], max_abs_err=max(errs[k]),
         ms=recs[k]["ms"], plain_ms=recs[k]["plain_ms"],
+        bound_ms=recs[k]["bound_ms"], bound_by=recs[k]["bound_by"],
+        library_ms=None,
     ) for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """The renderer: ray generation, bounce loop, sample accumulation, tiling.
 
 Torch counterpart of ``raytpu.engine.render`` in path mode's *query*
-schedule. One wavefront of rays per framebuffer tile: every per-bounce
+schedule and, on waves of 2^20 lanes or more, its *fused* wave mode
+(``_wave_mode``, ``_fused_bounces``). One wavefront of rays per
+framebuffer tile: every per-bounce
 step is a vectorised op over the tile, with boolean masks standing in for
 the reference megakernel's divergent branches (src/shader.wgsl:299-419),
 and the data-dependent material/RNG control flow replayed exactly
@@ -38,6 +40,8 @@ Reference quirks reproduced on purpose (as in raytpu):
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -358,6 +362,67 @@ def _shade_core(pack: ScenePack, ro, rd, hit, rng, active):
     )
 
 
+def _compact_tiers(r: int):
+    """Live-prefix tier sizes for the fused wave mode: multiples of 256
+    covering r/d for each divisor (RAYTPU_COMPACT_DIV), sorted ascending,
+    excluding r itself. Empty below 2048 lanes (raytpu's
+    ``_compact_tiers``, verbatim)."""
+    divs = [
+        int(d) for d in os.environ.get(
+            "RAYTPU_COMPACT_DIV", "16,4,2"
+        ).split(",") if int(d) > 1
+    ] if r >= 2048 else []
+    return sorted({min(-(-(r // d) // 256) * 256, r) for d in divs} - {r})
+
+
+def _bounce_work(pack: ScenePack, closest, any_hit, sop, sdp, rngp, alivep,
+                 sort_shadow: bool = True):
+    """One bounce's query + shade + NEE at whatever width the caller chose
+    (the whole wave, or the live prefix of a coherence-sorted one):
+    closest query, shading, shadow query (coherence-sorted with
+    ``sort_shadow``), radiance delta. Per-lane math only, so safe at any
+    width and order (raytpu's ``_bounce_work``). Returns (delta [R, 4],
+    attenuation multiplier [R, 4], next_ro, next_rd, bounce_on, rng); a
+    lane's delta is its emissive term or its NEE term, never both."""
+    tm = torch.where(alivep, F32_MAX, NEG_INF)
+    hit = closest(sop, sdp, 0.001, tm)
+    sh = _shade_core(pack, sop, sdp, hit, rngp, alivep & hit.valid)
+    bounce_on = sh["bounce_on"]
+    delta = sh["emissive_delta"] + _nee(
+        pack, any_hit, sh["p"], sh["ldir"], sh["dist"], sh["contrib"],
+        bounce_on, sort_shadow)
+    nro = torch.where(bounce_on[:, None], sh["p"], sop)
+    nrd = torch.where(bounce_on[:, None], sh["scattered"], sdp)
+    return delta, sh["att_mult"], nro, nrd, bounce_on, sh["rng"]
+
+
+def _wave_mode(r: int, fusable: bool) -> str:
+    """raytpu's bounce-wave schedule for a tile of ``r`` lanes
+    (``render.py:1080-1086``): RAYTPU_WAVE_MODE, by default "fused" on
+    waves of at least RAYTPU_LARGE_WAVE lanes (2^20) and "query" below.
+    Fused mode applies only to sorted waves with immediate NEE
+    (``fusable``); elsewhere the query schedule runs."""
+    large_wave = r >= int(os.environ.get("RAYTPU_LARGE_WAVE", str(1 << 20)))
+    mode = os.environ.get("RAYTPU_WAVE_MODE",
+                          "fused" if large_wave else "query")
+    if mode in ("resort", "compact"):
+        raise NotImplementedError(
+            f"RAYTPU_WAVE_MODE={mode!r} is a raytpu A/B arm that is not "
+            "ported (ROADMAP: Arms not to port); use 'fused' or 'query'"
+        )
+    if mode not in ("fused", "query"):
+        raise ValueError(f"unknown RAYTPU_WAVE_MODE {mode!r}")
+    return mode if fusable else "query"
+
+
+# the schedule of the last _trace_paths call: the wave mode and the work
+# width of every bounce run (the full tile in query mode). Each call
+# overwrites it, so after a frame of several tiles or samples it describes
+# the last tile-sample's path only (chip_smoke.py and the tests read it
+# after one-tile, one-sample frames).
+WAVE_STATS = dict(mode=None, widths=[])
+
+
 def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
                  bounces: int, mask=None, sort_bounced=False,
                  bounce_pair=None, count_mask=None, mixed_fn=None):
@@ -369,6 +434,16 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     strand pair) is given, every wave uses it: primary, shadow and bounce,
     as raytpu does by default. The bounce loop stops once no lane is alive
     (a bounce over dead lanes changes nothing).
+
+    Fused wave mode (``_wave_mode``; raytpu's ``fused_step``): bounce 0
+    runs as above; from bounce 1 on the wave stays in coherence-sorted
+    order. Each bounce sorts only the previous bounce's work tier (the
+    live lanes lie inside it) by the unique key ``key << 32 | pixel``,
+    runs ``_bounce_work`` on the smallest tier of ``_compact_tiers``
+    holding every live lane, and passes the lanes beyond it through; one
+    scatter by pixel index at path exit restores the order. Per-lane math
+    never depends on order or width, so the frame is the query
+    schedule's.
 
     With ``mixed_fn`` (a binned query) NEE is deferred, as raytpu's
     ``use_mixed`` branch does it: bounce b's shadow rays ride bounce
@@ -394,52 +469,58 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     if mask is not None:
         alive = alive & mask
     pend = None  # the deferred shadow rays: (p, ldir, dist, contrib, on)
+    mode = _wave_mode(r, sort_bounced and mixed_fn is None)
+    WAVE_STATS.update(mode=mode, widths=[])
 
     for b in range(bounces):
+        if b == 1 and mode == "fused":
+            return _fused_bounces(pack, closest, any_hit, ro, rd, rng,
+                                  radiance, attenuation, alive, bounces,
+                                  count_mask, n_rays)
         if not bool(alive.any()):
             break
-        if pend is not None:
-            # continuation + the previous bounce's shadow rays in ONE
-            # query; the deferred NEE lands BEFORE this bounce's emissive
-            # term (reference order)
-            p_p, p_dir, p_dist, p_contrib, p_on = pend
-            hit, blocked = _mixed_bounce_query(mixed_fn, pack, ro, rd, alive,
-                                               p_p, p_dir, p_dist, p_on)
-            radiance = radiance + torch.where(
-                (p_on & ~blocked)[:, None], p_contrib, 0.0
-            )
-        else:
-            # dead lanes get tmax = -inf: no query may produce hits for them
-            tmax = torch.where(alive, F32_MAX, NEG_INF)
+        WAVE_STATS["widths"].append(r)
+        if mixed_fn is None:
+            # immediate NEE: the bounce's query, shading, shadow query and
+            # continuation (:339-377); dead lanes get tmax = -inf, so no
+            # query may produce hits for them
+            query = closest
             if sort_bounced and b > 0:
-                hit = _sorted_query(closest, pack, ro, rd, 0.001, tmax, alive,
-                                    True)
+                def query(o, d, tmin, tmax, alive=alive):
+                    return _sorted_query(closest, pack, o, d, tmin, tmax,
+                                         alive, True)
+            delta, mult, ro, rd, bounce_on, rng = _bounce_work(
+                pack, query, any_hit, ro, rd, rng, alive, sort_bounced)
+            radiance = radiance + delta
+        else:
+            if pend is None:
+                hit = closest(ro, rd, 0.001,
+                              torch.where(alive, F32_MAX, NEG_INF))
             else:
-                hit = closest(ro, rd, 0.001, tmax)
-        active = alive & hit.valid
-
-        sh = _shade_core(pack, ro, rd, hit, rng, active)
-        rng = sh["rng"]
-        bounce_on = sh["bounce_on"]
-        radiance = radiance + sh["emissive_delta"]
-        attenuation = torch.where(
-            bounce_on[:, None], attenuation * sh["att_mult"], attenuation
-        )
-
-        # --- next-event estimation visibility (:370-374) ---
-        if mixed_fn is not None:
+                # continuation + the previous bounce's shadow rays in ONE
+                # query; the deferred NEE lands BEFORE this bounce's
+                # emissive term (reference order)
+                p_p, p_dir, p_dist, p_contrib, p_on = pend
+                hit, blocked = _mixed_bounce_query(
+                    mixed_fn, pack, ro, rd, alive, p_p, p_dir, p_dist, p_on)
+                radiance = radiance + torch.where(
+                    (p_on & ~blocked)[:, None], p_contrib, 0.0
+                )
+            sh = _shade_core(pack, ro, rd, hit, rng, alive & hit.valid)
+            rng = sh["rng"]
+            bounce_on = sh["bounce_on"]
+            mult = sh["att_mult"]
+            radiance = radiance + sh["emissive_delta"]
             # the contribution is fixed here; only its visibility test
             # waits for the next query
             pend = (sh["p"], sh["ldir"], sh["dist"], sh["contrib"],
                     bounce_on)
-        else:
-            radiance = radiance + _nee(pack, any_hit, sh["p"], sh["ldir"],
-                                       sh["dist"], sh["contrib"], bounce_on,
-                                       sort_bounced)
-
-        # continue the path (:376-377)
-        ro = torch.where(bounce_on[:, None], sh["p"], ro)
-        rd = torch.where(bounce_on[:, None], sh["scattered"], rd)
+            # continue the path (:376-377)
+            ro = torch.where(bounce_on[:, None], sh["p"], ro)
+            rd = torch.where(bounce_on[:, None], sh["scattered"], rd)
+        attenuation = torch.where(
+            bounce_on[:, None], attenuation * mult, attenuation
+        )
         alive = bounce_on
         if n_rays is not None:
             n_rays += 2 * int((alive & count_mask).sum())
@@ -449,6 +530,59 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     if n_rays is not None:
         return radiance * attenuation, rng, n_rays
     return radiance * attenuation, rng
+
+
+def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
+                   attenuation, alive, bounces, count_mask, n_rays):
+    """Bounces 1..B-1 of ``_trace_paths`` in fused wave mode, from bounce
+    0's state; returns what ``_trace_paths`` returns."""
+    r = ro.shape[0]
+    tiers = _compact_tiers(r)
+    # the path state in sorted order: radiance/attenuation as 3 columns
+    # (their w columns are 0 at exit), the pixel index, the count mask
+    state = dict(ro=ro.clone(), rd=rd.clone(), rng=rng.clone(),
+                 rad=radiance[:, :3].clone(), att=attenuation[:, :3].clone(),
+                 alive=alive.clone(),
+                 pxi=torch.arange(r, dtype=torch.int32, device=ro.device))
+    if n_rays is not None:
+        state["cm"] = count_mask.clone()
+    wsz = r  # the first sort window: every lane may be alive
+    for _ in range(1, bounces):
+        # the live lanes lie in the window (the tier that holds them is
+        # the smallest at or above n_alive); the count is read once
+        n_alive = int(state["alive"][:wsz].sum())
+        if n_alive == 0:
+            break  # a bounce over dead lanes changes nothing
+        key = _ray_sort_key(pack, state["ro"][:wsz], state["rd"][:wsz],
+                            state["alive"][:wsz])
+        # (key, pixel) is unique, so this is raytpu's two-level sort
+        perm = torch.sort((key.long() << 32) | state["pxi"][:wsz].long())[1]
+        for x in state.values():
+            x[:wsz] = x[:wsz][perm]
+        p = next((t for t in tiers if n_alive <= t), r)
+        WAVE_STATS["widths"].append(p)
+        s = {k: x[:p] for k, x in state.items()}
+        delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
+            pack, closest, any_hit, s["ro"], s["rd"], s["rng"], s["alive"])
+        s["att"].copy_(torch.where(bounce_on[:, None], s["att"] * mult[:, :3],
+                                   s["att"]))
+        s["rad"].copy_(s["rad"] + delta[:, :3])
+        s["ro"].copy_(nro)
+        s["rd"].copy_(nrd)
+        s["rng"].copy_(rng_p)
+        s["alive"].copy_(bounce_on)
+        if n_rays is not None:
+            n_rays += 2 * int((bounce_on & s["cm"]).sum())
+        wsz = p  # the next sort window: this bounce's work tier
+    # one scatter back to pixel order, radiance * attenuation first
+    pxi = state["pxi"].long()
+    out = torch.zeros((r, 4), dtype=torch.float32, device=ro.device)
+    out[pxi, :3] = state["rad"] * state["att"]
+    rng_out = torch.empty_like(state["rng"])
+    rng_out[pxi] = state["rng"]
+    if n_rays is not None:
+        return out, rng_out, n_rays
+    return out, rng_out
 
 
 def _nee(pack, any_hit, p, ldir, dist, contrib, on, sort_bounced):

@@ -80,7 +80,8 @@ QUERY_STATS = dict(queries=0, rounds=0, max_rounds=0)
 
 
 def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
-                      tmin: float, shadow_tmin: float):
+                      tmin: float, shadow_tmin: float,
+                      counts: dict | None = None):
     """Plain torch version of the treelet walk. tl_nodes [T, Sn, 128],
     tl_leaves [T, Sl, 128], tid [R] i32 (each ray's treelet), ro/rd [R, 3],
     tmax [R], smask [R] (1.0 = shadow lane), tri0 [R] i32 (a closest
@@ -88,7 +89,10 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     whose tid is out of range returns its starting state. Each loop
     iteration pops one node for every unfinished ray; finished rays leave
     the working set. The stack is a [W, width] tensor whose width grows to
-    STACK_DEPTH as pushes need."""
+    STACK_DEPTH as pushes need. A ``counts`` dict gains the walk's box
+    tests ("boxes"), triangle tests ("tris") and the table bytes it reads,
+    each distinct 512-byte node row and the 320 bytes of triangles of each
+    distinct leaf row once ("bytes")."""
     dev = ro.device
     n_tl, sn = tl_nodes.shape[0], tl_nodes.shape[1]
     sl = tl_leaves.shape[1]
@@ -115,6 +119,9 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
         sp=torch.ones(w, dtype=torch.long, device=dev),
         stack=torch.zeros((w, _PLAIN_STACK0), dtype=torch.int32, device=dev),
     )
+    if counts is not None:
+        seen_node = torch.zeros(kids.shape[0], dtype=torch.bool, device=dev)
+        seen_leaf = torch.zeros(tris.shape[0], dtype=torch.bool, device=dev)
     for _ in range(sn):
         w = s["idx"].numel()
         if w == 0:
@@ -125,9 +132,13 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
             grown = min(STACK_DEPTH, max(2 * width, need))
             s["stack"] = torch.cat([s["stack"], s["stack"].new_zeros(
                 (w, grown - width))], dim=1)
+        if counts is not None:
+            counts["boxes"] = counts.get("boxes", 0) + 8 * w
         lane = torch.arange(w, device=dev)
         s["sp"] = s["sp"] - 1
         node = s["base"] * sn + s["stack"][lane, s["sp"]].long()
+        if counts is not None:
+            seen_node[node] = True
         kb = boxes[node]  # [W, 8, 6]
         kl = links[node]  # [W, 8]
         # LIMIT is read once per popped node, as the TPU kernel reads it
@@ -155,6 +166,9 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
                 continue
             li = at_leaf.nonzero().squeeze(1)
             row = s["base"][li] * sl + (~link[li]).long()
+            if counts is not None:
+                counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
+                seen_leaf[row] = True
             tri = tris[row]  # [L, 8, 10]
             t, _, _, ok = moller_trumbore(
                 s["o"][li][:, None, :], s["d"][li][:, None, :],
@@ -191,6 +205,9 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     # walks cut by the pop bound (never for a tree) keep their best
     t_out[s["idx"]] = s["bt"]
     tri_out[s["idx"]] = s["btri"]
+    if counts is not None:
+        counts["bytes"] = (counts.get("bytes", 0) + 512 * int(seen_node.sum())
+                           + 320 * int(seen_leaf.sum()))
     return t_out, tri_out
 
 

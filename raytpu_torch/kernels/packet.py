@@ -61,11 +61,14 @@ _PLAIN_STACK0 = 64  # the plain version's first stack width; it grows
 
 
 def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                       any_hit: bool):
+                       any_hit: bool, counts: dict | None = None):
     """Plain torch version of the BVH8 stack walk. ro/rd [R,3], tmax [R];
     returns (t [R] f32, tri [R] i32). Each loop iteration pops one node for
     every unfinished ray; finished rays leave the working set. The stack is
-    a [W, width] tensor whose width grows to STACK_DEPTH as pushes need."""
+    a [W, width] tensor whose width grows to STACK_DEPTH as pushes need.
+    A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
+    ("tris") and the table bytes it reads, each distinct 512-byte node row
+    and 320-byte leaf row once ("bytes")."""
     dev = ro.device
     r = ro.shape[0]
     n_nodes = node8_rows.shape[0]
@@ -91,6 +94,9 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
         sp=torch.ones(r, dtype=torch.long, device=dev), stack=stack,
     )
     k8 = torch.arange(8, device=dev, dtype=torch.int32)
+    if counts is not None:
+        seen_node = torch.zeros(n_nodes, dtype=torch.bool, device=dev)
+        seen_leaf = torch.zeros(n_leaf_rows, dtype=torch.bool, device=dev)
     for _ in range(n_nodes):
         w = s["idx"].numel()
         if w == 0:
@@ -101,9 +107,13 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
             grown = min(STACK_DEPTH, max(2 * width, need))
             s["stack"] = torch.cat([s["stack"], s["stack"].new_zeros(
                 (w, grown - width))], dim=1)
+        if counts is not None:
+            counts["boxes"] = counts.get("boxes", 0) + 8 * w
         lane = torch.arange(w, device=dev)
         s["sp"] = s["sp"] - 1
         node = s["stack"][lane, s["sp"]].long()
+        if counts is not None:
+            seen_node[node] = True
         kb = boxes[node]  # [W, 8, 6]
         kl = links[node]  # [W, 8]
         walking = torch.ones(w, dtype=torch.bool, device=dev)
@@ -131,6 +141,9 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
                 continue
             li = at_leaf.nonzero().squeeze(1)
             lr = ~link[li]
+            if counts is not None:
+                counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
+                seen_leaf[lr.long()] = True
             tri = tris[lr.long()]  # [L, 8, 10]
             lim = (s["tm"] if any_hit else s["bt"])[li][:, None]
             t, _, _, ok = moller_trumbore(
@@ -166,6 +179,9 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
     # walks cut by the pop bound (never for a tree) keep their best
     t_out[s["idx"]] = s["bt"]
     tri_out[s["idx"]] = s["btri"]
+    if counts is not None:
+        counts["bytes"] = (counts.get("bytes", 0) + 512 * int(seen_node.sum())
+                           + 320 * int(seen_leaf.sum()))
     return t_out, tri_out
 
 

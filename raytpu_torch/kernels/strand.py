@@ -23,11 +23,28 @@ with its factory ``raytpu/kernels/strand.py:make_strand_intersectors``
 torch ops, the same arithmetic in the same order). ``strand_query``
 dispatches on the tensors' device alone: CUDA tensors go to the kernel,
 CPU tensors to the plain version.
+
+The block-scheduled walk replaces ``raytpu/kernels/strand.py:
+_strand_kernel`` (entry ``strand_query``), which raytpu runs with
+``RAYTPU_STRAND_PERSISTENT=0``: a whole strand of consecutive
+(coherence-sorted) rays shares one stackless walker, walking the octant
+of the strand's lane 0 and descending wherever any lane's box test hits;
+at a leaf every lane tests the 8 slots. On the card a strand is a warp of
+32 rays (``csrc/strand_block.cu``, ``strand_block_query_cuda``);
+``strand_block_query_torch`` is its plain version; with ``with_stats``
+both also return each strand's walker steps and leaf visits. Per ray the
+block walk returns the per-ray walk's result (closest ``t`` bits, the
+triangle, the blocked bit) except where the per-ray walk loses a hit: a
+lane tests every leaf its warp's walker reaches, also under boxes its own
+slab test misses by rounding, so the block walk finds hits that the
+per-ray walk drops (a few dozen rays of a 1080p frame, each sided with the
+brute sweep; ROADMAP fault 3.4).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -36,6 +53,10 @@ from .intersect import F32_MAX, Hit, moller_trumbore
 TINY = 1e-36
 CLOSEST_TMIN = 0.001  # src/shader.wgsl:312-319
 ANY_TMIN = 0.0  # shadow rays start at t = 0 (src/shader.wgsl:174-186)
+STRAND = 32  # rays per strand of the block walk: one warp
+# raytpu's STRAND_VMEM_BUDGET (kernels/strand.py:440): larger tables force
+# the persistent walk (_hbm_tables), and the port routes the same way
+STRAND_TABLE_BUDGET = 100 * 1024 * 1024
 
 
 def _safe_inv(rd: torch.Tensor) -> torch.Tensor:
@@ -46,10 +67,13 @@ def _safe_inv(rd: torch.Tensor) -> torch.Tensor:
 
 
 def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                       any_hit: bool):
+                       any_hit: bool, counts: dict | None = None):
     """Plain torch version of the strand walk. ro/rd [R,3], tmax [R];
     returns (t [R] f32, tri [R] i32). Each loop iteration advances every
-    unfinished ray by one node; finished rays leave the working set."""
+    unfinished ray by one node; finished rays leave the working set. A
+    ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
+    ("tris") and the table bytes it reads, each distinct 32-byte node
+    record and 320-byte leaf row once ("bytes")."""
     dev = ro.device
     r = ro.shape[0]
     recs = strand_rows.reshape(-1, 8)  # node c, octant o at record 8c + o
@@ -72,10 +96,17 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
         cur=torch.zeros(r, dtype=torch.long, device=dev),
     )
     k8 = torch.arange(8, device=dev, dtype=torch.int32)
+    if counts is not None:
+        seen_rec = torch.zeros(recs.shape[0], dtype=torch.bool, device=dev)
+        seen_leaf = torch.zeros(tris.shape[0], dtype=torch.bool, device=dev)
     for _ in range(n_nodes):
         if s["idx"].numel() == 0:
             break
-        rec = recs[s["cur"] * 8 + s["oct"]]
+        ri = s["cur"] * 8 + s["oct"]
+        if counts is not None:
+            counts["boxes"] = counts.get("boxes", 0) + s["idx"].numel()
+            seen_rec[ri] = True
+        rec = recs[ri]
         lo = (torch.where(s["neg"], rec[:, 3:6], rec[:, 0:3]) - s["o"]) * s["inv"]
         hi = (torch.where(s["neg"], rec[:, 0:3], rec[:, 3:6]) - s["o"]) * s["inv"]
         limit = s["tm"] if any_hit else s["bt"]
@@ -93,6 +124,9 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
         if bool(at_leaf.any()):
             li = at_leaf.nonzero().squeeze(1)
             lr = (~hit_link[li]).to(torch.int32)
+            if counts is not None:
+                counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
+                seen_leaf[lr.long()] = True
             tri = tris[lr.long()]  # [L, 8, 10]
             lim = (s["tm"] if any_hit else s["bt"])[li][:, None]
             t, _, _, ok = moller_trumbore(
@@ -128,6 +162,9 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
     # walks cut by the step bound (never for a valid tree) keep their best
     t_out[s["idx"]] = s["bt"]
     tri_out[s["idx"]] = s["btri"]
+    if counts is not None:
+        counts["bytes"] = (counts.get("bytes", 0) + 32 * int(seen_rec.sum())
+                           + 320 * int(seen_leaf.sum()))
     return t_out, tri_out
 
 
@@ -219,6 +256,192 @@ def strand_query(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
                               any_hit)
 
 
+def strand_block_query_torch(strand_rows, leaf_tris, ro, rd, tmax,
+                             tmin: float, any_hit: bool,
+                             with_stats: bool = False):
+    """Plain torch version of the block walk. ro/rd [R,3], tmax [R];
+    returns (t [R] f32, tri [R] i32) and, with ``with_stats``, int32
+    [ceil(R/32), 2] of each strand's walker steps and leaf visits. The
+    rays are cut into strands [S, 32], the last one padded with dead lanes
+    (ro 0, rd (1,1,1), tmax -inf); each loop iteration advances every
+    unfinished strand's walker by one node."""
+    dev = ro.device
+    r = ro.shape[0]
+    n_str = -(-r // STRAND)
+    pad = n_str * STRAND - r
+    recs = strand_rows.reshape(-1, 8)  # node c, octant o at record 8c + o
+    tris = leaf_tris.reshape(-1, 8, 10)
+    n_nodes = strand_rows.shape[0] * 2
+    n_leaf_rows = leaf_tris.shape[0]
+    tmax = tmax.to(torch.float32)
+    if pad:
+        ro = torch.cat([ro, ro.new_zeros((pad, 3))])
+        rd = torch.cat([rd, rd.new_ones((pad, 3))])
+        tmax = torch.cat([tmax, tmax.new_full((pad,), float("-inf"))])
+    o = ro.reshape(n_str, STRAND, 3)
+    d = rd.reshape(n_str, STRAND, 3)
+    tm = tmax.reshape(n_str, STRAND)
+    inv = _safe_inv(d)
+    lane0 = d[:, 0]
+    best_t = tm.clone() if any_hit else torch.minimum(
+        torch.full_like(tm, F32_MAX), tm
+    )
+    t_out = torch.empty_like(tm)
+    tri_out = torch.empty((n_str, STRAND), dtype=torch.int32, device=dev)
+    st_out = torch.empty((n_str, 2), dtype=torch.int32, device=dev)
+    # the working set: one entry per unfinished strand
+    s = dict(
+        idx=torch.arange(n_str, device=dev), o=o, d=d, inv=inv,
+        neg=inv < 0.0, tm=tm, bt=best_t,
+        oct=((lane0[:, 0] < 0).long() + 2 * (lane0[:, 1] < 0).long()
+             + 4 * (lane0[:, 2] < 0).long()),
+        btri=torch.full((n_str, STRAND), -1, dtype=torch.int32, device=dev),
+        cur=torch.zeros(n_str, dtype=torch.long, device=dev),
+        st=torch.zeros((n_str, 2), dtype=torch.int32, device=dev),
+    )
+    k8 = torch.arange(8, device=dev, dtype=torch.int32)
+
+    def retire(done):
+        nonlocal s
+        i = s["idx"][done]
+        t_out[i] = s["bt"][done]
+        tri_out[i] = s["btri"][done]
+        st_out[i] = s["st"][done]
+        s = {key: val[~done] for key, val in s.items()}
+
+    for _ in range(n_nodes):
+        if any_hit:
+            # every lane blocked or dead: the walker stops
+            retire(((s["btri"] >= 0) | (s["tm"] < 0.0)).all(dim=1))
+        if s["idx"].numel() == 0:
+            break
+        rec = recs[s["cur"] * 8 + s["oct"]][:, None, :]  # [W, 1, 8]
+        neg = s["neg"]
+        lo = (torch.where(neg, rec[..., 3:6], rec[..., 0:3]) - s["o"]) * s["inv"]
+        hi = (torch.where(neg, rec[..., 0:3], rec[..., 3:6]) - s["o"]) * s["inv"]
+        if any_hit:
+            limit = torch.where(s["btri"] >= 0, float("-inf"), s["tm"])
+        else:
+            limit = s["bt"]
+        near = torch.maximum(
+            torch.maximum(lo[..., 0], lo[..., 1]),
+            torch.maximum(lo[..., 2], torch.full_like(lo[..., 2], tmin)),
+        )
+        far = torch.minimum(
+            torch.minimum(hi[..., 0], hi[..., 1]),
+            torch.minimum(hi[..., 2], limit),
+        )
+        hit_any = (near <= far).any(dim=1)
+        s["st"][:, 0] += 1
+        hit_link = rec[:, 0, 6].long()
+        nxt = torch.where(hit_any & (hit_link >= 0), hit_link,
+                          rec[:, 0, 7].long())
+        at_leaf = hit_any & (hit_link < 0) & (~hit_link < n_leaf_rows)
+        if bool(at_leaf.any()):
+            li = at_leaf.nonzero().squeeze(1)
+            s["st"][li, 1] += 1
+            lr = (~hit_link[li]).to(torch.int32)
+            tri = tris[lr.long()][:, None]  # [L, 1, 8, 10]
+            lim = s["tm"][li][..., None] if any_hit else float("inf")
+            t, _, _, ok = moller_trumbore(
+                s["o"][li][:, :, None, :], s["d"][li][:, :, None, :],
+                tri[..., 0:3], tri[..., 3:6], tri[..., 6:9], tmin, lim,
+            )  # [L, 32, 8]
+            slot = (lr[:, None] * 8 + k8)[:, None, :].expand_as(t)
+            found = ok.any(dim=2)
+            bt, bi = s["bt"][li], s["btri"][li]
+            if any_hit:
+                # a lane keeps its first accepted slot
+                k = ok.to(torch.int32).argmax(dim=2, keepdim=True)
+                first = slot.gather(2, k)[..., 0]
+                s["btri"][li] = torch.where(found & (bi < 0), first, bi)
+            else:
+                # the in-order accept rule keeps the smallest (t, slot)
+                tc = torch.where(ok, t, torch.inf)
+                mt = tc.amin(dim=2)
+                ms = slot.gather(2, tc.argmin(dim=2, keepdim=True))[..., 0]
+                acc = found & ((mt < bt) | ((mt == bt) & (ms < bi)))
+                s["bt"][li] = torch.where(acc, mt, bt)
+                s["btri"][li] = torch.where(acc, ms, bi)
+        s["cur"] = nxt
+        retire((nxt < 0) | (nxt >= n_nodes))
+    # walks cut by the step bound (never for a valid tree) keep their best
+    retire(torch.ones_like(s["idx"], dtype=torch.bool))
+    t, tri = t_out.reshape(-1)[:r], tri_out.reshape(-1)[:r]
+    return (t, tri, st_out) if with_stats else (t, tri)
+
+
+_BLOCK_LIB = None
+
+
+def _block_library():
+    """The built block-walk library with its C signatures declared."""
+    global _BLOCK_LIB
+    if _BLOCK_LIB is None:
+        from ._build import load_library
+
+        lib = load_library("strand_block")
+        lib.strand_block_launch.restype = ctypes.c_int
+        lib.strand_block_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.strand_block_error_string.restype = ctypes.c_char_p
+        lib.strand_block_error_string.argtypes = [ctypes.c_int]
+        _BLOCK_LIB = lib
+    return _BLOCK_LIB
+
+
+def strand_block_query_cuda(strand_rows, leaf_tris, ro, rd, tmax,
+                            tmin: float, any_hit: bool,
+                            with_stats: bool = False):
+    """Launch ``csrc/strand_block.cu`` on the current stream (one warp per
+    32-ray strand, 4 strands per block). Same signature and results as
+    ``strand_block_query_torch``; raises on bad inputs or a failed launch.
+    ``strand_block_query_cuda.launches`` counts the launches."""
+    if ro.device.type != "cuda":
+        raise ValueError(f"strand_block_query_cuda needs CUDA tensors, got "
+                         f"{ro.device}")
+    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax)
+    lib = _block_library()
+    r = ro.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=ro.device)
+    tri = torch.empty(r, dtype=torch.int32, device=ro.device)
+    stats = torch.zeros((-(-r // STRAND), 2), dtype=torch.int32,
+                        device=ro.device) if with_stats else None
+    if r == 0:
+        return (t, tri, stats) if with_stats else (t, tri)
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.strand_block_launch(
+            strand_rows.data_ptr(), leaf_tris.data_ptr(), ro.data_ptr(),
+            rd.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
+            None if stats is None else stats.data_ptr(), r,
+            strand_rows.shape[0] * 2, leaf_tris.shape[0], float(tmin),
+            int(any_hit), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "strand_block launch failed: "
+            + lib.strand_block_error_string(rc).decode()
+        )
+    strand_block_query_cuda.launches += 1
+    return (t, tri, stats) if with_stats else (t, tri)
+
+
+strand_block_query_cuda.launches = 0
+
+
+def strand_block_query(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
+                       any_hit: bool, with_stats: bool = False):
+    """The block kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    fn = (strand_block_query_cuda if ro.device.type == "cuda"
+          else strand_block_query_torch)
+    return fn(strand_rows, leaf_tris, ro, rd, tmax, tmin, any_hit,
+              with_stats)
+
+
 def _check_baked_tmin(tmin, baked: float, what: str):
     if float(tmin) != baked:
         raise ValueError(
@@ -236,7 +459,16 @@ def make_strand_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
     signature over ``pack.bvh.strand_rows``. tmin is baked: 0.001 for
     closest-hit and 0.0 for any-hit; another value raises. A pack without
-    a strand tree (<= 256 slots) raises ValueError."""
+    a strand tree (<= 256 slots) raises ValueError.
+
+    The walk is chosen here, once, as raytpu's factory chooses its kernel:
+    the per-ray walk (raytpu's persistent kernel, its default), or the
+    block walk when ``RAYTPU_STRAND_PERSISTENT=0`` and the strand rows and
+    leaf rows fit raytpu's 100 MiB table budget (above it raytpu forces
+    the persistent kernel, and so does the port). raytpu's block-kernel
+    scheduling knobs (``groups``, ``RAYTPU_STRAND_SKIP_DONE``,
+    ``RAYTPU_STRAND_MULTIROLL``, the leaf-queue deferral) are TPU
+    scheduling and have no counterpart."""
     if pack.bvh.strand_rows is None:
         raise ValueError(
             "intersector='strand' needs a strand tree; scenes above "
@@ -244,17 +476,21 @@ def make_strand_intersectors(pack):
         )
     tree = pack.bvh.strand_rows.contiguous()
     leaves = pack.bvh.leaf_tris.contiguous()
+    persistent = os.environ.get("RAYTPU_STRAND_PERSISTENT", "1") != "0"
+    if (tree.numel() + leaves.numel()) * 4 > STRAND_TABLE_BUDGET:
+        persistent = True
+    query = strand_query if persistent else strand_block_query
 
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "strand closest")
-        t, tri = strand_query(tree, leaves, ro.contiguous(), rd.contiguous(),
-                              _per_ray(tmax, ro), CLOSEST_TMIN, False)
+        t, tri = query(tree, leaves, ro.contiguous(), rd.contiguous(),
+                       _per_ray(tmax, ro), CLOSEST_TMIN, False)
         return Hit(t=t, tri=tri, valid=tri >= 0)
 
     def any_fn(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, ANY_TMIN, "strand any-hit")
-        _, tri = strand_query(tree, leaves, ro.contiguous(), rd.contiguous(),
-                              _per_ray(tmax, ro), ANY_TMIN, True)
+        _, tri = query(tree, leaves, ro.contiguous(), rd.contiguous(),
+                       _per_ray(tmax, ro), ANY_TMIN, True)
         return tri >= 0
 
     return closest, any_fn

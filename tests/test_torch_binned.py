@@ -391,6 +391,35 @@ def test_dispatch_by_device_and_cuda_wrapper_refuses_cpu():
     assert binned_walk_cuda.launches == before
 
 
+def test_plain_walk_counts_its_reads():
+    """The plain walk's counts, the inputs of chip_smoke.py's bounds, on
+    treelets at budget 48: one ray pops each node of its treelet once (8
+    box tests, one 512-byte row) and reads each leaf it visits once (8
+    triangle tests, 320 bytes of triangles); a launch reads each distinct
+    row once, at least its largest ray's bytes and at most the tables.
+    Counting changes no result."""
+    s = _soup(3000, 7, 48)
+    tl = s["tl"]
+    ro, rd, tmax, smask, tri0, _ = _mixed_rays(600, 4, s["leaf"].shape[0] * 8)
+    tid = np.random.default_rng(4).integers(0, tl.n_treelets, 600)
+    args = [_t(a) for a in (tl.tnodes, tl.tleaves, tid.astype(np.int32), ro,
+                            rd, tmax, smask, tri0)]
+    tables = (tl.tnodes.size * 4 + tl.tleaves.size // 128 * 320)
+    wave = {}
+    got = binned_walk_torch(*args, 0.001, 0.0, counts=wave)
+    plain = binned_walk_torch(*args, 0.001, 0.0)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    largest = 0
+    for i in range(0, 600, 30):
+        one = {}
+        binned_walk_torch(args[0], args[1], *(a[i:i + 1] for a in args[2:]),
+                          0.001, 0.0, counts=one)
+        assert one["bytes"] == 64 * one["boxes"] + 40 * one.get("tris", 0)
+        largest = max(largest, one["bytes"])
+    assert wave.get("tris", 0) % 8 == 0
+    assert 0 < largest <= wave["bytes"] <= tables
+
+
 def _small_budget(pack, lib):
     """The pack with its treelets rebuilt at budget 64 (several rounds)."""
     scene = _atrium()

@@ -135,6 +135,31 @@ def test_plain_walk_any_hit_matches_both_brutes(case):
     assert case["blocked"].any()
 
 
+def test_plain_walk_counts_its_reads(case):
+    """The plain walk's counts, the inputs of chip_smoke.py's bounds: one
+    ray pops each node once (8 box tests, one 512-byte row) and reads each
+    leaf it visits once (8 triangle tests, 320 bytes); a wave reads each
+    distinct row once, at least its largest ray's bytes and at most the
+    tables. Counting changes no result."""
+    t = case["t"]
+    tables = (t["rows"].numel() + t["leaf"].numel()) * 4
+    wave = {}
+    got = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+                             t["tmax"], 0.001, False, counts=wave)
+    assert torch.equal(got[0], case["closest"][0])
+    assert torch.equal(got[1], case["closest"][1])
+    largest = 0
+    for i in range(0, N_RAYS, 75):
+        one = {}
+        packet_query_torch(t["rows"], t["leaf"], t["ro"][i:i + 1],
+                           t["rd"][i:i + 1], t["tmax"][i:i + 1], 0.001,
+                           False, counts=one)
+        assert one["bytes"] == 64 * one["boxes"] + 40 * one.get("tris", 0)
+        largest = max(largest, one["bytes"])
+    assert wave.get("tris", 0) % 8 == 0
+    assert 0 < largest <= wave["bytes"] <= tables
+
+
 def test_closest_hit_bound_is_open_any_hit_closed():
     """One triangle hit at t ~ 2: a closest-hit lane whose tmax is exactly
     that hit's t misses (and returns t = tmax), one with the next float up

@@ -1,0 +1,255 @@
+"""The per-step probe's plain replay (raytpu_torch.tools.step_bench)
+against raytpu's Pallas kernel ``benchmarks/step_bench.py:_kernel`` run in
+interpret mode, arm by arm, at W = 8 and 3 iterations (rtol 1e-5), and
+on probe trees that make each arm's carried arithmetic visible in the
+kernel's output, at 1 to 3 iterations.
+
+Importing benchmarks/step_bench.py points JAX's persistent compilation
+cache at RAYTPU_CACHE, so those cases run in a child process
+(``@isolated``) with the cache in the test's temporary directory. The
+CUDA kernel is held to the replay by the ``cuda``-marked test and by
+chip_smoke.py (phase 8)."""
+
+import functools
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from raytpu_torch.tools import step_bench as sb
+
+from .conftest import isolated
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _raytpu_step_bench():
+    spec = importlib.util.spec_from_file_location(
+        "raytpu_step_bench", os.path.join(REPO, "benchmarks", "step_bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _raytpu_kernel(arm: str, iters: int, w: int):
+    """raytpu's ``_kernel`` for one arm as raytpu's ``main`` calls it, in
+    interpret mode: a function of the tree (numpy) returning the scratch."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    rt = _raytpu_step_bench()
+    fn = pl.pallas_call(
+        functools.partial(rt._kernel, arm=arm, iters=iters, W=w),
+        out_shape=jax.ShapeDtypeStruct((w, 128), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        scratch_shapes=[pltpu.VMEM((w, 128), jnp.float32),
+                        pltpu.VMEM((w, 1), jnp.int32),
+                        pltpu.SMEM((w, 1), jnp.int32),
+                        pltpu.SemaphoreType.DMA],
+        interpret=True,
+    )
+    return lambda tree: np.asarray(fn(jnp.asarray(tree.numpy())))
+
+
+@isolated
+def test_plain_arms_match_raytpu_kernel(monkeypatch, tmp_path):
+    """Every arm, in one child process (each child pays JAX's start-up)."""
+    monkeypatch.setenv("RAYTPU_CACHE", str(tmp_path / "jax_cache"))
+    w, iters = 8, 3
+    tree = sb.make_tree()
+    for arm in sb.ARMS:
+        want = _raytpu_kernel(arm, iters, w)(tree)
+        got, acc = sb.step_bench_torch(tree, arm, iters, w)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   err_msg=arm)
+        assert acc.shape == (w,) and bool(torch.isfinite(acc).all()), arm
+
+
+def _carry_probes() -> dict:
+    """Trees whose row 0 makes the carried element ``scratch[0, 0]`` show
+    an arm's arithmetic. raytpu's kernel writes its state back only as
+    ``acc[0] * 1e-20 + scratch[0, 0]``; on raytpu's tree that element is
+    O(1) and the carry vanishes in f32. With ``tree[0, 0] = 0`` row 0's
+    ``cur`` stays 0 (its rolls are no-ops, rows 0..W-1 are fetched) and the
+    element is the sum of the carries themselves. Row 0 then picks the
+    branch: its box (columns 0-5) holds lane 0 ("leaf", "inner") or no lane
+    ("miss"); column 6 is the hit link (-5.5 a leaf, 12.3 an inner node),
+    column 7 the miss link. For ``mt``, columns 8 and 9 start every lane at
+    best t 10 and best slot -1000, so the carry is 10 plus the highest
+    accepted slot of any lane."""
+    tree = sb.make_tree()
+    probes = {}
+    for name in ("leaf", "inner", "miss"):
+        p = tree.clone()
+        if name == "miss":
+            p[0] = -1.0
+        p[0, 0] = 0.0
+        if name != "miss":
+            p[0, 1:6] = torch.tensor([-0.5, -0.5, 2.0, 2.0, 2.0])
+        p[0, 6] = 12.3 if name == "inner" else -5.5
+        p[0, 7] = 37.7
+        probes[name] = p
+    for name, seed in (("mt", None), ("mt2", 2)):
+        p = tree.clone()
+        if seed is not None:
+            p[0] = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+                128, np.float32))
+        p[0, 0], p[0, 8], p[0, 9] = 0.0, -990.0, -100.0
+        probes[name] = p
+    return probes
+
+
+# the probes each arm's carry is held on; rollq's carry is 0 whenever
+# cur = 0 (its pend is cur - 1), and the fetch arms' carry is the fetched
+# element itself, so those arms are held by their scratch rows alone
+CARRY_ARMS = {"full": ("leaf", "inner", "miss"),
+              "noroll": ("leaf", "inner", "miss"),
+              "roll2": ("leaf", "inner", "miss"),
+              "slab": ("leaf", "inner", "miss"),
+              "mt": ("mt", "mt2"), "ctl": ("leaf",)}
+
+
+def test_carry_probes_take_each_branch():
+    """The probes make the carry nonzero and drive it down different
+    branches, so a wrong branch or a wrong term changes the compared
+    element: the miss link on a miss, the hit link on an inner-node hit,
+    the miss link plus the queued leaf at a leaf hit (the queue arms)."""
+    probes = _carry_probes()
+    w = 8
+    for arm, names in CARRY_ARMS.items():
+        for name in names:
+            for iters in (1, 2, 3):
+                got, _ = sb.step_bench_torch(probes[name], arm, iters, w)
+                assert float(got[0, 0]) != 0.0, (arm, name, iters)
+
+    def carry(arm, name):
+        return float(sb.step_bench_torch(probes[name], arm, 1, w)[0][0, 0])
+
+    for arm in ("full", "noroll", "roll2", "slab"):
+        assert carry(arm, "miss") == pytest.approx(37e-29, rel=1e-6, abs=0.0)
+        assert carry(arm, "inner") == pytest.approx(12e-29, rel=1e-6, abs=0.0)
+    # the leaf's queued index ~(-5) = 4 rides the full arm's carry only
+    assert carry("full", "leaf") == pytest.approx(
+        (37e-9 + 4e-12) * 1e-20, rel=1e-6, abs=0.0)
+    assert carry("slab", "leaf") == carry("slab", "miss")
+    # best t 10 plus the highest accepted slot (7 and 5)
+    assert carry("mt", "mt") == pytest.approx(17e-32, rel=1e-6, abs=0.0)
+    assert carry("mt", "mt2") == pytest.approx(15e-32, rel=1e-6, abs=0.0)
+
+
+@isolated
+def test_plain_carry_matches_raytpu_kernel(monkeypatch, tmp_path):
+    """The carried element of each arm that carries one, on the probes, at
+    1, 2 and 3 iterations: the whole scratch at rtol 1e-5 with no absolute
+    slack, so the tiny carry in ``scratch[0, 0]`` is held relatively."""
+    monkeypatch.setenv("RAYTPU_CACHE", str(tmp_path / "jax_cache"))
+    probes = _carry_probes()
+    w = 8
+    for arm, names in CARRY_ARMS.items():
+        for iters in (1, 2, 3):
+            kernel = _raytpu_kernel(arm, iters, w)
+            for name in names:
+                want = kernel(probes[name])
+                got, _ = sb.step_bench_torch(probes[name], arm, iters, w)
+                assert want[0, 0] != 0.0, (arm, name, iters)
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                           atol=0.0,
+                                           err_msg=f"{arm} {name} {iters}")
+
+
+@isolated
+def test_roll_is_pallas_roll():
+    """The replay's rolls (torch.roll) against ``pltpu.roll`` in interpret
+    mode at every shift the arms use: the conditional chain's 128 - 2^b
+    for b in 3..6 and the queue's 1. Row 0's rolls never reach raytpu's
+    output (its carry needs cur = 0), so the primitive is held here."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    x = sb.make_tree()[:8]
+    for shift in (120, 112, 96, 64, 1):
+        def kernel(x_ref, o_ref, shift=shift):
+            o_ref[...] = pltpu.roll(x_ref[...], shift, 1)
+
+        want = pl.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+            interpret=True)(jnp.asarray(x.numpy()))
+        np.testing.assert_array_equal(torch.roll(x, shift, 1).numpy(),
+                                      np.asarray(want), err_msg=str(shift))
+    amt = torch.tensor([[0], [8], [24], [120], [64], [16], [40], [96]])
+    got = sb._roll_chain(x, amt, (3, 4, 5, 6))
+    for i in range(8):
+        # the chain rolls row i left by amt[i] lanes in all
+        assert torch.equal(got[i], torch.roll(x[i], -int(amt[i]), 0)), i
+
+
+def test_tree_is_raytpus():
+    tree = sb.make_tree()
+    assert tree.shape == (1024, 128) and tree.dtype == torch.float32
+    want = np.random.default_rng(0).standard_normal((1024, 128), np.float32)
+    np.testing.assert_array_equal(tree.numpy(), want)
+
+
+def test_f2i_converts_like_xla():
+    """Toward zero, saturating, NaN -> 0: XLA's f32 -> i32 conversion."""
+    import jax.numpy as jnp
+
+    x = np.array([0.0, -0.0, 1.9, -1.9, 2147483520.0, 2147483648.0, 1e10,
+                  -2147483648.0, -1e10, np.inf, -np.inf, np.nan, 123456.7],
+                 np.float32)
+    got = sb._f2i(torch.from_numpy(x)).numpy()
+    want = np.asarray(jnp.asarray(x).astype(jnp.int32))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_replay_carries_state_through_iterations():
+    """Arms that fetch rows change the scratch from one iteration to the
+    next; zero iterations leave the tree's rows and a zero carry."""
+    tree = sb.make_tree()
+    out0, acc0 = sb.step_bench_torch(tree, "fetch", 0, 8)
+    assert torch.equal(out0, tree[:8]) and bool((acc0 == 0).all())
+    one, _ = sb.step_bench_torch(tree, "fetch", 1, 8)
+    two, _ = sb.step_bench_torch(tree, "fetch", 2, 8)
+    assert not torch.equal(one, two)
+    with pytest.raises(ValueError, match="unknown arm"):
+        sb.step_bench_torch(tree, "nope", 1, 8)
+
+
+def test_dispatch_and_cuda_wrapper_refuses_cpu():
+    tree = sb.make_tree()
+    before = sb.step_bench_cuda.launches
+    for x, y in zip(sb.step_bench(tree, "mt", 2, 8),
+                    sb.step_bench_torch(tree, "mt", 2, 8)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        sb.step_bench_cuda(tree, "full", 2, 8)
+    assert sb.step_bench_cuda.launches == before
+
+
+def test_main_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the CPU-only refusal")
+    assert sb.main(["--iters", "2", "--walkers", "8"]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.cuda
+def test_kernel_bit_equal_replay_on_cuda():
+    """step_bench.cu against the plain replay on the card, every arm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
+    tree = sb.make_tree("cuda")
+    for arm in sb.ARMS:
+        out_k, acc_k, cycles = sb.step_bench_cuda(tree, arm, 16, 8)
+        out_p, acc_p = sb.step_bench_torch(tree, arm, 16, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+        assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
+        assert int(cycles) > 0
