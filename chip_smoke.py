@@ -14,12 +14,15 @@ launch count can be read:
 * phase 5, the strand route through ``raytpu_torch.cli.main``: path mode
   at the repo's headline configuration (1920x1080, 1 spp, 4 bounces, a
   259k-triangle gallery), which runs raytpu's fused wave mode; the same
-  frame in query mode must give the same PNG;
+  frame in query mode must give the same PNG; every wave of the frame held
+  to the brute sweep on a 16,384-ray sample (ROADMAP fault 3.4);
 * phase 5b, phase 5's CLI run with ``RAYTPU_STRAND_PERSISTENT=0``: every
-  strand query on the block walk, the same PNG;
+  strand query on the block walk, each wave sampled against the brute
+  sweep, both walks equal on every ray, the same PNG;
 * phase 6, the packet route through the CLI at bench.py's settings: (a)
   the pbr+nee scene, (b) a cube stand-in, (c) flat mode on the gallery at
-  1920x1080;
+  1920x1080, its primary wave sampled against the brute sweep, and every
+  ray where packet_walk and strand_walk differ held to it;
 * phase 7a, the binned route at bench.py's config 6 shape through
   ``pack_scene(tables="stream")`` and ``render_frame``: the gallery scaled
   to 2.9M triangles at 640x360, 1 spp, 4 bounces;
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -102,11 +106,20 @@ STEP_FULL_OPS = 24
 F32_MAX = float(np.float32(3.40282347e38))
 MAIN_ARGS = dict(width=1920, height=1080, seed=1, chunk_size=64, samples=1,
                  bounces=4)
-# rays of phase 5b's frame on which strand_walk misses the brute sweep's
-# hit (strand_block finds it): the per-ray box test drops rare hits by
-# rounding (ROADMAP fault 3.4). Pinned so that any change, a fix
-# included, fails the phase until this number is updated.
-STRAND_WALK_LOST_HITS = 69
+# rays of phase 5b's frame on which the two strand walks differ, and on
+# which strand_walk misses the brute sweep's hit: 69 before ROADMAP fault
+# 3.4 was repaired (box tests that missed by rounding, ties between
+# spatial-split copies); pinned, so that any change fails the phase
+STRAND_WALKS_DIFFER = 0
+STRAND_WALK_LOST_HITS = 0
+# rays of phase 6c's 1080p flat primary wave on which packet_walk misses
+# the brute sweep's result: the per-ray box test and tie rule of fault 3.4,
+# which packet_walk keeps unrepaired (ROADMAP fault 3.5), counted on the
+# 16,384-ray sample and on the whole wave (where it differs from
+# strand_walk), and pinned
+PACKET_LOST_HITS = 0
+PACKET_WAVE_LOST_HITS = 4
+SAMPLE = 16384  # rays per wave held to the brute sweep
 GALLERY_CAM = {"origin": [0, 2.5, -9], "at": [0, -0.5, 0], "fov": 0.7}
 
 
@@ -172,23 +185,33 @@ def tie_scene():
 
 
 def kernel_fns(which: str):
-    """(tree of (bvh, BVH8 rows), kernel wrapper, plain version) of the
-    strand walk or the packet route's BVH8 walk."""
+    """(tables of (bvh, BVH8 rows, leaf rows), kernel wrapper, plain
+    version) of the strand walk or the packet route's BVH8 walk: the
+    tables are the walk's arguments before the rays, on the leaf rows'
+    device."""
+    import torch
+
     if which == "strand":
         from raytpu_torch.accel.strandtree import build_strand_tree
         from raytpu_torch.kernels.strand import (
+            first_slots,
             strand_query_cuda,
             strand_query_torch,
         )
 
-        return (lambda bvh, rows8: build_strand_tree(bvh).rows,
+        return (lambda bvh, rows8, leaf: (
+                    torch.from_numpy(np.ascontiguousarray(
+                        build_strand_tree(bvh).rows)).to(leaf.device),
+                    leaf, first_slots(leaf)),
                 strand_query_cuda, strand_query_torch)
     from raytpu_torch.kernels.packet import (
         packet_query_cuda,
         packet_query_torch,
     )
 
-    return lambda bvh, rows8: rows8, packet_query_cuda, packet_query_torch
+    return (lambda bvh, rows8, leaf: (
+                torch.from_numpy(np.ascontiguousarray(rows8)).to(leaf.device),
+                leaf), packet_query_cuda, packet_query_torch)
 
 
 def _wrappers() -> dict:
@@ -295,6 +318,62 @@ def brute_mismatches(t_k, tri_k, t_b, tri_b, order) -> int:
     return int(bad.sum())
 
 
+def sample_of(n: int, seed: int):
+    """A seeded sample of min(n, SAMPLE) ray indices on the card, sorted."""
+    import torch
+
+    idx = np.random.default_rng(seed).choice(n, size=min(n, SAMPLE),
+                                             replace=False)
+    return torch.from_numpy(np.sort(idx)).to("cuda")
+
+
+def brute_agrees(pack, t, tri, ro, rd, tmax, tmin, any_hit, idx):
+    """Per ray of ``idx``: does the walk's result (t, tri; any-hit: the
+    blocked bit) equal the brute sweep's over the pack's slots? Closest hits
+    are the same when t is equal and the triangles' rows are (spatial
+    splits store one triangle in several slots with identical rows)."""
+    import torch
+
+    from raytpu_torch.kernels.intersect import (
+        intersect_any_bruteforce,
+        intersect_bruteforce,
+    )
+
+    chunk = math.gcd(pack.tri_p0.shape[0], 4096)
+    if any_hit:
+        brute = intersect_any_bruteforce(ro[idx], rd[idx], pack.tri_p0,
+                                         pack.tri_e1, pack.tri_e2, tmin,
+                                         tmax[idx], chunk=chunk)
+        return (tri[idx] >= 0) == brute
+    brute = intersect_bruteforce(ro[idx], rd[idx], pack.tri_p0, pack.tri_e1,
+                                 pack.tri_e2, tmin, tmax[idx], chunk=chunk)
+    same_row = (pack.tri_row[tri[idx].clamp(min=0).long(), :9]
+                == pack.tri_row[brute.tri.clamp(min=0).long(), :9]).all(1)
+    return ((tri[idx] >= 0) == brute.valid) & (
+        ~brute.valid | (same_row & (t[idx].view(torch.int32)
+                                    == brute.t.view(torch.int32))))
+
+
+def differ_vs_brute(pack, hit_a, hit_b, ro, rd, tmax, tmin) -> tuple:
+    """Two walks' closest hits (t, tri) on the same rays: the rays where
+    they differ (hit or miss, t bits, the triangle's rows), each held to the
+    brute sweep: (rays that differ, a wrong there, b wrong there)."""
+    import torch
+
+    (ta, tra), (tb, trb) = hit_a, hit_b
+    va, vb = tra >= 0, trb >= 0
+    diff = (va != vb) | (va & (
+        (ta.view(torch.int32) != tb.view(torch.int32))
+        | (pack.tri_row[tra.clamp(min=0).long(), :9]
+           != pack.tri_row[trb.clamp(min=0).long(), :9]).any(1)))
+    idx = diff.nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return 0, 0, 0
+    wrong = [int((~brute_agrees(pack, t, tri, ro, rd, tmax, tmin, False,
+                                idx)).sum()) for t, tri in (hit_a, hit_b)]
+    return idx.numel(), wrong[0], wrong[1]
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -366,21 +445,21 @@ def phase_build():
     """Build every kernel, one nvcc per source, all started together."""
     from raytpu_torch.kernels import _build
 
-    def build(which):
-        name = KERNELS[which]["name"]
+    def build(name):
         t0 = time.perf_counter()
         _build.load_library(name)
         return name, time.perf_counter() - t0
 
+    names = [k["name"] for k in KERNELS.values()]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(build, KERNELS))
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
     notes = []
     for name, secs in built:
         ptxas = [line.strip() for line in _build.build_log(name).splitlines()
                  if "registers" in line or "spill" in line]
         notes.append(f"{name}.cu in {secs:.2f} s: " + " | ".join(ptxas))
-    print(f"phase 2 build: ok — {len(built)} kernels in "
+    print(f"phase 2 build: ok — {len(built)} sources in "
           f"{time.perf_counter() - t0:.2f} s; " + "; ".join(notes))
 
 
@@ -397,7 +476,7 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
         intersect_bruteforce,
     )
 
-    tree_of, kernel, plain = kernel_fns(which)
+    tables_of, kernel, plain = kernel_fns(which)
     name = KERNELS[which]["name"]
     dev = "cuda"
     total_bad = 0
@@ -405,8 +484,8 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
     for ntri in (5, 300, 3000):
         bvh, bvh8, per, order = slot_rows(*soup(ntri))
         g = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in (
-            ("tree", tree_of(bvh, bvh8.node_rows)),
             ("leaf", per.reshape(-1, 80)), ("order", order))}
+        tables = tables_of(bvh, bvh8.node_rows, g["leaf"])
         ro_np, rd_np = soup_rays(65536, seed=ntri)
         ro = torch.from_numpy(ro_np).to(dev)
         rd = torch.from_numpy(rd_np).to(dev)
@@ -415,7 +494,7 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
         tmax_c[::7] = float("-inf")  # dead lanes
         tmax_s = torch.full((65536,), 6.0, device=dev)  # shadow rays
         tmax_s[::5] = float("-inf")
-        args = (g["tree"], g["leaf"], ro, rd)
+        args = (*tables, ro, rd)
         tk, trk = kernel(*args, tmax_c, 0.001, False)
         tp, trp = plain(*args, tmax_c, 0.001, False)
         torch.cuda.synchronize()
@@ -449,14 +528,15 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
                      f"{bad} closest / {bad_any} any-hit mismatches")
     # ties: 12 identical triangles over two leaves; the lowest slot wins
     bvh, bvh8, per, order, ro_np, rd_np = tie_scene()
-    cu = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        tree_of(bvh, bvh8.node_rows), per.reshape(-1, 80), ro_np, rd_np,
-        np.full(ro_np.shape[0], F32_MAX, np.float32))]
-    _, tie_k = kernel(*cu, 0.001, False)
-    hb = intersect_bruteforce(cu[2], cu[3], cu[1].reshape(-1, 10)[:, 0:3],
-                              cu[1].reshape(-1, 10)[:, 3:6],
-                              cu[1].reshape(-1, 10)[:, 6:9], 0.001, cu[4],
-                              chunk=8)
+    leaf, ro, rd, tmax = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in (per.reshape(-1, 80), ro_np, rd_np,
+                                    np.full(ro_np.shape[0], F32_MAX,
+                                            np.float32)))
+    tables = tables_of(bvh, bvh8.node_rows, leaf)
+    _, tie_k = kernel(*tables, ro, rd, tmax, 0.001, False)
+    rows = leaf.reshape(-1, 10)
+    hb = intersect_bruteforce(ro, rd, rows[:, 0:3], rows[:, 3:6],
+                              rows[:, 6:9], 0.001, tmax, chunk=8)
     tie_bad = int((tie_k != hb.tri).sum())
     total_bad += tie_bad
     notes.append(f"tie scene: {tie_bad} slot mismatches")
@@ -585,14 +665,18 @@ def phase_binned_kernel(errs: list) -> None:
 
 
 def strand_soup(ntri: int, dev: str):
-    """A soup's strand tree, leaf rows and slot -> triangle on ``dev``."""
+    """A soup's strand tree, leaf rows, tie keys and slot -> triangle on
+    ``dev``."""
     import torch
 
     from raytpu_torch.accel.strandtree import build_strand_tree
+    from raytpu_torch.kernels.strand import first_slots
 
     bvh, _, per, order = slot_rows(*soup(ntri))
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        build_strand_tree(bvh).rows, per.reshape(-1, 80), order)]
+    tree, leaf, order = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in (build_strand_tree(bvh).rows,
+                                   per.reshape(-1, 80), order))
+    return tree, leaf, first_slots(leaf), order
 
 
 def same_triangles(tri_a, tri_b, order) -> bool:
@@ -620,6 +704,7 @@ def phase_block_kernel(errs: list) -> None:
         intersect_bruteforce,
     )
     from raytpu_torch.kernels.strand import (
+        first_slots,
         strand_block_query_cuda,
         strand_block_query_torch,
         strand_query_cuda,
@@ -630,7 +715,7 @@ def phase_block_kernel(errs: list) -> None:
     total_bad = 0
     notes = []
     for ntri in (300, 3000, 30000):
-        tree, leaf, order = strand_soup(ntri, dev)
+        tree, leaf, first, order = strand_soup(ntri, dev)
         ro_np, rd_np = soup_rays(65536, seed=ntri)
         ro = torch.from_numpy(ro_np[:n]).to(dev)
         rd = torch.from_numpy(rd_np[:n]).to(dev)
@@ -639,7 +724,7 @@ def phase_block_kernel(errs: list) -> None:
         tmax_c[::7] = float("-inf")  # dead lanes
         tmax_s = torch.full((n,), 6.0, device=dev)  # shadow rays
         tmax_s[::7] = float("-inf")
-        args = (tree, leaf, ro, rd)
+        args = (tree, leaf, first, ro, rd)
         tk, trk, sk = strand_block_query_cuda(*args, tmax_c, 0.001, False,
                                               True)
         tp, trp, sp = strand_block_query_torch(*args, tmax_c, 0.001, False,
@@ -696,10 +781,11 @@ def phase_block_kernel(errs: list) -> None:
     cu = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         build_strand_tree(bvh).rows, per.reshape(-1, 80), ro_np, rd_np,
         np.full(ro_np.shape[0], F32_MAX, np.float32))]
+    cu.insert(2, first_slots(cu[1]))
     _, tie_k = strand_block_query_cuda(*cu, 0.001, False)
     rows = cu[1].reshape(-1, 10)
-    hb = intersect_bruteforce(cu[2], cu[3], rows[:, 0:3], rows[:, 3:6],
-                              rows[:, 6:9], 0.001, cu[4], chunk=8)
+    hb = intersect_bruteforce(cu[3], cu[4], rows[:, 0:3], rows[:, 3:6],
+                              rows[:, 6:9], 0.001, cu[5], chunk=8)
     tie_bad = int((tie_k != hb.tri).sum())
     total_bad += tie_bad
     notes.append(f"tie scene: {tie_bad} slot mismatches")
@@ -938,38 +1024,48 @@ def primary_wave(cam, w: int, h: int, chunk: int, seed: int):
     return ro.contiguous(), rd.contiguous()
 
 
-def wave_check(which: str, tree, pack, ro, rd, errs: list):
+def wave_check(which: str, tables, pack, ro, rd, errs: list):
     """A closest-hit wave through one kernel (CUDA events, 5 launches) and
-    its plain version (1 run): (kernel ms, plain ms, mismatches against
-    the brute sweep on 4096 of its rays, the bound from the plain walk's
-    counts). Fails unless bit-equal."""
+    its plain version (1 run), ``tables`` being their arguments before the
+    rays: (kernel ms, plain ms, mismatches against the brute sweep on a
+    seeded SAMPLE of its rays, the bound from the plain walk's counts).
+    Fails unless bit-equal."""
     import torch
 
-    from raytpu_torch.kernels.intersect import intersect_bruteforce
-
     _, kernel, plain = kernel_fns(which)
-    leaves = pack.bvh.leaf_tris
     tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
-    ms = cuda_ms(lambda: kernel(tree, leaves, ro, rd, tmax, 0.001, False),
+    ms = cuda_ms(lambda: kernel(*tables, ro, rd, tmax, 0.001, False),
                  reps=5)
-    plain_ms = cuda_ms(lambda: plain(tree, leaves, ro, rd, tmax, 0.001,
-                                     False), reps=1)
-    tk, trk = kernel(tree, leaves, ro, rd, tmax, 0.001, False)
+    plain_ms = cuda_ms(lambda: plain(*tables, ro, rd, tmax, 0.001, False),
+                       reps=1)
+    tk, trk = kernel(*tables, ro, rd, tmax, 0.001, False)
     counts = {}
-    tp, trp = plain(tree, leaves, ro, rd, tmax, 0.001, False, counts=counts)
+    tp, trp = plain(*tables, ro, rd, tmax, 0.001, False, counts=counts)
     if not (same_bits(tk, tp) and torch.equal(trk, trp)):
         fail(f"primary wave: {KERNELS[which]['name']} != its plain version")
     errs.append(t_err(tk, tp))
-    sub = torch.arange(0, ro.shape[0], ro.shape[0] // 4096,
-                       device="cuda")[:4096]
-    hb = intersect_bruteforce(ro[sub], rd[sub], pack.tri_p0, pack.tri_e1,
-                              pack.tri_e2, 0.001, tmax[sub])
-    # duplicate slots carry identical rows: compare the triangles' rows
-    same_tri = torch.equal(pack.tri_row[trk[sub].clamp(min=0).long(), :9],
-                           pack.tri_row[hb.tri.clamp(min=0).long(), :9])
-    bad = int(((trk[sub] >= 0) != hb.valid).sum()) + int(
-        ((trk[sub] >= 0) & (tk[sub] != hb.t)).sum()) + (0 if same_tri else 1)
-    return ms, plain_ms, bad, walk_bound(counts, ro.shape[0], 28)
+    ok = brute_agrees(pack, tk, trk, ro, rd, tmax, 0.001, False,
+                      sample_of(ro.shape[0], seed=1))
+    return ms, plain_ms, int((~ok).sum()), walk_bound(counts, ro.shape[0],
+                                                      28)
+
+
+def waves_vs_brute(pack, calls, query, seed: int) -> tuple:
+    """Each recorded wave (the factory's arguments) through ``query`` on
+    the card, held to the brute sweep on a seeded SAMPLE of its rays:
+    (mismatches, rays checked, a note per wave)."""
+    bad = checked = 0
+    notes = []
+    for i, a in enumerate(calls):
+        ro, rd, tmax, tmin, any_hit = a[3:8]
+        t, tri = query(*a[:8])
+        idx = sample_of(ro.shape[0], seed + i)
+        n_bad = int((~brute_agrees(pack, t, tri, ro, rd, tmax, tmin, any_hit,
+                                   idx)).sum())
+        bad += n_bad
+        checked += idx.numel()
+        notes.append(f"{'any' if any_hit else 'closest'} {n_bad}")
+    return bad, checked, notes
 
 
 def cli_argv(glb: str, png: str, args: dict, cam_json=None, mode="path"):
@@ -1061,16 +1157,30 @@ def phase_main(tmp: str, errs: list) -> dict:
 
     # the kernel and its plain version on the frame's primary wave
     ro, rd = primary_wave(cam, w, h, MAIN_ARGS["chunk_size"], 1)
-    ms, plain_ms, bad, bnd = wave_check("strand", pack.bvh.strand_rows, pack,
-                                        ro, rd, errs)
+    ms, plain_ms, bad, bnd = wave_check(
+        "strand", (pack.bvh.strand_rows, pack.bvh.leaf_tris,
+                   pack.bvh.first_slots), pack, ro, rd, errs)
     print(f"phase 5 main path: {n_tris} triangles ({pack.n_triangles} slots), "
           f"pack {pack_s:.2f} s (treelets {sum(tl_s):.2f} s of it), frame 1 "
           f"{frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s at {w}x{h} 1spp 4 "
           f"bounces; primary wave {ro.shape[0]} rays: strand_walk {ms:.3f} "
-          f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on 4096 rays: "
-          f"{bad} mismatches")
+          f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on {SAMPLE} "
+          f"rays: {bad} mismatches")
     if bad:
         fail("primary wave: strand_walk disagrees with the brute sweep")
+    # every wave of a frame: strand_walk vs the brute sweep on a sample
+    from raytpu_torch.kernels.strand import strand_query_cuda
+
+    with recorded_queries("strand_query") as calls:
+        render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+    bad, checked, notes = waves_vs_brute(pack, calls, strand_query_cuda, 10)
+    print(f"phase 5 strand_walk vs brute on a {SAMPLE}-ray sample of each of "
+          f"the frame's {len(calls)} waves ({checked} rays): mismatches per "
+          f"wave {', '.join(notes)}")
+    if bad:
+        fail(f"phase 5: strand_walk disagrees with the brute sweep on {bad} "
+             "sampled rays")
 
     argv = cli_argv(glb, png, MAIN_ARGS, cam_json)
     cli_s, counts = run_cli(argv)
@@ -1089,50 +1199,51 @@ def phase_main(tmp: str, errs: list) -> dict:
                 frame=frame)
 
 
-class recorded_block_queries:
-    """Context manager: the arguments of every block-walk query that the
-    strand factories made inside it run, as a list (the factory looks the
+class recorded_queries:
+    """Context manager: the arguments of every call of the strand
+    dispatcher ``name`` (``strand_query`` or ``strand_block_query``) that
+    the strand factories made inside it, as a list (the factory looks the
     dispatcher up when it is called). The rays are copied: the fused wave
     mode queries views of its path state, which it then updates in
     place."""
 
+    def __init__(self, name: str):
+        self.name = name
+
     def __enter__(self):
         from raytpu_torch.kernels import strand as strand_mod
 
-        self.mod, self.real = strand_mod, strand_mod.strand_block_query
+        self.mod = strand_mod
+        self.real = getattr(strand_mod, self.name)
         self.calls = []
 
         def record(*args):
-            self.calls.append(args[:2] + tuple(a.clone() for a in args[2:5])
-                              + args[5:])
+            self.calls.append(args[:3] + tuple(a.clone() for a in args[3:6])
+                              + args[6:])
             return self.real(*args)
 
-        strand_mod.strand_block_query = record
+        setattr(strand_mod, self.name, record)
         return self.calls
 
     def __exit__(self, *exc):
-        self.mod.strand_block_query = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 def phase_block_route(main_rec: dict, errs: list) -> dict:
     """Phase 5b: phase 5's CLI run with RAYTPU_STRAND_PERSISTENT=0 (set
     just before, restored just after): every strand query on strand_block.
-    Each of the frame's waves again through both walks: wherever they
-    disagree, strand_block must agree with the brute sweep (a warp tests a
-    leaf for all its lanes, so it finds hits that a lane's own box test
-    misses by rounding; strand_walk can lose them), and strand_walk must
-    miss it on exactly STRAND_WALK_LOST_HITS rays. The PNG within
-    tests/imgdiff.py's bar of phase 5's. On the largest sorted closest-hit
-    wave (the largest after the primary one): strand_block's ms beside
+    Each of the frame's waves again through strand_block, held to the
+    brute sweep on a seeded SAMPLE of its rays, and through both walks:
+    the rays where they differ (t bits, the triangle's rows, the blocked
+    bit) must number STRAND_WALKS_DIFFER, each held to the brute sweep
+    (strand_walk wrong on STRAND_WALK_LOST_HITS, strand_block on none), and
+    the PNG must equal phase 5's. On the largest sorted closest-hit wave
+    (the largest after the primary one): strand_block's ms beside
     strand_walk's, the plain version (bit-equal with its counters); steps
     and leaf visits per strand; the bound from the per-ray walk's work on
-    that wave's live lanes."""
+    that wave's live lanes. Returns the kernel's record and that wave."""
     import torch
 
-    from raytpu_torch.kernels.intersect import (
-        intersect_any_bruteforce,
-        intersect_bruteforce,
-    )
     from raytpu_torch.kernels.strand import (
         strand_block_query_cuda,
         strand_block_query_torch,
@@ -1142,11 +1253,12 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
 
     png = main_rec["png"].replace(".png", "_block.png")
     argv = cli_argv(main_rec["glb"], png, MAIN_ARGS, main_rec["cam_json"])
-    with env(RAYTPU_STRAND_PERSISTENT="0"), recorded_block_queries() as calls:
+    with env(RAYTPU_STRAND_PERSISTENT="0"), \
+            recorded_queries("strand_block_query") as calls:
         cli_s, counts = run_cli(argv)
     n_diff = int(np.any(read_png_rgb(png) != read_png_rgb(main_rec["png"]),
                         axis=-1).sum())
-    sizes = [a[2].shape[0] for a in calls]
+    sizes = [a[3].shape[0] for a in calls]
     print(f"phase 5b block route: raytpu_torch.cli.main with "
           f"RAYTPU_STRAND_PERSISTENT=0 -> rc 0 in {cli_s:.2f} s, "
           f"{counts['block']} strand_block / {counts['strand']} strand_walk "
@@ -1154,41 +1266,37 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
           f"{n_diff} PNG pixels differ from phase 5's")
     if counts["block"] == 0 or counts["strand"] or counts["packet"]:
         fail("phase 5b: the strand queries did not all run on strand_block")
-    # every wave of the frame again: the per-strand counters, and the
-    # per-ray walk on the same rays; where the two disagree, the brute
-    # sweep says which found the reference's hit
     pack = main_rec["pack"]
+    bad, checked, notes = waves_vs_brute(pack, calls,
+                                         strand_block_query_cuda, 20)
+    print(f"phase 5b strand_block vs brute on a {SAMPLE}-ray sample of each "
+          f"of the frame's {len(calls)} waves ({checked} rays): mismatches "
+          f"per wave {', '.join(notes)}")
+    if bad:
+        fail(f"phase 5b: strand_block disagrees with the brute sweep on {bad} "
+             "sampled rays")
+    # every wave of the frame again: the per-strand counters, and the
+    # per-ray walk on the same rays; where the two differ, the brute sweep
+    # says which found the reference's hit
     steps, leaves, notes = [], [], []
-    block_wrong = walk_wrong = 0
+    n_differ = block_wrong = walk_wrong = 0
     for i, a in enumerate(calls):
-        tb, trb, st = strand_block_query_cuda(*a[:7], True)
-        tw, trw = strand_query_cuda(*a[:7])
+        tb, trb, st = strand_block_query_cuda(*a[:8], True)
+        tw, trw = strand_query_cuda(*a[:8])
         steps.append(st[:, 0].double())
         leaves.append(st[:, 1].double())
-        ro, rd, tmax, tmin, any_hit = a[2:7]
+        any_hit = a[7]
         diff = (trb >= 0) != (trw >= 0)
         if not any_hit:
             diff |= tb.view(torch.int32) != tw.view(torch.int32)
             diff |= (pack.tri_row[trb.clamp(min=0).long(), :9]
                      != pack.tri_row[trw.clamp(min=0).long(), :9]).any(1)
         idx = diff.nonzero().squeeze(1)
+        n_differ += idx.numel()
         if idx.numel() == 0:
             continue
-        brute = (intersect_any_bruteforce if any_hit else
-                 intersect_bruteforce)(ro[idx], rd[idx], pack.tri_p0,
-                                       pack.tri_e1, pack.tri_e2, tmin,
-                                       tmax[idx])
-
-        def agrees(t, tri):
-            if any_hit:
-                return (tri[idx] >= 0) == brute
-            same_row = (pack.tri_row[tri[idx].clamp(min=0).long(), :9]
-                        == pack.tri_row[brute.tri.clamp(min=0).long(), :9]
-                        ).all(1)
-            return ((tri[idx] >= 0) == brute.valid) & (
-                ~brute.valid | (same_row & (t[idx] == brute.t)))
-
-        ab, aw = agrees(tb, trb), agrees(tw, trw)
+        ab = brute_agrees(pack, tb, trb, *a[3:8], idx)
+        aw = brute_agrees(pack, tw, trw, *a[3:8], idx)
         block_wrong += int((~ab).sum())
         walk_wrong += int((~aw).sum())
         notes.append(f"wave {i} ({'any' if any_hit else 'closest'}): "
@@ -1198,53 +1306,37 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
                      f"{int((ab & aw).sum())}, neither on "
                      f"{int((~ab & ~aw).sum())}")
     steps_all, leaves_all = torch.cat(steps), torch.cat(leaves)
-    print("phase 5b strand_block vs strand_walk on the frame's waves: "
+    print(f"phase 5b strand_block vs strand_walk on the frame's waves: "
+          f"{n_differ} rays differ (pinned at {STRAND_WALKS_DIFFER}); "
           + ("; ".join(notes) or "no ray differs"))
-    print(f"phase 5b strand_walk vs brute where the walks differ: "
-          f"{walk_wrong} rays wrong (pinned at {STRAND_WALK_LOST_HITS}, "
-          "ROADMAP fault 3.4)")
+    print(f"phase 5b strand_walk vs brute where the walks differ: wrong on "
+          f"{walk_wrong} of those {n_differ} rays (pinned at "
+          f"{STRAND_WALK_LOST_HITS}, ROADMAP fault 3.4, repaired)")
     if block_wrong:
         fail(f"phase 5b: strand_block disagrees with the brute sweep on "
              f"{block_wrong} rays where the walks differ")
-    if walk_wrong != STRAND_WALK_LOST_HITS:
-        fail(f"phase 5b: strand_walk loses {walk_wrong} hits, not the "
-             f"pinned {STRAND_WALK_LOST_HITS}: update the pin and ROADMAP "
-             "fault 3.4")
-    from raytpu_torch.io.metrics import ssim
-
-    img_b, img_w = read_png_rgb(png), read_png_rgb(main_rec["png"])
-    ssim_v = ssim(img_b, img_w)
-    print(f"phase 5b PNG vs phase 5's: {n_diff} pixels differ "
-          f"({n_diff / img_w[..., 0].size:.6f}), SSIM {ssim_v:.6f}")
-    if n_diff > 0.02 * img_w[..., 0].size or ssim_v < 0.99:
-        fail("phase 5b: the block route's PNG is outside the imgdiff bar")
-    big = max((i for i in range(1, len(calls)) if not calls[i][6]),
+    if (n_differ != STRAND_WALKS_DIFFER
+            or walk_wrong != STRAND_WALK_LOST_HITS):
+        fail(f"phase 5b: the walks differ on {n_differ} rays and strand_walk "
+             f"loses {walk_wrong} hits, not the pinned {STRAND_WALKS_DIFFER} "
+             f"and {STRAND_WALK_LOST_HITS}: update the pins and ROADMAP")
+    print(f"phase 5b PNG vs phase 5's: {n_diff} pixels differ")
+    if n_diff:
+        fail("phase 5b: the block route's PNG is not phase 5's")
+    big = max((i for i in range(1, len(calls)) if not calls[i][7]),
               key=lambda i: sizes[i])
-    tree, leaf, ro, rd, tmax, tmin, any_hit = calls[big][:7]
-    ms = cuda_ms(lambda: strand_block_query_cuda(
-        tree, leaf, ro, rd, tmax, tmin, any_hit), reps=5)
-    walk_ms = cuda_ms(lambda: strand_query_cuda(
-        tree, leaf, ro, rd, tmax, tmin, any_hit), reps=5)
-    plain_ms = cuda_ms(lambda: strand_block_query_torch(
-        tree, leaf, ro, rd, tmax, tmin, any_hit), reps=1)
-    tk, trk, sk = strand_block_query_cuda(tree, leaf, ro, rd, tmax, tmin,
-                                          any_hit, True)
-    tp, trp, sp = strand_block_query_torch(tree, leaf, ro, rd, tmax, tmin,
-                                           any_hit, True)
-    tw, trw = strand_query_cuda(tree, leaf, ro, rd, tmax, tmin, any_hit)
+    wave = calls[big][:8]
+    tree, leaf, first, ro, rd, tmax, tmin, any_hit = wave
+    ms = cuda_ms(lambda: strand_block_query_cuda(*wave), reps=5)
+    walk_ms = cuda_ms(lambda: strand_query_cuda(*wave), reps=5)
+    plain_ms = cuda_ms(lambda: strand_block_query_torch(*wave), reps=1)
+    tk, trk, sk = strand_block_query_cuda(*wave, True)
+    tp, trp, sp = strand_block_query_torch(*wave, True)
     torch.cuda.synchronize()
     if not (same_bits(tk, tp) and torch.equal(trk, trp)
             and torch.equal(sk, sp)):
         fail("phase 5b: strand_block != its plain version on the largest wave")
     errs.append(t_err(tk, tp))
-    # the same triangle as the per-ray walk (slots with identical rows)
-    hit = trk >= 0
-    walk_bad = int((hit != (trw >= 0)).sum()) + int(
-        (tk.view(torch.int32) != tw.view(torch.int32)).sum())
-    walk_bad += int((pack.tri_row[trk[hit].long(), :9]
-                     != pack.tri_row[trw[hit].long(), :9]).any(1).sum())
-    print(f"phase 5b largest wave: strand_block and strand_walk differ on "
-          f"{walk_bad} rays")
     s_steps, s_leaves = sk[:, 0].double(), sk[:, 1].double()
     print(f"phase 5b largest sorted closest-hit wave (call {big}, "
           f"{ro.shape[0]} rays, "
@@ -1262,8 +1354,8 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
     # are the block walk's cost); every lane's ray in and result out
     work = {}
     live = tmax >= 0.0
-    strand_query_torch(tree, leaf, ro[live], rd[live], tmax[live], tmin,
-                       any_hit, counts=work)
+    strand_query_torch(tree, leaf, first, ro[live], rd[live], tmax[live],
+                       tmin, any_hit, counts=work)
     return dict(launches=counts["block"], ms=ms, plain_ms=plain_ms,
                 **walk_bound(work, ro.shape[0], 28))
 
@@ -1333,7 +1425,8 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
     """One packet-route cell: the CLI run (launch counts, PNG), then two
     frames of the same configuration timed apart from load and pack, and
     ``count_rays``. For flat mode also the primary wave through the kernel
-    and its plain version."""
+    and its plain version, and through strand_walk: wherever the two walks
+    differ, the brute sweep decides."""
     import torch
 
     from raytpu_torch.engine.render import count_rays, render_frame
@@ -1371,13 +1464,39 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
     rec = dict(launches=counts["packet"])
     if mode == "flat":
         ro, rd = primary_wave(cam, w, h, args["chunk_size"], args["seed"])
-        ms, plain_ms, bad, bnd = wave_check("packet", pack.bvh.node8_rows,
-                                            pack, ro, rd, errs)
+        ms, plain_ms, bad, bnd = wave_check(
+            "packet", (pack.bvh.node8_rows, pack.bvh.leaf_tris), pack, ro, rd,
+            errs)
         line += (f"; primary wave {ro.shape[0]} rays: packet_walk {ms:.3f} "
-                 f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on 4096 "
-                 f"rays: {bad} mismatches")
-        if bad:
-            fail("primary wave: packet_walk disagrees with the brute sweep")
+                 f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on "
+                 f"{SAMPLE} rays: {bad} mismatches (pinned at "
+                 f"{PACKET_LOST_HITS})")
+        if bad != PACKET_LOST_HITS:
+            fail(f"primary wave: packet_walk misses the brute sweep on {bad} "
+                 f"sampled rays, not the pinned {PACKET_LOST_HITS}")
+        # the whole wave: where packet_walk (fault 3.4's box test and tie
+        # rule, unrepaired) and strand_walk differ, the brute sweep decides
+        from raytpu_torch.kernels.packet import packet_query_cuda
+        from raytpu_torch.kernels.strand import strand_query_cuda
+
+        tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
+        n_diff, packet_wrong, strand_wrong = differ_vs_brute(
+            pack, packet_query_cuda(pack.bvh.node8_rows, pack.bvh.leaf_tris,
+                                    ro, rd, tmax, 0.001, False),
+            strand_query_cuda(pack.bvh.strand_rows, pack.bvh.leaf_tris,
+                              pack.bvh.first_slots, ro, rd, tmax, 0.001,
+                              False),
+            ro, rd, tmax, 0.001)
+        line += (f"; packet_walk and strand_walk differ on {n_diff} rays of "
+                 f"the wave, wrong there: packet_walk {packet_wrong} (pinned "
+                 f"at {PACKET_WAVE_LOST_HITS}), strand_walk {strand_wrong}")
+        if strand_wrong:
+            fail("phase 6c: strand_walk disagrees with the brute sweep")
+        if packet_wrong != PACKET_WAVE_LOST_HITS:
+            fail(f"phase 6c: packet_walk misses the brute sweep on "
+                 f"{packet_wrong} rays of the wave, not the pinned "
+                 f"{PACKET_WAVE_LOST_HITS}: update the pin and ROADMAP fault "
+                 "3.5")
         rec.update(ms=ms, plain_ms=plain_ms, **bnd)
     print(line)
     if img.shape != (h, w, 3) or lit <= min_lit:
@@ -1441,8 +1560,9 @@ def phase_stream(tmp: str, errs: list) -> dict:
     tables="stream", 640x360, 1 spp, 4 bounces, chunk 8, seed 1,
     intersector="binned", through render_frame. The largest binned_walk
     launch of a frame is replayed through the kernel and its plain
-    version; the primary wave's binned closest hits are held to the
-    strand walk's on the same pack."""
+    version; the primary wave's binned and strand closest hits on the same
+    pack are held to the brute sweep on a sample and wherever they
+    differ."""
     import torch
 
     from raytpu_torch.engine.render import count_rays, render_frame
@@ -1523,21 +1643,32 @@ def phase_stream(tmp: str, errs: list) -> dict:
     errs.append(t_err(tk, tp))
     # per ray the treelet, ro, rd, tmax, smask and tri0 in
     bnd = walk_bound(work, big[2].shape[0], 40)
-    # primary wave: binned closest vs the strand walk on the same pack
+    # primary wave: binned and strand closest hits, each held to the brute
+    # sweep on a sample (binned_walk keeps fault 3.4's box test and tie rule
+    # unrepaired: its count is printed; strand's must be 0), and wherever
+    # the two differ on the whole wave
     ro, rd = primary_wave(cam, w, h, 8, 1)
     tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
     hb = make_binned_intersectors(pack)[0](ro, rd, 0.001, tmax)
     hs = make_strand_intersectors(pack)[0](ro, rd, 0.001, tmax)
     torch.cuda.synchronize()
-    bad = int((hb.tri != hs.tri).sum()) + int((hb.valid & (
-        hb.t.view(torch.int32) != hs.t.view(torch.int32))).sum())
+    idx = sample_of(ro.shape[0], seed=7)
+    binned_bad, strand_bad = (
+        int((~brute_agrees(pack, hit.t, hit.tri, ro, rd, tmax, 0.001, False,
+                           idx)).sum()) for hit in (hb, hs))
+    n_diff, binned_wrong, strand_wrong = differ_vs_brute(
+        pack, (hb.t, hb.tri), (hs.t, hs.tri), ro, rd, tmax, 0.001)
     print(f"phase 7a kernel: {len(calls)} launches in frame 2, "
           f"{sum(sizes)} rays, kernel {sum(kernel_ms):.3f} ms in all; "
           f"largest launch {max(sizes)} rays: binned_walk {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms, bit-equal; primary wave {ro.shape[0]} rays: "
-          f"{int(hb.valid.sum())} hits, {bad} mismatches against strand_walk")
-    if bad:
-        fail("phase 7a: binned closest hits differ from the strand walk's")
+          f"{int(hb.valid.sum())} hits; vs brute on {idx.numel()} rays: "
+          f"binned {binned_bad} mismatches, strand_walk "
+          f"{strand_bad}; binned and strand_walk differ on {n_diff} rays of "
+          f"the wave, wrong there: binned {binned_wrong}, strand_walk "
+          f"{strand_wrong}")
+    if strand_bad or strand_wrong:
+        fail("phase 7a: strand_walk disagrees with the brute sweep")
     return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms, **bnd)
 
 

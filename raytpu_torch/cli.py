@@ -8,10 +8,11 @@ src/main.rs:30-52, plus raytpu's extensions):
 
 Camera resolution order matches src/state.rs:398-411: the JSON override
 wins; otherwise the scene's glTF camera; a scene with neither is an error.
-The device is ``cuda`` when a GPU is available, else ``cpu``; ``--device``
-forces one. ``--gui``, ``--checkpoint``, ``--devices`` > 1 and
-``--profile`` are raytpu features this package does not run yet: they
-exit with status 2 before any work."""
+The device is ``cuda`` unless ``--device cpu`` asks for the CPU; with no
+GPU the run stops with status 1 and does not fall back. ``--gui``,
+``--checkpoint``, ``--devices`` > 1 and ``--profile`` are raytpu features
+this package does not run yet: they exit with status 2 before any
+work."""
 
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the frame across devices (not yet ported)")
     p.add_argument("--profile", type=str, default=None,
                    help="profiler trace directory (not yet ported)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="render device (default: cuda when available)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="render device (default: cuda; cpu only when asked)")
     return p
 
 
@@ -75,7 +76,10 @@ def main(argv=None) -> int:
     from .scene.pack import pack_camera, pack_scene
     from .types import RenderConfig
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("ray tracer error: no CUDA device is available; pass "
+              "--device cpu to render on the CPU", file=sys.stderr)
+        return 1
     try:
         scene = load_scene(args.scene)
     except (OSError, GltfError) as e:
@@ -102,8 +106,8 @@ def main(argv=None) -> int:
         chunk_size=args.chunk_size,
         mode=args.mode,
     )
-    frame = render_frame(pack_scene(scene, device),
-                         pack_camera(camera, device), config)
+    frame = render_frame(pack_scene(scene, args.device),
+                         pack_camera(camera, args.device), config)
     if args.output is not None:
         write_png(args.output, frame)
     return 0

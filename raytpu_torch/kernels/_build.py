@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+Each ``csrc/<name>.cu`` exposes a plain C interface (the strand walks
+share ``csrc/strand_common.cuh``). At first use it is
 compiled by ``nvcc`` into a shared object under the package's git-ignored
 ``_build/`` directory, keyed by a hash of the source and the flags, and
 loaded with ``ctypes``; the wrappers pass ``data_ptr()``s and the current
@@ -45,11 +46,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to with the current flags."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to with the current flags (keyed by
+    the source, every shared header in ``csrc/`` and the flags)."""
+    h = hashlib.sha256()
+    for src in [name + ".cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
 
 

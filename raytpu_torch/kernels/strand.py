@@ -1,5 +1,5 @@
-"""Strand-tree ray queries: the CUDA kernel, its plain torch version, and
-the engine's intersector factory.
+"""Strand-tree ray queries: the CUDA kernels, their plain torch versions,
+and the engine's intersector factory.
 
 Replaces ``raytpu/kernels/strand_persistent.py:strand_query_persistent``
 with its factory ``raytpu/kernels/strand.py:make_strand_intersectors``
@@ -10,13 +10,46 @@ with its factory ``raytpu/kernels/strand.py:make_strand_intersectors``
   leaves test their 8 triangles and continue at the miss link;
 * slab test with the safe inverse direction (zero components -> +/-1e-36),
   ``near = max(max(lox, loy), max(loz, tmin))``,
-  ``far = min(min(hix, hiy), min(hiz, LIMIT))``, hit iff ``near <= far``;
+  ``far = min(min(hix, hiy), min(hiz, LIMIT))``, hit iff
+  ``near <= far * FAR_SCALE`` (the conservative test, below);
 * closest-hit: ``LIMIT = best_t``, starting at ``min(F32_MAX, tmax)``;
-  accept ``t >= tmin and (t < best_t or (t == best_t and slot < best))``
-  — ties break to the lowest slot, so visit order never changes a result;
-  a dead lane (tmax = -inf) returns ``t = -inf, tri = -1``;
+  accept ``t >= tmin and (t < best_t or (t == best_t and key < best
+  key))``, where a slot's key is ``first[slot]``, the lowest slot holding
+  the same 9 floats (``first_slots``): ties break to the lowest slot of
+  any copy, so visit order never changes a result; a dead lane (tmax =
+  -inf) returns ``t = -inf, tri = -1``;
 * any-hit: ``LIMIT = tmax``; accept ``t >= tmin and t <= tmax``, then
   stop. Only ``tri >= 0`` (blocked) is contract; ``t`` returns tmax.
+
+The contract the walks are held to is the brute sweep
+(kernels/intersect.py): the same original triangle, and the same t. Two
+repairs make a per-ray walk meet it (ROADMAP fault 3.4, found on the
+1080p gallery frame):
+
+* a slab test that misses by rounding loses the triangle inside a box:
+  a hit that Moller-Trumbore accepts on a shared grid edge lies an ulp or
+  two outside its flat floor box. ``FAR_SCALE = 1 + 2 gamma_3`` widens
+  every box test, LIMIT included, by more than the slab arithmetic's own
+  rounding (Ize, "Robust BVH Ray Traversal", JCGT 2(2), 2013);
+* spatial splits store one triangle in several leaves. Where two
+  triangles tie in t (a box standing on the floor: its bottom face and
+  the floor are coplanar), the sweep keeps the lowest slot of all copies,
+  while a walk sees only the copies in the leaves it visits. Comparing
+  ``first[slot]`` instead of the slot gives every copy the key the sweep
+  gives the triangle.
+
+Neither repair can change a result that was already right. A wider box
+only adds box and leaf tests, and every triangle is still tested
+exactly, so the walk's best (t, key) is a minimum over a superset of the
+triangles it tested before: the sweep's winner, if it was tested before,
+is still the minimum. The key orders copies of one triangle (identical
+data, so identical t) as one, and leaves every other comparison as it
+was whenever no copy was involved.
+
+Every walk takes the tie keys as its third argument, ``first`` (int32
+[Nl * 8]): ``pack_scene`` computes them once per pack
+(``ScenePack.bvh.first_slots``), and a tree built by hand gets them from
+``first_slots(leaf_tris)``.
 
 ``strand_query_cuda`` launches ``csrc/strand_walk.cu``;
 ``strand_query_torch`` is the plain version (a vectorised per-ray walk in
@@ -32,13 +65,10 @@ of the strand's lane 0 and descending wherever any lane's box test hits;
 at a leaf every lane tests the 8 slots. On the card a strand is a warp of
 32 rays (``csrc/strand_block.cu``, ``strand_block_query_cuda``);
 ``strand_block_query_torch`` is its plain version; with ``with_stats``
-both also return each strand's walker steps and leaf visits. Per ray the
-block walk returns the per-ray walk's result (closest ``t`` bits, the
-triangle, the blocked bit) except where the per-ray walk loses a hit: a
-lane tests every leaf its warp's walker reaches, also under boxes its own
-slab test misses by rounding, so the block walk finds hits that the
-per-ray walk drops (a few dozen rays of a 1080p frame, each sided with the
-brute sweep; ROADMAP fault 3.4).
+both also return each strand's walker steps and leaf visits. Both walks
+meet the brute sweep's contract; the block walk tests a superset of each
+ray's own leaves, so per ray the two return the same t bits and the same
+triangle (possibly another copy of it) and the same blocked bit.
 """
 
 from __future__ import annotations
@@ -51,12 +81,18 @@ import torch
 from .intersect import F32_MAX, Hit, moller_trumbore
 
 TINY = 1e-36
+# the conservative box test: t_far, LIMIT included, is scaled by
+# 1 + 2 gamma_3 before the compare, gamma_3 = 3u / (1 - 3u), u = 2^-24;
+# rounded to f32 this is 1 + 3 * 2^-23, exact in f32, so the scale is one
+# correctly rounded multiply (csrc/strand_common.cuh kFarScale)
+FAR_SCALE = 1.0 + 3.0 * 2.0 ** -23
 CLOSEST_TMIN = 0.001  # src/shader.wgsl:312-319
 ANY_TMIN = 0.0  # shadow rays start at t = 0 (src/shader.wgsl:174-186)
 STRAND = 32  # rays per strand of the block walk: one warp
 # raytpu's STRAND_VMEM_BUDGET (kernels/strand.py:440): larger tables force
 # the persistent walk (_hbm_tables), and the port routes the same way
 STRAND_TABLE_BUDGET = 100 * 1024 * 1024
+I32_MAX = 2**31 - 1
 
 
 def _safe_inv(rd: torch.Tensor) -> torch.Tensor:
@@ -66,12 +102,46 @@ def _safe_inv(rd: torch.Tensor) -> torch.Tensor:
     return 1.0 / safe
 
 
-def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                       any_hit: bool, counts: dict | None = None):
-    """Plain torch version of the strand walk. ro/rd [R,3], tmax [R];
-    returns (t [R] f32, tri [R] i32). Each loop iteration advances every
-    unfinished ray by one node; finished rays leave the working set. A
-    ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
+def first_slots(leaf_tris: torch.Tensor) -> torch.Tensor:
+    """int32 [Nl * 8] on leaf_tris' device: for each slot, the lowest slot
+    whose triangle has the same 9 floats, bit for bit (p0, e1, e2; the pad
+    is not read). A triangle that spatial splits stored in several leaves,
+    or distinct triangles with identical data, get one tie key, as the
+    sweep sees them."""
+    rows = leaf_tris.reshape(-1, 10)[:, :9].contiguous().view(torch.int32)
+    n = rows.shape[0]
+    first = torch.zeros(0, dtype=torch.int32, device=rows.device)
+    if n:
+        _, group = torch.unique(rows, dim=0, return_inverse=True)
+        low = torch.full((n,), n, dtype=torch.int64, device=rows.device)
+        low.scatter_reduce_(0, group, torch.arange(n, device=rows.device),
+                            "amin")
+        first = low[group].to(torch.int32).contiguous()
+    return first
+
+
+def _leaf_closest(ok, t, slot, key):
+    """Per row of a leaf's 8 tests ([..., 8]): the kernels' in-order
+    accept rule over the leaf alone, as (found, t, slot, key) of its
+    smallest (t, key) pair, the lowest k among equal pairs."""
+    tc = torch.where(ok, t, torch.inf)
+    mt = tc.amin(dim=-1, keepdim=True)
+    cand = ok & (tc == mt)
+    kc = torch.where(cand, key, I32_MAX)
+    mk = kc.amin(dim=-1, keepdim=True)
+    k = (cand & (kc == mk)).to(torch.int32).argmax(dim=-1, keepdim=True)
+    return (ok.any(dim=-1), mt[..., 0], slot.gather(-1, k)[..., 0],
+            mk[..., 0])
+
+
+def strand_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
+                       tmin: float, any_hit: bool,
+                       counts: dict | None = None):
+    """Plain torch version of the strand walk. ``first`` is
+    ``first_slots(leaf_tris)``, ro/rd [R,3], tmax [R]; returns (t [R] f32,
+    tri [R] i32). Each loop iteration advances
+    every unfinished ray by one node; finished rays leave the working set.
+    A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
     ("tris") and the table bytes it reads, each distinct 32-byte node
     record and 320-byte leaf row once ("bytes")."""
     dev = ro.device
@@ -93,6 +163,7 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
         idx=torch.arange(r, device=dev), o=ro, d=rd, inv=inv, neg=inv < 0.0,
         oct=octant, tm=tmax, bt=best_t,
         btri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+        bkey=torch.full((r,), -1, dtype=torch.int32, device=dev),
         cur=torch.zeros(r, dtype=torch.long, device=dev),
     )
     k8 = torch.arange(8, device=dev, dtype=torch.int32)
@@ -117,7 +188,7 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
         far = torch.minimum(
             torch.minimum(hi[:, 0], hi[:, 1]), torch.minimum(hi[:, 2], limit)
         )
-        box = near <= far
+        box = near <= far * FAR_SCALE
         hit_link = rec[:, 6].long()
         nxt = torch.where(box & (hit_link >= 0), hit_link, rec[:, 7].long())
         at_leaf = box & (hit_link < 0)
@@ -134,24 +205,22 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
                 tri[:, :, 0:3], tri[:, :, 3:6], tri[:, :, 6:9], tmin, lim,
             )
             slot = lr[:, None] * 8 + k8  # [L, 8]
-            found = ok.any(dim=1)
             if any_hit:
                 # the first accepted triangle blocks and ends the walk
+                found = ok.any(dim=1)
                 k = ok.to(torch.int32).argmax(dim=1)
                 s["btri"][li] = torch.where(
                     found, slot.gather(1, k[:, None])[:, 0], s["btri"][li]
                 )
                 nxt[li] = torch.where(found, -1, nxt[li])
             else:
-                # the kernel's in-order accept rule keeps the smallest
-                # (t, slot) pair: the leaf's lowest t, lowest slot on ties
-                tc = torch.where(ok, t, torch.inf)
-                mt = tc.amin(dim=1)
-                ms = slot.gather(1, tc.argmin(dim=1)[:, None])[:, 0]
-                bt, bi = s["bt"][li], s["btri"][li]
-                acc = found & ((mt < bt) | ((mt == bt) & (ms < bi)))
+                found, mt, ms, mk = _leaf_closest(ok, t, slot,
+                                                  first[slot.long()])
+                bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
+                acc = found & ((mt < bt) | ((mt == bt) & (mk < bk)))
                 s["bt"][li] = torch.where(acc, mt, bt)
                 s["btri"][li] = torch.where(acc, ms, bi)
+                s["bkey"][li] = torch.where(acc, mk, bk)
         s["cur"] = nxt
         done = nxt < 0
         if bool(done.any()):
@@ -168,10 +237,17 @@ def strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
     return t_out, tri_out
 
 
-def _check_inputs(tree_name, tree, leaf_tris, ro, rd, tmax):
+def _check_inputs(tree_name, tree, leaf_tris, ro, rd, tmax, first=None):
     """Raise ValueError unless the tree [N, 128], leaf rows [Nl, 80], rays
-    [R, 3] and tmax [R] are contiguous float32 tensors on one device."""
+    [R, 3] and tmax [R] are contiguous float32 tensors on one device (and
+    the tie keys, where given, a contiguous int32 [Nl * 8] tensor there)."""
     dev = ro.device
+    if first is not None and (
+            first.dtype != torch.int32 or first.device != dev
+            or first.shape != (leaf_tris.shape[0] * 8,)
+            or not first.is_contiguous()):
+        raise ValueError(f"first: want a contiguous int32 "
+                         f"[{leaf_tris.shape[0] * 8}] tensor on {dev}")
     for name, x, width in ((tree_name, tree, 128),
                            ("leaf_tris", leaf_tris, 80), ("ro", ro, 3),
                            ("rd", rd, 3)):
@@ -189,79 +265,91 @@ def _check_inputs(tree_name, tree, leaf_tris, ro, rd, tmax):
         raise ValueError("ro and rd differ in length")
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _library():
-    """The built kernel library with its C signatures declared."""
-    global _LIB
-    if _LIB is None:
+def _library(name: str) -> ctypes.CDLL:
+    """The built ``csrc/<name>.cu`` with its launch signature declared:
+    (rows, leaves, first, ro, rd, tmax, t, tri, [stats,] n_rays, n_nodes,
+    n_leaf_rows, tmin, any_hit, stream)."""
+    if name not in _LIBS:
         from ._build import load_library
 
-        lib = load_library("strand_walk")
-        lib.strand_walk_launch.restype = ctypes.c_int
-        lib.strand_walk_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        lib.strand_walk_error_string.restype = ctypes.c_char_p
-        lib.strand_walk_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
-    return _LIB
+        lib = load_library(name)
+        launch = getattr(lib, name + "_launch")
+        launch.restype = ctypes.c_int
+        n_ptr = 9 if name == "strand_block" else 8
+        launch.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        err = getattr(lib, name + "_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
-def strand_query_cuda(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                      any_hit: bool):
-    """Launch ``csrc/strand_walk.cu`` on the current stream (one thread per
-    ray, blocks of 128). Same signature and results as
-    ``strand_query_torch``; raises on bad inputs or a failed launch.
-    ``strand_query_cuda.launches`` counts the launches."""
+def _launch(name, strand_rows, leaf_tris, first, ro, rd, tmax, tmin,
+            any_hit, stats=None):
+    """Check the inputs, allocate the outputs and launch ``csrc/<name>.cu``
+    on the current stream: (t, tri)."""
     if ro.device.type != "cuda":
-        raise ValueError(f"strand_query_cuda needs CUDA tensors, got "
-                         f"{ro.device}")
-    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax)
-    lib = _library()
+        raise ValueError(f"{name} needs CUDA tensors, got {ro.device}")
+    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax, first)
+    lib = _library(name)
     r = ro.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=ro.device)
     tri = torch.empty(r, dtype=torch.int32, device=ro.device)
     if r == 0:
         return t, tri
+    ptrs = [strand_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), t.data_ptr(),
+            tri.data_ptr()]
+    if name == "strand_block":
+        ptrs.append(None if stats is None else stats.data_ptr())
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.strand_walk_launch(
-            strand_rows.data_ptr(), leaf_tris.data_ptr(), ro.data_ptr(),
-            rd.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
-            r, strand_rows.shape[0] * 2, leaf_tris.shape[0], float(tmin),
-            int(any_hit), stream,
+        rc = getattr(lib, name + "_launch")(
+            *ptrs, r, strand_rows.shape[0] * 2,
+            leaf_tris.shape[0], float(tmin), int(any_hit), stream,
         )
     if rc != 0:
         raise RuntimeError(
-            "strand_walk launch failed: "
-            + lib.strand_walk_error_string(rc).decode()
+            f"{name} launch failed: "
+            + getattr(lib, name + "_error_string")(rc).decode()
         )
-    strand_query_cuda.launches += 1
     return t, tri
+
+
+def strand_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
+                      tmin: float, any_hit: bool):
+    """Launch ``csrc/strand_walk.cu`` on the current stream (one thread per
+    ray, while-while traversal). Same signature and results as
+    ``strand_query_torch``; raises on bad inputs or a failed launch.
+    ``strand_query_cuda.launches`` counts the launches."""
+    out = _launch("strand_walk", strand_rows, leaf_tris, first, ro, rd, tmax,
+                  tmin, any_hit)
+    if ro.shape[0]:
+        strand_query_cuda.launches += 1
+    return out
 
 
 strand_query_cuda.launches = 0
 
 
-def strand_query(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
+def strand_query(strand_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
                  any_hit: bool):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if ro.device.type == "cuda":
-        return strand_query_cuda(strand_rows, leaf_tris, ro, rd, tmax, tmin,
-                                 any_hit)
-    return strand_query_torch(strand_rows, leaf_tris, ro, rd, tmax, tmin,
-                              any_hit)
+    fn = strand_query_cuda if ro.device.type == "cuda" else strand_query_torch
+    return fn(strand_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit)
 
 
-def strand_block_query_torch(strand_rows, leaf_tris, ro, rd, tmax,
+def strand_block_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
                              tmin: float, any_hit: bool,
                              with_stats: bool = False):
-    """Plain torch version of the block walk. ro/rd [R,3], tmax [R];
-    returns (t [R] f32, tri [R] i32) and, with ``with_stats``, int32
-    [ceil(R/32), 2] of each strand's walker steps and leaf visits. The
+    """Plain torch version of the block walk. ``first`` is
+    ``first_slots(leaf_tris)``, ro/rd [R,3], tmax [R]; returns (t [R]
+    f32, tri [R] i32) and, with ``with_stats``, int32 [ceil(R/32), 2] of
+    each strand's walker steps and leaf visits. The
     rays are cut into strands [S, 32], the last one padded with dead lanes
     (ro 0, rd (1,1,1), tmax -inf); each loop iteration advances every
     unfinished strand's walker by one node."""
@@ -296,6 +384,7 @@ def strand_block_query_torch(strand_rows, leaf_tris, ro, rd, tmax,
         oct=((lane0[:, 0] < 0).long() + 2 * (lane0[:, 1] < 0).long()
              + 4 * (lane0[:, 2] < 0).long()),
         btri=torch.full((n_str, STRAND), -1, dtype=torch.int32, device=dev),
+        bkey=torch.full((n_str, STRAND), -1, dtype=torch.int32, device=dev),
         cur=torch.zeros(n_str, dtype=torch.long, device=dev),
         st=torch.zeros((n_str, 2), dtype=torch.int32, device=dev),
     )
@@ -331,7 +420,7 @@ def strand_block_query_torch(strand_rows, leaf_tris, ro, rd, tmax,
             torch.minimum(hi[..., 0], hi[..., 1]),
             torch.minimum(hi[..., 2], limit),
         )
-        hit_any = (near <= far).any(dim=1)
+        hit_any = (near <= far * FAR_SCALE).any(dim=1)
         s["st"][:, 0] += 1
         hit_link = rec[:, 0, 6].long()
         nxt = torch.where(hit_any & (hit_link >= 0), hit_link,
@@ -348,21 +437,21 @@ def strand_block_query_torch(strand_rows, leaf_tris, ro, rd, tmax,
                 tri[..., 0:3], tri[..., 3:6], tri[..., 6:9], tmin, lim,
             )  # [L, 32, 8]
             slot = (lr[:, None] * 8 + k8)[:, None, :].expand_as(t)
-            found = ok.any(dim=2)
             bt, bi = s["bt"][li], s["btri"][li]
             if any_hit:
                 # a lane keeps its first accepted slot
+                found = ok.any(dim=2)
                 k = ok.to(torch.int32).argmax(dim=2, keepdim=True)
-                first = slot.gather(2, k)[..., 0]
-                s["btri"][li] = torch.where(found & (bi < 0), first, bi)
+                first_ok = slot.gather(2, k)[..., 0]
+                s["btri"][li] = torch.where(found & (bi < 0), first_ok, bi)
             else:
-                # the in-order accept rule keeps the smallest (t, slot)
-                tc = torch.where(ok, t, torch.inf)
-                mt = tc.amin(dim=2)
-                ms = slot.gather(2, tc.argmin(dim=2, keepdim=True))[..., 0]
-                acc = found & ((mt < bt) | ((mt == bt) & (ms < bi)))
+                found, mt, ms, mk = _leaf_closest(ok, t, slot,
+                                                  first[slot.long()])
+                bk = s["bkey"][li]
+                acc = found & ((mt < bt) | ((mt == bt) & (mk < bk)))
                 s["bt"][li] = torch.where(acc, mt, bt)
                 s["btri"][li] = torch.where(acc, ms, bi)
+                s["bkey"][li] = torch.where(acc, mk, bk)
         s["cur"] = nxt
         retire((nxt < 0) | (nxt >= n_nodes))
     # walks cut by the step bound (never for a valid tree) keep their best
@@ -371,74 +460,33 @@ def strand_block_query_torch(strand_rows, leaf_tris, ro, rd, tmax,
     return (t, tri, st_out) if with_stats else (t, tri)
 
 
-_BLOCK_LIB = None
-
-
-def _block_library():
-    """The built block-walk library with its C signatures declared."""
-    global _BLOCK_LIB
-    if _BLOCK_LIB is None:
-        from ._build import load_library
-
-        lib = load_library("strand_block")
-        lib.strand_block_launch.restype = ctypes.c_int
-        lib.strand_block_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        lib.strand_block_error_string.restype = ctypes.c_char_p
-        lib.strand_block_error_string.argtypes = [ctypes.c_int]
-        _BLOCK_LIB = lib
-    return _BLOCK_LIB
-
-
-def strand_block_query_cuda(strand_rows, leaf_tris, ro, rd, tmax,
+def strand_block_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
                             tmin: float, any_hit: bool,
                             with_stats: bool = False):
     """Launch ``csrc/strand_block.cu`` on the current stream (one warp per
     32-ray strand, 4 strands per block). Same signature and results as
     ``strand_block_query_torch``; raises on bad inputs or a failed launch.
     ``strand_block_query_cuda.launches`` counts the launches."""
-    if ro.device.type != "cuda":
-        raise ValueError(f"strand_block_query_cuda needs CUDA tensors, got "
-                         f"{ro.device}")
-    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax)
-    lib = _block_library()
     r = ro.shape[0]
-    t = torch.empty(r, dtype=torch.float32, device=ro.device)
-    tri = torch.empty(r, dtype=torch.int32, device=ro.device)
     stats = torch.zeros((-(-r // STRAND), 2), dtype=torch.int32,
                         device=ro.device) if with_stats else None
-    if r == 0:
-        return (t, tri, stats) if with_stats else (t, tri)
-    with torch.cuda.device(ro.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.strand_block_launch(
-            strand_rows.data_ptr(), leaf_tris.data_ptr(), ro.data_ptr(),
-            rd.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
-            None if stats is None else stats.data_ptr(), r,
-            strand_rows.shape[0] * 2, leaf_tris.shape[0], float(tmin),
-            int(any_hit), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            "strand_block launch failed: "
-            + lib.strand_block_error_string(rc).decode()
-        )
-    strand_block_query_cuda.launches += 1
+    t, tri = _launch("strand_block", strand_rows, leaf_tris, first, ro, rd,
+                     tmax, tmin, any_hit, stats)
+    if r:
+        strand_block_query_cuda.launches += 1
     return (t, tri, stats) if with_stats else (t, tri)
 
 
 strand_block_query_cuda.launches = 0
 
 
-def strand_block_query(strand_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                       any_hit: bool, with_stats: bool = False):
+def strand_block_query(strand_rows, leaf_tris, first, ro, rd, tmax,
+                       tmin: float, any_hit: bool, with_stats: bool = False):
     """The block kernel for CUDA tensors, its plain version for CPU
     tensors."""
     fn = (strand_block_query_cuda if ro.device.type == "cuda"
           else strand_block_query_torch)
-    return fn(strand_rows, leaf_tris, ro, rd, tmax, tmin, any_hit,
+    return fn(strand_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit,
               with_stats)
 
 
@@ -457,7 +505,8 @@ def _per_ray(tmax, ro):
 
 def make_strand_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
-    signature over ``pack.bvh.strand_rows``. tmin is baked: 0.001 for
+    signature over ``pack.bvh.strand_rows`` and ``leaf_tris``, ties broken
+    on ``pack.bvh.first_slots``. tmin is baked: 0.001 for
     closest-hit and 0.0 for any-hit; another value raises. A pack without
     a strand tree (<= 256 slots) raises ValueError.
 
@@ -476,6 +525,7 @@ def make_strand_intersectors(pack):
         )
     tree = pack.bvh.strand_rows.contiguous()
     leaves = pack.bvh.leaf_tris.contiguous()
+    first = pack.bvh.first_slots.contiguous()
     persistent = os.environ.get("RAYTPU_STRAND_PERSISTENT", "1") != "0"
     if (tree.numel() + leaves.numel()) * 4 > STRAND_TABLE_BUDGET:
         persistent = True
@@ -483,13 +533,13 @@ def make_strand_intersectors(pack):
 
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "strand closest")
-        t, tri = query(tree, leaves, ro.contiguous(), rd.contiguous(),
+        t, tri = query(tree, leaves, first, ro.contiguous(), rd.contiguous(),
                        _per_ray(tmax, ro), CLOSEST_TMIN, False)
         return Hit(t=t, tri=tri, valid=tri >= 0)
 
     def any_fn(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, ANY_TMIN, "strand any-hit")
-        _, tri = query(tree, leaves, ro.contiguous(), rd.contiguous(),
+        _, tri = query(tree, leaves, first, ro.contiguous(), rd.contiguous(),
                        _per_ray(tmax, ro), ANY_TMIN, True)
         return tri >= 0
 

@@ -1,8 +1,9 @@
 """The native (C++) SAH/SBVH builder, loaded via ctypes.
 
-The source is raytpu's ``raytpu/native/bvh_builder.cpp``, compiled by path
-(a file read, not an import) with the same g++ flags, so both packages
-build identical trees. The shared object is content-hashed into the port's
+The source is ``csrc/bvh_builder.cpp``, a verbatim copy of raytpu's
+``raytpu/native/bvh_builder.cpp`` (tests/test_torch_host.py pins the
+bytes), compiled with the same g++ flags, so both packages build
+identical trees. The shared object is content-hashed into the port's
 git-ignored build directory. When no toolchain is available the host BVH
 build falls back to the pure-Python builder in ``accel/bvh.py``.
 """
@@ -19,10 +20,8 @@ import numpy as np
 
 from ..kernels._build import BUILD_DIR
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "raytpu", "native", "bvh_builder.cpp",
-)
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "bvh_builder.cpp")
 _FLAGS = ["-O2", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False

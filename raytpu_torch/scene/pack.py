@@ -14,7 +14,8 @@ numpy and then placed on the requested device:
   packet route (flat mode and every wave of a scene of <= 256 slots). Its
   depth is checked against the packet walk's stack bound here, as raytpu
   does. The octant-threaded strand tree is built only above 256 slots
-  (raytpu's bounce-sort threshold), where it serves every path-mode wave.
+  (raytpu's bounce-sort threshold), where it serves every path-mode wave,
+  with its tie keys (``first_slots``, computed once here on ``device``).
   The binned route's treelet windows (accel/treelets.py) are built above
   4096 slots, or as ``treelets=`` says. Per-ray results do not depend on
   the route: ties break to the lowest slot.
@@ -32,6 +33,7 @@ from ..accel.bvh import LEAF_SIZE, build_bvh, bvh8_depth
 from ..accel.strandtree import build_strand_tree
 from ..accel.treelets import build_treelets
 from ..kernels.packet import STACK_DEPTH
+from ..kernels.strand import first_slots
 from ..types import BvhPack, CameraPack, ScenePack
 from .camera import CameraData
 from .gltf import SceneData
@@ -113,9 +115,10 @@ def _bitcast_i32_to_f32(x: np.ndarray) -> np.ndarray:
     return x.astype(np.int32).view(np.float32)
 
 
-def pack_scene(scene: SceneData, device="cpu", leaf_size: int = LEAF_SIZE,
+def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
                treelets: str = "auto", tables: str = "auto") -> ScenePack:
-    """Build the ScenePack on ``device``.
+    """Build the ScenePack on ``device`` (the card unless the caller asks
+    for the CPU).
 
     ``treelets``: "auto" builds the binned route's treelet windows for
     scenes above 4096 slots; "always" and "never" force it.
@@ -263,6 +266,7 @@ def pack_scene(scene: SceneData, device="cpu", leaf_size: int = LEAF_SIZE,
         return None if x is None else torch.from_numpy(
             np.ascontiguousarray(x)).to(device)
 
+    leaf_t = None if stream and strand_rows is None else conv(leaf_tris)
     return ScenePack(
         tri_row=conv(tri_row),
         object_linear=conv(obj_linear),
@@ -276,9 +280,10 @@ def pack_scene(scene: SceneData, device="cpu", leaf_size: int = LEAF_SIZE,
         bvh=BvhPack(
             nodes=conv(nodes),
             node8_rows=None if stream else conv(bvh8.node_rows),
-            leaf_tris=(None if stream and strand_rows is None
-                       else conv(leaf_tris)),
+            leaf_tris=leaf_t,
             strand_rows=conv(strand_rows),
+            first_slots=(None if strand_rows is None
+                         else first_slots(leaf_t)),
         ),
         has_textures=len(scene.textures) > 0,
         tl_nodes=None if tl is None else conv(tl.tnodes),
@@ -288,7 +293,7 @@ def pack_scene(scene: SceneData, device="cpu", leaf_size: int = LEAF_SIZE,
     )
 
 
-def pack_camera(camera: CameraData, device="cpu") -> CameraPack:
+def pack_camera(camera: CameraData, device="cuda") -> CameraPack:
     return CameraPack(
         world=torch.as_tensor(np.asarray(camera.world, np.float32),
                               device=device),

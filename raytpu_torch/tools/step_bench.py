@@ -42,7 +42,7 @@ LANES = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (sm_90)
 
 
-def make_tree(device="cpu") -> torch.Tensor:
+def make_tree(device="cuda") -> torch.Tensor:
     """raytpu's tree: ``default_rng(0).standard_normal((1024, 128))``."""
     tree = np.random.default_rng(0).standard_normal((TREE_ROWS, LANES),
                                                     np.float32)

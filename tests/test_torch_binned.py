@@ -148,10 +148,11 @@ def _atrium():
 def _packs():
     scene = _atrium()
     return dict(
-        full=pack_scene(scene), stream=pack_scene(scene, tables="stream"),
+        full=pack_scene(scene, "cpu"),
+        stream=pack_scene(scene, "cpu", tables="stream"),
         rt_full=rt_pack_scene(scene, as_numpy=True),
         rt_stream=rt_pack_scene(scene, tables="stream", as_numpy=True),
-        cam=pack_camera(scene.camera),
+        cam=pack_camera(scene.camera, "cpu"),
         rt_cam=rt_pack_camera(scene.camera),
     )
 
@@ -174,7 +175,7 @@ def test_pack_tables_bit_equal_raytpu(scene, treelets, tables):
         key = "stream" if tables == "stream" else "full"
         got, want = _packs()[key], _packs()["rt_" + key]
     else:
-        got = pack_scene(load_scene(scene_path("small")), treelets=treelets,
+        got = pack_scene(load_scene(scene_path("small")), "cpu", treelets=treelets,
                          tables=tables)
         want = rt_pack_scene(raytpu.load_scene(scene_path("small")),
                              treelets=treelets, tables=tables, as_numpy=True)
@@ -202,9 +203,9 @@ def test_pack_tables_bit_equal_raytpu(scene, treelets, tables):
 def test_pack_rejects_unknown_options():
     path = scene_path("small")
     with pytest.raises(ValueError, match="treelets"):
-        pack_scene(load_scene(path), treelets="sometimes")
+        pack_scene(load_scene(path), "cpu", treelets="sometimes")
     with pytest.raises(ValueError, match="tables"):
-        pack_scene(load_scene(path), tables="resident")
+        pack_scene(load_scene(path), "cpu", tables="resident")
 
 
 def _packet_tids(n_treelets, n_rays, packet):
@@ -531,8 +532,8 @@ def test_routes_like_raytpu_tpu_branch(monkeypatch, pack_kind, cfg, want):
     calls = set()
     _spy(monkeypatch, calls)
     if pack_kind == "stream_small":
-        pack = pack_scene(load_scene(scene_path("small")), treelets="always",
-                          tables="stream")
+        pack = pack_scene(load_scene(scene_path("small")), "cpu",
+                          treelets="always", tables="stream")
         assert pack.bvh.strand_rows is None and pack.bvh.leaf_tris is None
     else:
         pack = _packs()[pack_kind]
@@ -545,7 +546,7 @@ def test_routes_like_raytpu_tpu_branch(monkeypatch, pack_kind, cfg, want):
 
 def test_route_errors():
     p = _packs()
-    small = pack_scene(load_scene(scene_path("small")))
+    small = pack_scene(load_scene(scene_path("small")), "cpu")
     assert small.tl_nodes is None
     cfg = dict(width=16, height=8, seed=2, samples=1, bounces=2, chunk_size=8)
     with pytest.raises(ValueError, match="treelet tables"):

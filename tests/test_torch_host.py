@@ -191,7 +191,7 @@ def test_pack_tables_bit_equal_raytpu(name):
     slots and leaves it None below."""
     scene = raytpu.load_scene(scene_path(name))
     want = _raytpu_tables(rt_pack_scene(scene, as_numpy=True))
-    pack = pack_scene(load_scene(scene_path(name)))
+    pack = pack_scene(load_scene(scene_path(name)), "cpu")
     got = _torch_tables(pack)
     if pack.n_triangles <= 256:
         assert want["strand_rows"] is None and got["strand_rows"] is None
@@ -217,6 +217,32 @@ def test_pack_tables_bit_equal_raytpu(name):
     else:
         assert torch.equal(moved.bvh.strand_rows, pack.bvh.strand_rows)
     assert torch.equal(moved.n_lights_f, pack.n_lights_f)
+
+
+@pytest.mark.parametrize("name,tables", [("gallery", "auto"),
+                                         ("gallery", "stream"),
+                                         ("small", "auto")])
+def test_pack_carries_the_strand_tie_keys(name, tables):
+    """A pack with a strand tree carries its leaf rows' tie keys, computed
+    once (kernels/strand.py:first_slots): each slot's key is the lowest
+    slot holding the same 9 floats, so a key is its own key; .to() moves
+    them. A pack without a strand tree has none."""
+    from raytpu_torch.kernels.strand import first_slots
+
+    pack = pack_scene(load_scene(scene_path(name)), "cpu", tables=tables)
+    first = pack.bvh.first_slots
+    if pack.bvh.strand_rows is None:
+        assert first is None and pack.n_triangles <= 256
+        return
+    per = pack.bvh.leaf_tris.reshape(-1, 10)[:, :9].view(torch.int32)
+    assert first.dtype == torch.int32 and first.shape == (per.shape[0],)
+    assert torch.equal(first, first_slots(pack.bvh.leaf_tris))
+    slots = torch.arange(per.shape[0], dtype=torch.int32)
+    assert bool((first <= slots).all())
+    assert torch.equal(first[first.long()], first)
+    assert torch.equal(per[first.long()], per)
+    assert int((first < slots).sum()) > 0  # split triangles, zero padding
+    assert torch.equal(pack.to("cpu").bvh.first_slots, first)
 
 
 def test_flatten_matches_raytpu():
@@ -265,3 +291,19 @@ def test_package_imports_neither_jax_nor_raytpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 15  # every module was imported
+
+
+def test_native_builder_copy_is_raytpus_file():
+    """raytpu_torch/native compiles its own copy of raytpu's SAH/SBVH
+    builder, byte for byte the same source (so both build the same trees),
+    and reads nothing of the raytpu package."""
+    from raytpu_torch import native
+
+    copy = os.path.join(REPO, "raytpu_torch", "native", "csrc",
+                        "bvh_builder.cpp")
+    with open(copy, "rb") as f, open(os.path.join(
+            REPO, "raytpu", "native", "bvh_builder.cpp"), "rb") as g:
+        assert f.read() == g.read()
+    assert os.path.samefile(native._SRC, copy)
+    assert "raytpu" + os.sep + "native" not in native._SRC.replace(
+        "raytpu_torch" + os.sep, "")

@@ -246,12 +246,12 @@ def test_pack_depth_check_matches_raytpu(monkeypatch, levels):
         with pytest.raises(ValueError) as rt_err:
             rt_pack_mod.pack_scene(raytpu.load_scene(path), as_numpy=True)
         with pytest.raises(ValueError) as pt_err:
-            pt_pack_mod.pack_scene(load_scene(path))
+            pt_pack_mod.pack_scene(load_scene(path), "cpu")
         assert str(pt_err.value) == str(rt_err.value)
         assert "BVH8 depth 64" in str(pt_err.value)
     else:
         want = rt_pack_mod.pack_scene(raytpu.load_scene(path), as_numpy=True)
-        got = pt_pack_mod.pack_scene(load_scene(path))
+        got = pt_pack_mod.pack_scene(load_scene(path), "cpu")
         np.testing.assert_array_equal(want.bvh.node8_rows, chain)
         np.testing.assert_array_equal(got.bvh.node8_rows.numpy(), chain)
 

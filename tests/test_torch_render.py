@@ -47,7 +47,8 @@ CFG = dict(width=48, height=32, seed=11, samples=2, bounces=4,
 def _packs(name: str, w: int = 48, h: int = 32):
     """((port pack, port camera), (raytpu pack, raytpu camera))."""
     cam = camera_from_lookat(EYE, AT, FOV, w, h)
-    port = (pack_scene(load_scene(scene_path(name))), pack_camera(cam))
+    port = (pack_scene(load_scene(scene_path(name)), "cpu"),
+            pack_camera(cam, "cpu"))
     ref = (rt_pack_scene(raytpu.load_scene(scene_path(name))),
            rt_pack_camera(raytpu.camera_from_lookat(EYE, AT, FOV, w, h)))
     return port, ref
@@ -218,11 +219,11 @@ def test_pbr_nee_frame_matches_raytpu(tmp_path):
     path = str(tmp_path / "pbr_nee.glb")
     write_pbr_nee(path)
     scene = load_scene(path)
-    pack = pack_scene(scene)
+    pack = pack_scene(scene, "cpu")
     assert pack.n_triangles <= 256 and pack.bvh.strand_rows is None
     cfg = dict(width=32, height=32, seed=1, samples=2, bounces=4,
                chunk_size=32)
-    port = render.render_frame(pack, pack_camera(scene.camera),
+    port = render.render_frame(pack, pack_camera(scene.camera, "cpu"),
                                RenderConfig(**cfg))
     rscene = raytpu.load_scene(path)
     ref = rt_render.render_frame(rt_pack_scene(rscene),
@@ -305,8 +306,9 @@ def test_cli_writes_the_rendered_png(tmp_path):
     cfg = RenderConfig(width=40, height=24, seed=3, samples=1, bounces=2,
                        chunk_size=8)
     frame = render.render_frame(
-        pack_scene(load_scene(scene_path("small_plain"))),
-        pack_camera(load_camera_json(str(tmp_path / "camera.json"), 40, 24)),
+        pack_scene(load_scene(scene_path("small_plain")), "cpu"),
+        pack_camera(load_camera_json(str(tmp_path / "camera.json"), 40, 24),
+                    "cpu"),
         cfg)
     write_png(str(tmp_path / "want.png"), frame)
     assert (tmp_path / "out.png").read_bytes() == (
@@ -324,4 +326,17 @@ def test_cli_writes_the_rendered_png(tmp_path):
 def test_cli_unported_flags_exit_2(tmp_path, capsys, flag):
     assert cli.main(_cli_args(tmp_path) + flag) == 2
     assert "not yet ported" in capsys.readouterr().err
+    assert not (tmp_path / "out.png").exists()
+
+
+def test_cli_without_device_refuses_without_a_gpu(tmp_path, capsys):
+    """The CLI renders on the card unless --device cpu asks for the CPU;
+    with no GPU it exits non-zero, names --device cpu, and writes
+    nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    args = _cli_args(tmp_path)
+    i = args.index("--device")
+    assert cli.main(args[:i] + args[i + 2:]) == 1
+    assert "--device cpu" in capsys.readouterr().err
     assert not (tmp_path / "out.png").exists()

@@ -61,7 +61,7 @@ def test_plain_arms_match_raytpu_kernel(monkeypatch, tmp_path):
     """Every arm, in one child process (each child pays JAX's start-up)."""
     monkeypatch.setenv("RAYTPU_CACHE", str(tmp_path / "jax_cache"))
     w, iters = 8, 3
-    tree = sb.make_tree()
+    tree = sb.make_tree("cpu")
     for arm in sb.ARMS:
         want = _raytpu_kernel(arm, iters, w)(tree)
         got, acc = sb.step_bench_torch(tree, arm, iters, w)
@@ -82,7 +82,7 @@ def _carry_probes() -> dict:
     column 7 the miss link. For ``mt``, columns 8 and 9 start every lane at
     best t 10 and best slot -1000, so the carry is 10 plus the highest
     accepted slot of any lane."""
-    tree = sb.make_tree()
+    tree = sb.make_tree("cpu")
     probes = {}
     for name in ("leaf", "inner", "miss"):
         p = tree.clone()
@@ -173,7 +173,7 @@ def test_roll_is_pallas_roll():
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
 
-    x = sb.make_tree()[:8]
+    x = sb.make_tree("cpu")[:8]
     for shift in (120, 112, 96, 64, 1):
         def kernel(x_ref, o_ref, shift=shift):
             o_ref[...] = pltpu.roll(x_ref[...], shift, 1)
@@ -191,7 +191,7 @@ def test_roll_is_pallas_roll():
 
 
 def test_tree_is_raytpus():
-    tree = sb.make_tree()
+    tree = sb.make_tree("cpu")
     assert tree.shape == (1024, 128) and tree.dtype == torch.float32
     want = np.random.default_rng(0).standard_normal((1024, 128), np.float32)
     np.testing.assert_array_equal(tree.numpy(), want)
@@ -212,7 +212,7 @@ def test_f2i_converts_like_xla():
 def test_replay_carries_state_through_iterations():
     """Arms that fetch rows change the scratch from one iteration to the
     next; zero iterations leave the tree's rows and a zero carry."""
-    tree = sb.make_tree()
+    tree = sb.make_tree("cpu")
     out0, acc0 = sb.step_bench_torch(tree, "fetch", 0, 8)
     assert torch.equal(out0, tree[:8]) and bool((acc0 == 0).all())
     one, _ = sb.step_bench_torch(tree, "fetch", 1, 8)
@@ -223,7 +223,7 @@ def test_replay_carries_state_through_iterations():
 
 
 def test_dispatch_and_cuda_wrapper_refuses_cpu():
-    tree = sb.make_tree()
+    tree = sb.make_tree("cpu")
     before = sb.step_bench_cuda.launches
     for x, y in zip(sb.step_bench(tree, "mt", 2, 8),
                     sb.step_bench_torch(tree, "mt", 2, 8)):

@@ -41,8 +41,11 @@ def _sorted_rays(n, seed):
 
 
 def _tensors(**arrays):
-    return {k: torch.from_numpy(np.ascontiguousarray(a))
-            for k, a in arrays.items()}
+    """The arrays as tensors, with the leaf rows' tie keys as "first"."""
+    t = {k: torch.from_numpy(np.ascontiguousarray(a))
+         for k, a in arrays.items()}
+    t["first"] = strand.first_slots(t["leaf"])
+    return t
 
 
 def _triangle(tri, order):
@@ -78,7 +81,8 @@ def test_plain_block_walk_matches_raytpu_block_kernel():
     t = _tensors(rows=rows, leaf=leaf, ro=ro, rd=rd, tmax=tmax,
                  shadow=shadow)
     got_t, got_tri = (a.numpy() for a in strand_block_query_torch(
-        t["rows"], t["leaf"], t["ro"], t["rd"], t["tmax"], 0.001, False))
+        t["rows"], t["leaf"], t["first"], t["ro"], t["rd"], t["tmax"], 0.001,
+        False))
     want_t, want_tri = raytpu(tmax, 0.001, False)
     live = tmax >= 0
     assert (got_tri[~live] == -1).all() and (want_tri[~live] == -1).all()
@@ -87,8 +91,9 @@ def test_plain_block_walk_matches_raytpu_block_kernel():
     hit = live & (got_tri >= 0)
     assert hit.sum() > 200
     np.testing.assert_allclose(got_t[hit], want_t[hit], rtol=1e-4)
-    blocked = strand_block_query_torch(t["rows"], t["leaf"], t["ro"],
-                                       t["rd"], t["shadow"], 0.0, True)[1]
+    blocked = strand_block_query_torch(t["rows"], t["leaf"], t["first"],
+                                       t["ro"], t["rd"], t["shadow"], 0.0,
+                                       True)[1]
     _, want_blocked = raytpu(shadow, 0.0, True)
     np.testing.assert_array_equal(blocked.numpy() >= 0, want_blocked >= 0)
     assert (blocked.numpy() >= 0).sum() > 200
@@ -116,7 +121,7 @@ def test_plain_block_walk_equals_per_ray_walk(case):
     triangle (slots too wherever a triangle has one slot), the same
     blocked bits; dead lanes return t = -inf, tri = -1."""
     t = case["t"]
-    args = (t["rows"], t["leaf"], t["ro"], t["rd"])
+    args = (t["rows"], t["leaf"], t["first"], t["ro"], t["rd"])
     bt, btri = strand_block_query_torch(*args, t["tmax"], 0.001, False)
     pt, ptri = strand_query_torch(*args, t["tmax"], 0.001, False)
     np.testing.assert_array_equal(bt.numpy().view(np.int32),
@@ -136,7 +141,8 @@ def test_block_walk_counters(case):
     steps at least once, visits no more leaves than it steps, and the
     counters do not change the results."""
     t = case["t"]
-    args = (t["rows"], t["leaf"], t["ro"], t["rd"], t["tmax"], 0.001, False)
+    args = (t["rows"], t["leaf"], t["first"], t["ro"], t["rd"], t["tmax"],
+            0.001, False)
     bt, btri, st = strand_block_query_torch(*args, with_stats=True)
     n_str = -(-t["ro"].shape[0] // STRAND)
     assert st.shape == (n_str, 2) and st.dtype == torch.int32
@@ -147,7 +153,7 @@ def test_block_walk_counters(case):
     # all lanes dead: the closest-hit walker tests the root once and
     # leaves; the any-hit walker stops before its first step
     dead = torch.full_like(t["tmax"], float("-inf"))
-    walk = (t["rows"], t["leaf"], t["ro"], t["rd"], dead)
+    walk = (t["rows"], t["leaf"], t["first"], t["ro"], t["rd"], dead)
     assert bool((strand_block_query_torch(*walk, 0.001, False, True)[2]
                  == torch.tensor([1, 0], dtype=torch.int32)).all())
     assert bool((strand_block_query_torch(*walk, 0.0, True, True)[2]
@@ -163,17 +169,17 @@ def test_per_ray_walk_counts_its_reads(case):
     t = case["t"]
     tables = (t["rows"].numel() + t["leaf"].numel()) * 4
     wave = {}
-    got = strand_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
-                             t["tmax"], 0.001, False, counts=wave)
-    plain = strand_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
-                               t["tmax"], 0.001, False)
+    got = strand_query_torch(t["rows"], t["leaf"], t["first"], t["ro"],
+                             t["rd"], t["tmax"], 0.001, False, counts=wave)
+    plain = strand_query_torch(t["rows"], t["leaf"], t["first"], t["ro"],
+                               t["rd"], t["tmax"], 0.001, False)
     assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
     largest = 0
     for i in range(0, t["ro"].shape[0], 75):
         one = {}
-        strand_query_torch(t["rows"], t["leaf"], t["ro"][i:i + 1],
-                           t["rd"][i:i + 1], t["tmax"][i:i + 1], 0.001,
-                           False, counts=one)
+        strand_query_torch(t["rows"], t["leaf"], t["first"],
+                           t["ro"][i:i + 1], t["rd"][i:i + 1],
+                           t["tmax"][i:i + 1], 0.001, False, counts=one)
         assert one["bytes"] == 32 * one["boxes"] + 40 * one.get("tris", 0)
         largest = max(largest, one["bytes"])
     assert wave["boxes"] >= t["ro"].shape[0]
@@ -185,10 +191,11 @@ def test_block_walk_ties_break_to_lowest_slot():
     rows, per, order, ro, rd = _tie_scene()
     t = _tensors(rows=rows, leaf=per.reshape(-1, 80), ro=ro, rd=rd,
                  tmax=np.full(500, F32_MAX, np.float32))
-    _, btri = strand_block_query_torch(t["rows"], t["leaf"], t["ro"],
-                                       t["rd"], t["tmax"], 0.001, False)
-    _, ptri = strand_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
-                                 t["tmax"], 0.001, False)
+    _, btri = strand_block_query_torch(t["rows"], t["leaf"], t["first"],
+                                       t["ro"], t["rd"], t["tmax"], 0.001,
+                                       False)
+    _, ptri = strand_query_torch(t["rows"], t["leaf"], t["first"], t["ro"],
+                                 t["rd"], t["tmax"], 0.001, False)
     np.testing.assert_array_equal(btri.numpy(), ptri.numpy())
     copies = np.flatnonzero(np.isin(order, [0, *range(40, 51)]))
     on_copies = np.isin(btri.numpy(), copies)
@@ -198,7 +205,8 @@ def test_block_walk_ties_break_to_lowest_slot():
 
 def test_block_dispatch_and_cuda_wrapper_refuses_cpu(case):
     t = case["t"]
-    args = (t["rows"], t["leaf"], t["ro"], t["rd"], t["tmax"], 0.001, False)
+    args = (t["rows"], t["leaf"], t["first"], t["ro"], t["rd"], t["tmax"],
+            0.001, False)
     before = strand_block_query_cuda.launches
     for x, y in zip(strand_block_query(*args),
                     strand_block_query_torch(*args)):
@@ -249,8 +257,9 @@ def test_factory_picks_the_walk_like_raytpu(monkeypatch, case, env, budget,
     hit = closest(t["ro"], t["rd"], 0.001, t["tmax"])
     blocked = any_fn(t["ro"], t["rd"], 0.0, t["shadow"])
     assert calls == [want, want]
-    want_t, want_tri = strand_query_torch(t["rows"], t["leaf"], t["ro"],
-                                          t["rd"], t["tmax"], 0.001, False)
+    want_t, want_tri = strand_query_torch(t["rows"], t["leaf"], t["first"],
+                                          t["ro"], t["rd"], t["tmax"], 0.001,
+                                          False)
     assert torch.equal(hit.t.view(torch.int32), want_t.view(torch.int32))
     assert torch.equal(hit.valid, want_tri >= 0)
     assert blocked.shape == t["shadow"].shape
@@ -272,7 +281,8 @@ def test_block_kernel_bit_equal_plain_on_cuda():
     tmax[::7] = -np.inf
     dev = {k: v.cuda() for k, v in _tensors(rows=rows, leaf=leaf, ro=ro,
                                             rd=rd, tmax=tmax).items()}
-    args = (dev["rows"], dev["leaf"], dev["ro"], dev["rd"], dev["tmax"])
+    args = (dev["rows"], dev["leaf"], dev["first"], dev["ro"], dev["rd"],
+            dev["tmax"])
     before = strand_block_query_cuda.launches
     tk, trk, sk = strand_block_query_cuda(*args, 0.001, False, True)
     tp, trp, sp = strand_block_query_torch(*args, 0.001, False, True)
