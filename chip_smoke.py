@@ -47,6 +47,7 @@ Needs a CUDA device, nvcc and the repo checkout; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -113,12 +114,12 @@ MAIN_ARGS = dict(width=1920, height=1080, seed=1, chunk_size=64, samples=1,
 STRAND_WALKS_DIFFER = 0
 STRAND_WALK_LOST_HITS = 0
 # rays of phase 6c's 1080p flat primary wave on which packet_walk misses
-# the brute sweep's result: the per-ray box test and tie rule of fault 3.4,
-# which packet_walk keeps unrepaired (ROADMAP fault 3.5), counted on the
-# 16,384-ray sample and on the whole wave (where it differs from
-# strand_walk), and pinned
+# the brute sweep's result, counted on the 16,384-ray sample and on the
+# whole wave (where it differs from strand_walk), and pinned: 4 of the
+# wave before ROADMAP fault 3.5 was repaired (the box test and the tie
+# rule of fault 3.4)
 PACKET_LOST_HITS = 0
-PACKET_WAVE_LOST_HITS = 4
+PACKET_WAVE_LOST_HITS = 0
 SAMPLE = 16384  # rays per wave held to the brute sweep
 GALLERY_CAM = {"origin": [0, 2.5, -9], "at": [0, -0.5, 0], "fov": 0.7}
 
@@ -208,10 +209,12 @@ def kernel_fns(which: str):
         packet_query_cuda,
         packet_query_torch,
     )
+    from raytpu_torch.kernels.strand import first_slots
 
     return (lambda bvh, rows8, leaf: (
                 torch.from_numpy(np.ascontiguousarray(rows8)).to(leaf.device),
-                leaf), packet_query_cuda, packet_query_torch)
+                leaf, first_slots(leaf)), packet_query_cuda,
+            packet_query_torch)
 
 
 def _wrappers() -> dict:
@@ -282,8 +285,10 @@ def walk_bound(counts: dict, n_rays: int, ray_bytes: int) -> dict:
     """A walk's bound from a plain walk's ``counts`` on its rays: the
     distinct table bytes read, ``ray_bytes`` in and 8 out (t, tri) per
     ray; the box and triangle tests."""
-    return bound(counts["bytes"] + n_rays * (ray_bytes + 8),
-                 counts["boxes"] * SLAB_OPS + counts["tris"] * TRI_OPS)
+    return dict(bound(counts["bytes"] + n_rays * (ray_bytes + 8),
+                      counts["boxes"] * SLAB_OPS
+                      + counts.get("tris", 0) * TRI_OPS),
+                boxes=counts["boxes"], tris=counts.get("tris", 0))
 
 
 def nbytes(*tensors) -> int:
@@ -354,10 +359,9 @@ def brute_agrees(pack, t, tri, ro, rd, tmax, tmin, any_hit, idx):
                                     == brute.t.view(torch.int32))))
 
 
-def differ_vs_brute(pack, hit_a, hit_b, ro, rd, tmax, tmin) -> tuple:
-    """Two walks' closest hits (t, tri) on the same rays: the rays where
-    they differ (hit or miss, t bits, the triangle's rows), each held to the
-    brute sweep: (rays that differ, a wrong there, b wrong there)."""
+def differing(pack, hit_a, hit_b):
+    """Indices of the rays where two closest-hit results (t, tri) differ:
+    hit or miss, t bits, or the triangle's rows."""
     import torch
 
     (ta, tra), (tb, trb) = hit_a, hit_b
@@ -366,12 +370,170 @@ def differ_vs_brute(pack, hit_a, hit_b, ro, rd, tmax, tmin) -> tuple:
         (ta.view(torch.int32) != tb.view(torch.int32))
         | (pack.tri_row[tra.clamp(min=0).long(), :9]
            != pack.tri_row[trb.clamp(min=0).long(), :9]).any(1)))
-    idx = diff.nonzero().squeeze(1)
+    return diff.nonzero().squeeze(1)
+
+
+def differ_vs_brute(pack, hit_a, hit_b, ro, rd, tmax, tmin) -> tuple:
+    """Two walks' closest hits (t, tri) on the same rays: the rays where
+    they differ (hit or miss, t bits, the triangle's rows), each held to the
+    brute sweep: (rays that differ, a wrong there, b wrong there)."""
+    idx = differing(pack, hit_a, hit_b)
     if idx.numel() == 0:
         return 0, 0, 0
     wrong = [int((~brute_agrees(pack, t, tri, ro, rd, tmax, tmin, False,
                                 idx)).sum()) for t, tri in (hit_a, hit_b)]
     return idx.numel(), wrong[0], wrong[1]
+
+
+@contextlib.contextmanager
+def unrepaired_box_test():
+    """raytpu's plain slab test, ``near <= far``, in the plain packet and
+    treelet walks and the binned select for the block (FAR_SCALE 1: a
+    multiply by 1 is exact). With identity tie keys (``arange``) in place
+    of ``first_slots`` a walk also keeps the raw-slot tie rule: the walks
+    as they were before ROADMAP fault 3.5 was repaired."""
+    from raytpu_torch.kernels import binned, packet
+
+    saved = packet.FAR_SCALE, binned.FAR_SCALE
+    packet.FAR_SCALE = binned.FAR_SCALE = 1.0
+    try:
+        yield
+    finally:
+        packet.FAR_SCALE, binned.FAR_SCALE = saved
+
+
+def f32_hex(x) -> str:
+    return " ".join(f"{int(v):08x}" for v in
+                    np.asarray(x, np.float32).reshape(-1).view(np.uint32))
+
+
+def slab_np(ro, rd, box, tmin, limit):
+    """The walks' slab test on one ray in numpy f32: (near <= far, near <=
+    far * FAR_SCALE), box = bmin.xyz, bmax.xyz."""
+    f = np.float32
+    inv = [f(1) / (d if d != 0 else (f(-1e-36) if np.signbit(d)
+                                     else f(1e-36))) for d in rd]
+    lo = [(box[a + 3 if inv[a] < 0 else a] - ro[a]) * inv[a] for a in range(3)]
+    hi = [(box[a if inv[a] < 0 else a + 3] - ro[a]) * inv[a] for a in range(3)]
+    near = max(max(lo[0], lo[1]), max(lo[2], f(tmin)))
+    far = min(min(hi[0], hi[1]), min(hi[2], f(limit)))
+    with np.errstate(over="ignore"):
+        return (bool(near <= far),
+                bool(near <= far * f(1.0 + 3.0 * 2.0 ** -23)))
+
+
+def select_np(ro, rd, bmin, bmax, limit):
+    """The binned select's test of one treelet box on one closest-hit ray
+    (tmin 0.001, tmax F32_MAX, bound ``limit``) in numpy f32: (raytpu's,
+    the widened)."""
+    f = np.float32
+    inv = [f(1) / (d if d != 0 else (f(-1e-36) if np.signbit(d)
+                                     else f(1e-36))) for d in rd]
+    near, far = f(0.001), f(F32_MAX)
+    for a in range(3):
+        lo, hi = (bmin[a] - ro[a]) * inv[a], (bmax[a] - ro[a]) * inv[a]
+        near, far = max(near, min(lo, hi)), min(far, max(lo, hi))
+    s = f(1.0 + 3.0 * 2.0 ** -23)
+    with np.errstate(over="ignore"):
+        return (bool(near <= far and near <= f(limit)),
+                bool(near <= far * s and near <= f(limit) * s))
+
+
+def bvh8_path(nodes: np.ndarray, leaf_row: int) -> list:
+    """The (node, child) steps from the root of BVH8 rows ``nodes`` [N, 128]
+    down to leaf row ``leaf_row``, or [] when no child links to it."""
+    kids = nodes.reshape(-1, 8, 16)
+    links = kids[:, :, 6].copy().view(np.int32)
+    # empty slots carry inverted boxes and whatever link bits
+    real = (kids[:, :, 0:3] <= kids[:, :, 3:6]).all(-1)
+    parent = {}
+    for n, k in zip(*np.nonzero(real)):
+        link = int(links[n, k])
+        parent[("n", link) if link >= 0 else ("l", ~link)] = (int(n), int(k))
+    path, at = [], ("l", leaf_row)
+    while at in parent and at != ("n", 0) and len(path) < len(parent):
+        n, k = parent[at]
+        path.append((n, k))
+        at = ("n", n)
+    return path[::-1] if at == ("n", 0) else []
+
+
+def box_path(nodes: np.ndarray, leaf_row: int, ro, rd, tmin, t_win):
+    """A line per box on the way from the root of BVH8 rows ``nodes`` to
+    ``leaf_row``: its bits and raytpu's and the widened slab test's
+    verdict on the ray, at LIMIT F32_MAX and at the winner's t."""
+    o, d = ro.cpu().numpy(), rd.cpu().numpy()
+    lines = []
+    for n, k in bvh8_path(nodes, leaf_row):
+        box = nodes[n, 16 * k:16 * k + 6]
+        lines.append(f"node {n} child {k} box {f32_hex(box)}: (old, new) hit "
+                     f"at LIMIT F32_MAX {slab_np(o, d, box, tmin, F32_MAX)}, "
+                     f"at the winner's t {slab_np(o, d, box, tmin, t_win)}")
+    return lines
+
+
+def lost_hits(label: str, pack, ro, rd, right, run) -> dict:
+    """ROADMAP fault 3.5 on a closest-hit wave: the rays the unrepaired
+    rules lose, and why. ``run(idx, first, repaired_box)`` is the plain walk
+    (or query) on rays ``idx`` with tie keys ``first``; ``right`` the
+    repaired kernel's (t, tri) on the whole wave. The unrepaired walk
+    (identity keys, unrepaired box test) runs on every ray; where it
+    differs from ``right`` the brute sweep decides. Each lost ray is classed
+    by the repair that alone recovers it: ``slab`` (the box test), ``tie``
+    (the key), ``either``, or ``both`` (neither alone). Prints each lost
+    ray's bits, with its winner's and its wrong triangle's, and returns the
+    counts."""
+    import torch
+
+    n = ro.shape[0]
+    ident = torch.arange(pack.n_triangles, dtype=torch.int32, device="cuda")
+    first = pack.bvh.first_slots
+    tmax = torch.full((n,), F32_MAX, device="cuda")
+    old = run(torch.arange(n, device="cuda"), ident, False)
+    idx = differing(pack, old, right)
+    lost, right_wrong = idx[:0], 0
+    if idx.numel():
+        ok_old = brute_agrees(pack, *old, ro, rd, tmax, 0.001, False, idx)
+        ok_new = brute_agrees(pack, *right, ro, rd, tmax, 0.001, False, idx)
+        lost = idx[~ok_old]
+        right_wrong = int((~ok_new).sum())
+    classes = dict(slab=0, tie=0, either=0, both=0)
+    rows = pack.tri_row[:, :9].cpu().numpy()
+    for j in lost.tolist():
+        one = torch.tensor([j], device="cuda")
+
+        def fixed(keys, box):
+            t, tri = run(one, keys, box)
+            return bool(brute_agrees(pack, t, tri, ro[one], rd[one],
+                                     tmax[one], 0.001, False,
+                                     torch.zeros(1, dtype=torch.long,
+                                                 device="cuda"))[0])
+
+        by_box, by_key = fixed(ident, True), fixed(first, False)
+        cls = ("either" if by_box and by_key else "slab" if by_box
+               else "tie" if by_key else "both")
+        classes[cls] += 1
+        from raytpu_torch.kernels.intersect import intersect_bruteforce
+
+        brute = intersect_bruteforce(
+            ro[one], rd[one], pack.tri_p0, pack.tri_e1, pack.tri_e2, 0.001,
+            tmax[one], chunk=math.gcd(pack.n_triangles, 4096))
+        win, got = int(brute.tri[0]), int(old[1][j])
+        print(f"  {label} lost ray {j} ({cls}): ro {f32_hex(ro[j].cpu())}; "
+              f"rd {f32_hex(rd[j].cpu())}; brute slot {win} t "
+              f"{f32_hex(brute.t.cpu())} tri {f32_hex(rows[win])}; "
+              f"unrepaired slot {got} t {f32_hex(old[0][j:j + 1].cpu())} "
+              + (f"tri {f32_hex(rows[got])}" if got >= 0 else "(miss)"))
+        yield_path = getattr(run, "path", None)
+        if yield_path is not None:
+            for line in yield_path(j, win, float(brute.t[0])):
+                print(f"    {line}")
+    by_class = ", ".join(f"{v} {k}" for k, v in classes.items())
+    print(f"phase {label} fault 3.5: the unrepaired rules lose "
+          f"{lost.numel()} of {n} rays ({by_class}); "
+          f"the repaired kernel is wrong on {right_wrong} of the "
+          f"{idx.numel()} rays where the two differ")
+    return dict(lost=lost.numel(), right_wrong=right_wrong, **classes)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -387,6 +549,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, name: str) -> float:
+    """Device ms of the kernels whose name holds ``name`` in one call of
+    ``fn``, from torch.profiler: launch by launch, without the host time
+    between small launches that CUDA events around them would take in."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name in e.name) / 1e3
 
 
 def profile_frame(render) -> str:
@@ -537,13 +715,22 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
     rows = leaf.reshape(-1, 10)
     hb = intersect_bruteforce(ro, rd, rows[:, 0:3], rows[:, 3:6],
                               rows[:, 6:9], 0.001, tmax, chunk=8)
-    tie_bad = int((tie_k != hb.tri).sum())
+    tie_bad = tie_mismatches(tables[-1], tie_k, hb.tri)
     total_bad += tie_bad
-    notes.append(f"tie scene: {tie_bad} slot mismatches")
+    notes.append(f"tie scene: {tie_bad} tie-key mismatches")
     print(f"phase {label} {name} vs plain: bit-equal on 3 soups x 65536 "
           "rays (closest t/tri, any-hit blocked); " + "; ".join(notes))
     if total_bad:
         fail(f"{name}: {total_bad} kernel-vs-brute mismatches")
+
+
+def tie_mismatches(first, tri, brute_tri) -> int:
+    """Rays of the tie scene whose triangle is not the sweep's: the sweep
+    keeps the lowest slot of 12 copies, which is every copy's tie key."""
+    import torch
+
+    key = torch.where(tri >= 0, first[tri.clamp(min=0).long()], -1)
+    return int((key != brute_tri).sum())
 
 
 def treelet_soup(ntri: int, budget: int):
@@ -556,14 +743,19 @@ def treelet_soup(ntri: int, budget: int):
         per, order
 
 
-def tl_pack(tl, dev):
-    """The treelet tables as the attributes make_binned_query reads."""
+def tl_pack(tl, per, dev):
+    """The treelet tables and the tie keys of the slot rows ``per`` as the
+    attributes make_binned_query reads."""
     import torch
 
-    return type("TreeletPack", (), {k: torch.from_numpy(
-        np.ascontiguousarray(getattr(tl, a))).to(dev) for k, a in (
-        ("tl_nodes", "tnodes"), ("tl_leaves", "tleaves"),
-        ("tl_bmin", "tbox_min"), ("tl_bmax", "tbox_max"))})
+    from raytpu_torch.kernels.strand import first_slots
+
+    attrs = {k: torch.from_numpy(np.ascontiguousarray(getattr(tl, a))).to(
+        dev) for k, a in (("tl_nodes", "tnodes"), ("tl_leaves", "tleaves"),
+                          ("tl_bmin", "tbox_min"), ("tl_bmax", "tbox_max"))}
+    attrs["bvh"] = type("Bvh", (), dict(first_slots=first_slots(
+        torch.from_numpy(per).to(dev))))
+    return type("TreeletPack", (), attrs)
 
 
 def phase_binned_kernel(errs: list) -> None:
@@ -585,6 +777,7 @@ def phase_binned_kernel(errs: list) -> None:
         intersect_any_bruteforce,
         intersect_bruteforce,
     )
+    from raytpu_torch.kernels.strand import first_slots
 
     dev = "cuda"
     n = 65536
@@ -608,6 +801,7 @@ def phase_binned_kernel(errs: list) -> None:
                               ro_np, rd_np, tmax.astype(np.float32),
                               shadow.astype(np.float32),
                               tri0.astype(np.int32))]
+            args.insert(2, first_slots(torch.from_numpy(per).to(dev)))
             tk, trk = binned_walk_cuda(*args, 0.001, 0.0)
             tp, trp = binned_walk_torch(*args, 0.001, 0.0)
             torch.cuda.synchronize()
@@ -627,7 +821,7 @@ def phase_binned_kernel(errs: list) -> None:
         tmax = torch.where(smask == 1.0, 6.0, F32_MAX)
         tmax[3::10] = 5.0  # finite closest-hit bound (open)
         tmax[::7] = float("-inf")
-        t, tri = make_binned_query(tl_pack(tl, dev))(
+        t, tri = make_binned_query(tl_pack(tl, per, dev))(
             ro, rd, tmax, smask, tmin=0.001, shadow_tmin=0.0)
         rows = torch.from_numpy(per).to(dev)
         c = smask == 0.0
@@ -648,13 +842,14 @@ def phase_binned_kernel(errs: list) -> None:
     ro, rd, rows = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                     for a in (ro_np, rd_np, per))
     tmax = torch.full((ro_np.shape[0],), F32_MAX, device=dev)
-    _, tie_k = make_binned_query(tl_pack(tl, dev))(
+    tie_pack = tl_pack(tl, per, dev)
+    _, tie_k = make_binned_query(tie_pack)(
         ro, rd, tmax, torch.zeros_like(tmax), tmin=0.001, shadow_tmin=0.0)
     hb = intersect_bruteforce(ro, rd, rows[:, 0:3], rows[:, 3:6],
                               rows[:, 6:9], 0.001, tmax, chunk=8)
-    tie_bad = int((tie_k != hb.tri).sum())
+    tie_bad = tie_mismatches(tie_pack.bvh.first_slots, tie_k, hb.tri)
     total_bad += tie_bad
-    notes.append(f"tie scene: {tie_bad} slot mismatches")
+    notes.append(f"tie scene: {tie_bad} tie-key mismatches")
     torch.cuda.synchronize()
     print(f"phase 3c binned_walk vs plain: bit-equal on 3 soups x 65536 "
           f"rays x budgets 48/2048 (t/tri, mixed closest/shadow/dead lanes); "
@@ -786,9 +981,9 @@ def phase_block_kernel(errs: list) -> None:
     rows = cu[1].reshape(-1, 10)
     hb = intersect_bruteforce(cu[3], cu[4], rows[:, 0:3], rows[:, 3:6],
                               rows[:, 6:9], 0.001, cu[5], chunk=8)
-    tie_bad = int((tie_k != hb.tri).sum())
+    tie_bad = tie_mismatches(cu[2], tie_k, hb.tri)
     total_bad += tie_bad
-    notes.append(f"tie scene: {tie_bad} slot mismatches")
+    notes.append(f"tie scene: {tie_bad} tie-key mismatches")
     print(f"phase 3d strand_block vs plain: bit-equal on 3 soups x {n} rays "
           "(closest t/tri, any-hit tri, per-strand counters); "
           + "; ".join(notes))
@@ -1050,16 +1245,20 @@ def wave_check(which: str, tables, pack, ro, rd, errs: list):
                                                       28)
 
 
-def waves_vs_brute(pack, calls, query, seed: int) -> tuple:
+def waves_vs_brute(pack, calls, query, seed: int | None) -> tuple:
     """Each recorded wave (the factory's arguments) through ``query`` on
-    the card, held to the brute sweep on a seeded SAMPLE of its rays:
-    (mismatches, rays checked, a note per wave)."""
+    the card, held to the brute sweep on a seeded SAMPLE of its rays, or
+    on every ray with no seed: (mismatches, rays checked, a note per
+    wave)."""
+    import torch
+
     bad = checked = 0
     notes = []
     for i, a in enumerate(calls):
         ro, rd, tmax, tmin, any_hit = a[3:8]
         t, tri = query(*a[:8])
-        idx = sample_of(ro.shape[0], seed + i)
+        idx = (torch.arange(ro.shape[0], device="cuda") if seed is None
+               else sample_of(ro.shape[0], seed + i))
         n_bad = int((~brute_agrees(pack, t, tri, ro, rd, tmax, tmin, any_hit,
                                    idx)).sum())
         bad += n_bad
@@ -1200,21 +1399,23 @@ def phase_main(tmp: str, errs: list) -> dict:
 
 
 class recorded_queries:
-    """Context manager: the arguments of every call of the strand
-    dispatcher ``name`` (``strand_query`` or ``strand_block_query``) that
-    the strand factories made inside it, as a list (the factory looks the
+    """Context manager: the arguments of every call of the dispatcher
+    ``name`` of the kernel module ``module`` (``strand``: ``strand_query``
+    or ``strand_block_query``; ``packet``: ``packet_query``) that the
+    intersector factories made inside it, as a list (a factory looks its
     dispatcher up when it is called). The rays are copied: the fused wave
     mode queries views of its path state, which it then updates in
     place."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, module: str = "strand"):
+        self.name, self.module = name, module
 
     def __enter__(self):
-        from raytpu_torch.kernels import strand as strand_mod
+        import importlib
 
-        self.mod = strand_mod
-        self.real = getattr(strand_mod, self.name)
+        self.mod = importlib.import_module("raytpu_torch.kernels."
+                                           + self.module)
+        self.real = getattr(self.mod, self.name)
         self.calls = []
 
         def record(*args):
@@ -1222,7 +1423,7 @@ class recorded_queries:
                               + args[6:])
             return self.real(*args)
 
-        setattr(strand_mod, self.name, record)
+        setattr(self.mod, self.name, record)
         return self.calls
 
     def __exit__(self, *exc):
@@ -1462,27 +1663,64 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
             f"frame 1 {frame_s[0]:.4f} s, frame 2 {frame_s[1]:.4f} s, "
             f"count_rays {rays}, {rays / frame_s[1]:.4g} rays/s")
     rec = dict(launches=counts["packet"])
+    from raytpu_torch.kernels import packet as packet_mod
+
+    if mode == "path":
+        # every packet_walk call of a frame, every ray held to the brute
+        # sweep (closest: t bits and the triangle's rows; any-hit: the
+        # blocked bit)
+        with recorded_queries("packet_query", "packet") as calls:
+            render_frame(pack, cam, cfg)
+            torch.cuda.synchronize()
+        bad, checked, notes = waves_vs_brute(
+            pack, calls, packet_mod.packet_query_cuda, None)
+        n_any = sum(1 for a in calls if a[7])
+        line += (f"; packet_walk vs brute on every ray of the frame's "
+                 f"{len(calls)} calls ({len(calls) - n_any} closest, {n_any} "
+                 f"any-hit; {checked} rays): {bad} mismatches")
+        if bad:
+            print(line)
+            fail(f"cell {label}: packet_walk disagrees with the brute sweep "
+                 f"on {bad} rays")
     if mode == "flat":
         ro, rd = primary_wave(cam, w, h, args["chunk_size"], args["seed"])
-        ms, plain_ms, bad, bnd = wave_check(
-            "packet", (pack.bvh.node8_rows, pack.bvh.leaf_tris), pack, ro, rd,
-            errs)
+        tables = (pack.bvh.node8_rows, pack.bvh.leaf_tris,
+                  pack.bvh.first_slots)
+        ms, plain_ms, bad, bnd = wave_check("packet", tables, pack, ro, rd,
+                                            errs)
         line += (f"; primary wave {ro.shape[0]} rays: packet_walk {ms:.3f} "
                  f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on "
                  f"{SAMPLE} rays: {bad} mismatches (pinned at "
-                 f"{PACKET_LOST_HITS})")
+                 f"{PACKET_LOST_HITS}); plain-walk work {bnd['boxes']} box / "
+                 f"{bnd['tris']} triangle tests")
         if bad != PACKET_LOST_HITS:
             fail(f"primary wave: packet_walk misses the brute sweep on {bad} "
                  f"sampled rays, not the pinned {PACKET_LOST_HITS}")
-        # the whole wave: where packet_walk (fault 3.4's box test and tie
-        # rule, unrepaired) and strand_walk differ, the brute sweep decides
-        from raytpu_torch.kernels.packet import packet_query_cuda
+        # the whole wave: where packet_walk and strand_walk differ, the
+        # brute sweep decides
         from raytpu_torch.kernels.strand import strand_query_cuda
 
         tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
+        right = packet_mod.packet_query_cuda(*tables, ro, rd, tmax, 0.001,
+                                             False)
+        node8 = pack.bvh.node8_rows
+
+        def run(idx, keys, box):
+            with (contextlib.nullcontext() if box
+                  else unrepaired_box_test()):
+                return packet_mod.packet_query_torch(
+                    node8, pack.bvh.leaf_tris, keys, ro[idx], rd[idx],
+                    tmax[idx], 0.001, False)
+
+        nodes_np = node8.cpu().numpy()
+
+        def path(j, win, t_win):
+            return box_path(nodes_np, win // 8, ro[j], rd[j], 0.001, t_win)
+
+        run.path = path
+        rec["lost"] = lost_hits("6c", pack, ro, rd, right, run)
         n_diff, packet_wrong, strand_wrong = differ_vs_brute(
-            pack, packet_query_cuda(pack.bvh.node8_rows, pack.bvh.leaf_tris,
-                                    ro, rd, tmax, 0.001, False),
+            pack, right,
             strand_query_cuda(pack.bvh.strand_rows, pack.bvh.leaf_tris,
                               pack.bvh.first_slots, ro, rd, tmax, 0.001,
                               False),
@@ -1490,6 +1728,8 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
         line += (f"; packet_walk and strand_walk differ on {n_diff} rays of "
                  f"the wave, wrong there: packet_walk {packet_wrong} (pinned "
                  f"at {PACKET_WAVE_LOST_HITS}), strand_walk {strand_wrong}")
+        print(line)
+        line = None
         if strand_wrong:
             fail("phase 6c: strand_walk disagrees with the brute sweep")
         if packet_wrong != PACKET_WAVE_LOST_HITS:
@@ -1498,7 +1738,8 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
                  f"{PACKET_WAVE_LOST_HITS}: update the pin and ROADMAP fault "
                  "3.5")
         rec.update(ms=ms, plain_ms=plain_ms, **bnd)
-    print(line)
+    if line is not None:
+        print(line)
     if img.shape != (h, w, 3) or lit <= min_lit:
         fail(f"cell {label}: PNG is wrong or has <= {min_lit} non-black")
     # flat mode and <= 256-slot scenes take the packet route on every wave
@@ -1627,26 +1868,33 @@ def phase_stream(tmp: str, errs: list) -> dict:
     if counts["binned"] == 0 or counts["strand"] or counts["packet"]:
         fail("phase 7a did not run every query on binned_walk")
 
-    # the frame's launches: the kernel on each, the plain version on the
-    # largest (CUDA events)
+    # the frame's launches: the kernel on each, timed with CUDA events,
+    # and its plain version on each (bit-equal; its counts give each
+    # launch's bound), timed on the largest
     sizes = [a[3].shape[0] for a in calls]
     kernel_ms = [cuda_ms(lambda a=a: binned_walk_cuda(*a), reps=3)
                  for a in calls]
+    frame_dev_ms = device_ms(
+        lambda: [binned_walk_cuda(*a) for a in calls], "binned_kernel")
+    bounds = []
+    for a in calls:
+        tk, trk = binned_walk_cuda(*a)
+        one = {}
+        tp, trp = binned_walk_torch(*a, counts=one)
+        if not (same_bits(tk, tp) and torch.equal(trk, trp)):
+            fail("phase 7a: binned_walk != its plain version on a frame "
+                 "launch")
+        errs.append(t_err(tk, tp))
+        bounds.append(walk_bound(one, a[3].shape[0], 40))
     big = calls[int(np.argmax(sizes))]
     ms = kernel_ms[int(np.argmax(sizes))]
     plain_ms = cuda_ms(lambda: binned_walk_torch(*big), reps=1)
-    tk, trk = binned_walk_cuda(*big)
     work = {}
-    tp, trp = binned_walk_torch(*big, counts=work)
-    if not (same_bits(tk, tp) and torch.equal(trk, trp)):
-        fail("phase 7a: binned_walk != its plain version on a frame launch")
-    errs.append(t_err(tk, tp))
+    binned_walk_torch(*big, counts=work)
     # per ray the treelet, ro, rd, tmax, smask and tri0 in
-    bnd = walk_bound(work, big[2].shape[0], 40)
+    bnd = walk_bound(work, big[3].shape[0], 40)
     # primary wave: binned and strand closest hits, each held to the brute
-    # sweep on a sample (binned_walk keeps fault 3.4's box test and tie rule
-    # unrepaired: its count is printed; strand's must be 0), and wherever
-    # the two differ on the whole wave
+    # sweep on a sample and wherever the two differ on the whole wave
     ro, rd = primary_wave(cam, w, h, 8, 1)
     tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
     hb = make_binned_intersectors(pack)[0](ro, rd, 0.001, tmax)
@@ -1656,27 +1904,104 @@ def phase_stream(tmp: str, errs: list) -> dict:
     binned_bad, strand_bad = (
         int((~brute_agrees(pack, hit.t, hit.tri, ro, rd, tmax, 0.001, False,
                            idx)).sum()) for hit in (hb, hs))
+
+    from raytpu_torch.kernels import binned as binned_mod
+
+    def run(idx, keys, box):
+        keyed = dataclasses.replace(pack, bvh=dataclasses.replace(
+            pack.bvh, first_slots=keys))
+        kernel = binned_mod.binned_walk
+        binned_mod.binned_walk = binned_walk_torch
+        try:
+            with (contextlib.nullcontext() if box
+                  else unrepaired_box_test()):
+                hit = make_binned_intersectors(keyed)[0](
+                    ro[idx], rd[idx], 0.001, tmax[idx])
+        finally:
+            binned_mod.binned_walk = kernel
+        return hit.t, hit.tri
+
+    def path(j, win, t_win):
+        o, d = ro[j].cpu().numpy(), rd[j].cpu().numpy()
+        where = (pack.tl_leaves[:, :, 9].contiguous().view(torch.int32)
+                 == win // 8 * 8).nonzero().tolist()
+        out = []
+        for t, row in where:
+            lo = pack.tl_bmin[t].cpu().numpy()
+            hi = pack.tl_bmax[t].cpu().numpy()
+            out.append(f"treelet {t} box {f32_hex(lo)} {f32_hex(hi)}: "
+                       f"(old, new) select {select_np(o, d, lo, hi, t_win)}")
+            out += [f"treelet {t} {line}" for line in box_path(
+                pack.tl_nodes[t].cpu().numpy(), row, ro[j], rd[j], 0.0,
+                t_win)]
+        return out
+
+    run.path = path
+    lost = lost_hits("7a", pack, ro, rd, (hb.t, hb.tri), run)
     n_diff, binned_wrong, strand_wrong = differ_vs_brute(
         pack, (hb.t, hb.tri), (hs.t, hs.tri), ro, rd, tmax, 0.001)
     print(f"phase 7a kernel: {len(calls)} launches in frame 2, "
-          f"{sum(sizes)} rays, kernel {sum(kernel_ms):.3f} ms in all; "
-          f"largest launch {max(sizes)} rays: binned_walk {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms, bit-equal; primary wave {ro.shape[0]} rays: "
+          f"{sum(sizes)} rays (launch sizes: min {min(sizes)}, median "
+          f"{int(np.median(sizes))}, max {max(sizes)}), kernel "
+          f"{frame_dev_ms:.3f} ms of device time in all (torch.profiler; "
+          f"{sum(kernel_ms):.3f} ms by CUDA events launch by launch, host "
+          f"time included), summed bound "
+          f"{sum(b['bound_ms'] for b in bounds):.4f} ms; largest launch "
+          f"{max(sizes)} rays: binned_walk {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, bit-equal; plain-walk work {bnd['boxes']} box "
+          f"/ {bnd['tris']} triangle tests; primary wave {ro.shape[0]} rays: "
           f"{int(hb.valid.sum())} hits; vs brute on {idx.numel()} rays: "
-          f"binned {binned_bad} mismatches, strand_walk "
-          f"{strand_bad}; binned and strand_walk differ on {n_diff} rays of "
-          f"the wave, wrong there: binned {binned_wrong}, strand_walk "
-          f"{strand_wrong}")
+          f"binned {binned_bad} mismatches, strand_walk {strand_bad}; "
+          f"binned and strand_walk differ on {n_diff} rays of the wave, "
+          f"wrong there: binned {binned_wrong}, strand_walk {strand_wrong}")
     if strand_bad or strand_wrong:
         fail("phase 7a: strand_walk disagrees with the brute sweep")
-    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms, **bnd)
+    if binned_bad or binned_wrong:
+        fail(f"phase 7a: binned_walk disagrees with the brute sweep on "
+             f"{binned_bad} sampled rays and on {binned_wrong} rays of the "
+             "wave (ROADMAP fault 3.5)")
+    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms,
+                frame_ms=frame_dev_ms, **bnd)
+
+
+class recorded_mixed:
+    """Context manager: the inputs and results of every binned mixed query
+    the engine makes inside it (``render.make_binned_query`` wrapped), as
+    a list of (ro, rd, tmax, smask, tmin, shadow_tmin, t, tri)."""
+
+    def __enter__(self):
+        from raytpu_torch.engine import render as render_mod
+
+        self.mod, self.real = render_mod, render_mod.make_binned_query
+        self.calls = []
+
+        def make(pack):
+            query = self.real(pack)
+
+            def recorded(ro, rd, tmax, smask, *, tmin, shadow_tmin):
+                args = [a.clone() for a in (ro, rd, tmax, smask)]
+                t, tri = query(ro, rd, tmax, smask, tmin=tmin,
+                               shadow_tmin=shadow_tmin)
+                self.calls.append((*args, tmin, shadow_tmin, t, tri))
+                return t, tri
+
+            return recorded
+
+        render_mod.make_binned_query = make
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.make_binned_query = self.real
 
 
 def phase_deferred(main_rec: dict) -> None:
     """Phase 7b: phase 5's pack and configuration with
     intersector="packet", bounce_backend="binned" (strand primary and last
     shadow waves, deferred NEE in binned mixed bounces); its PNG against
-    phase 5's within tests/imgdiff.py's bar."""
+    phase 5's within tests/imgdiff.py's bar; each of a frame's binned mixed
+    queries held to the brute sweep on a seeded SAMPLE of its closest lanes
+    (t bits and the triangle's rows) and of its shadow lanes (the blocked
+    bit)."""
     import torch
 
     from raytpu_torch.engine.render import render_frame
@@ -1708,6 +2033,27 @@ def phase_deferred(main_rec: dict) -> None:
         fail("phase 7b frame disagrees with phase 5's")
     if counts["strand"] == 0 or counts["binned"] == 0 or counts["packet"]:
         fail("phase 7b did not take strand primary waves and binned bounces")
+    with recorded_mixed() as calls:
+        render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+    bad, notes = 0, []
+    for i, (ro, rd, tmax, smask, tmin, shadow_tmin, t, tri) in enumerate(
+            calls):
+        for shadow in (False, True):
+            lanes = ((smask == 1.0) == shadow).nonzero().squeeze(1)
+            idx = lanes[sample_of(lanes.numel(), 30 + 2 * i + shadow)]
+            n_bad = int((~brute_agrees(
+                pack, t, tri, ro, rd, tmax, shadow_tmin if shadow else tmin,
+                shadow, idx)).sum())
+            bad += n_bad
+            notes.append(f"{'shadow' if shadow else 'closest'} {n_bad} of "
+                         f"{idx.numel()}")
+    print(f"phase 7b binned mixed queries vs brute on a {SAMPLE}-lane sample "
+          f"of each lane kind of the frame's {len(calls)} queries: "
+          + ", ".join(notes))
+    if bad:
+        fail(f"phase 7b: the binned mixed queries disagree with the brute "
+             f"sweep on {bad} sampled lanes")
 
 
 def phase_step_bench(errs: list) -> dict:

@@ -62,7 +62,9 @@ from .intersect import F32_MAX, Hit, moller_trumbore
 from .strand import (
     ANY_TMIN,
     CLOSEST_TMIN,
+    FAR_SCALE,
     _check_baked_tmin,
+    _leaf_closest,
     _per_ray,
     _safe_inv,
 )
@@ -72,18 +74,18 @@ STACK_DEPTH = 256  # per-ray stack slots, raytpu's treelet walk bound
 # SELECT_CHUNK): many-treelet scenes shrink the chunk
 SELECT_ELEMS = 1 << 25
 _PLAIN_STACK0 = 32  # the plain version's first stack width; it grows
-_INT_MAX = 2**31 - 1
 
 # queries run and rounds walked since the last reset, on either device
 # (a plain counter, like the kernels' launch counts)
 QUERY_STATS = dict(queries=0, rounds=0, max_rounds=0)
 
 
-def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
-                      tmin: float, shadow_tmin: float,
+def binned_walk_torch(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
+                      tri0, tmin: float, shadow_tmin: float,
                       counts: dict | None = None):
     """Plain torch version of the treelet walk. tl_nodes [T, Sn, 128],
-    tl_leaves [T, Sl, 128], tid [R] i32 (each ray's treelet), ro/rd [R, 3],
+    tl_leaves [T, Sl, 128], first [S] i32 (the tie keys of the global
+    slots, ``first_slots``), tid [R] i32 (each ray's treelet), ro/rd [R, 3],
     tmax [R], smask [R] (1.0 = shadow lane), tri0 [R] i32 (a closest
     lane's incoming best slot); returns (t [R] f32, tri [R] i32). A ray
     whose tid is out of range returns its starting state. Each loop
@@ -107,6 +109,7 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     inv = _safe_inv(rd)
     t_out = torch.minimum(torch.full_like(tmax, F32_MAX), tmax)
     tri_out = torch.where(shadow, -1, tri0).to(torch.int32)
+    key_in = torch.where(tri_out >= 0, first[tri_out.clamp(min=0).long()], -1)
     tid = tid.long()
     lanes = ((tid >= 0) & (tid < n_tl)).nonzero().squeeze(1)
     w = lanes.numel()
@@ -115,10 +118,11 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     s = dict(
         idx=lanes, base=tid[lanes], o=ro[lanes], d=rd[lanes], inv=inv[lanes],
         neg=inv[lanes] < 0.0, shad=shadow[lanes], tcut=tcut[lanes],
-        bt=t_out[lanes], btri=tri_out[lanes],
+        bt=t_out[lanes], btri=tri_out[lanes], bkey=key_in[lanes],
         sp=torch.ones(w, dtype=torch.long, device=dev),
         stack=torch.zeros((w, _PLAIN_STACK0), dtype=torch.int32, device=dev),
     )
+    k8 = torch.arange(8, device=dev, dtype=torch.int32)
     if counts is not None:
         seen_node = torch.zeros(kids.shape[0], dtype=torch.bool, device=dev)
         seen_leaf = torch.zeros(tris.shape[0], dtype=torch.bool, device=dev)
@@ -141,31 +145,46 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
             seen_node[node] = True
         kb = boxes[node]  # [W, 8, 6]
         kl = links[node]  # [W, 8]
-        # LIMIT is read once per popped node, as the TPU kernel reads it
-        limit = s["bt"].clone()
-        walking = torch.ones(w, dtype=torch.bool, device=dev)
-        for k in range(8):
-            bmin, bmax, link = kb[:, k, 0:3], kb[:, k, 3:6], kl[:, k]
-            lo = (torch.where(s["neg"], bmax, bmin) - s["o"]) * s["inv"]
-            hi = (torch.where(s["neg"], bmin, bmax) - s["o"]) * s["inv"]
-            near = torch.maximum(
-                torch.maximum(lo[:, 0], lo[:, 1]),
-                torch.maximum(lo[:, 2], torch.full_like(lo[:, 2], slab_tmin)),
-            )
-            far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
-                                torch.minimum(hi[:, 2], limit))
-            hit = (near <= far) & walking
-            push = hit & (link >= 0) & (link < sn)
+        # every child's box against the LIMIT of the pop, as the TPU kernel
+        # reads it once per popped node
+        neg = s["neg"][:, None, :]
+        lo = (torch.where(neg, kb[..., 3:6], kb[..., 0:3])
+              - s["o"][:, None, :]) * s["inv"][:, None, :]
+        hi = (torch.where(neg, kb[..., 0:3], kb[..., 3:6])
+              - s["o"][:, None, :]) * s["inv"][:, None, :]
+        near = torch.maximum(
+            torch.maximum(lo[..., 0], lo[..., 1]),
+            torch.maximum(lo[..., 2], torch.full_like(lo[..., 2], slab_tmin)),
+        )
+        far = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
+                            torch.minimum(hi[..., 2], s["bt"][:, None]))
+        hit = near <= far * FAR_SCALE
+        inner = hit & (kl >= 0) & (kl < sn)
+        at_leaf = hit & (kl < 0) & (~kl < sl)
+        # visit order: the kernel's key, the entry distance's bits with
+        # the low 3 bits replaced by k (+ 0.0 turns -0 into +0), after
+        # every hit child the missed ones
+        key = torch.where(hit, ((near + 0.0).view(torch.int32) & ~7) | k8,
+                          0x7FFFFFF8 | k8)
+        order = torch.sort(key, dim=1)[1]
+        inner, at_leaf, kl = (x.gather(1, order)
+                              for x in (inner, at_leaf, kl))
+        # interior children far-first, so the nearest is popped next
+        for j in range(7, -1, -1):
+            push = inner[:, j]
             if bool(push.any()):
                 slot = torch.clamp(s["sp"], max=STACK_DEPTH - 1)
-                s["stack"][lane[push], slot[push]] = link[push]
+                s["stack"][lane[push], slot[push]] = kl[push, j]
                 s["sp"] = torch.clamp(s["sp"] + push.long(),
                                       max=STACK_DEPTH - 1)
-            at_leaf = hit & (link < 0) & (~link < sl)
-            if not bool(at_leaf.any()):
+        # leaves near-first
+        walking = torch.ones(w, dtype=torch.bool, device=dev)
+        for j in range(8):
+            at = at_leaf[:, j] & walking
+            if not bool(at.any()):
                 continue
-            li = at_leaf.nonzero().squeeze(1)
-            row = s["base"][li] * sl + (~link[li]).long()
+            li = at.nonzero().squeeze(1)
+            row = s["base"][li] * sl + (~kl[li, j]).long()
             if counts is not None:
                 counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
                 seen_leaf[row] = True
@@ -176,25 +195,22 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
                 s["tcut"][li][:, None], torch.inf,
             )
             gslot = slots[row]  # [L, 8]
-            bt, bi, shd = s["bt"][li], s["btri"][li], s["shad"][li]
+            bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
+            shd = s["shad"][li]
             # a shadow lane's first accepted triangle (t <= tmax) blocks
-            # it and ends its walk
+            # it and ends its walk; its t stays its bound
             sok = ok & (t <= bt[:, None])
-            first = sok.to(torch.int32).argmax(dim=1)
+            k = sok.to(torch.int32).argmax(dim=1)
             blocked = shd & sok.any(dim=1)
-            # a closest lane's in-order accept rule keeps the smallest
-            # (t, slot) pair: the leaf's lowest t, lowest slot on ties
-            tc = torch.where(ok, t, torch.inf)
-            mt = tc.amin(dim=1)
-            ms = torch.where(ok & (tc == mt[:, None]), gslot,
-                             _INT_MAX).amin(dim=1).to(torch.int32)
-            acc = ~shd & ok.any(dim=1) & ((mt < bt) | ((mt == bt) & (ms < bi)))
-            s["bt"][li] = torch.where(
-                blocked, t.gather(1, first[:, None])[:, 0],
-                torch.where(acc, mt, bt))
+            # a closest lane keeps the smallest (t, first[slot]) pair
+            found, mt, ms, mk = _leaf_closest(ok, t, gslot,
+                                              first[gslot.long()])
+            acc = ~shd & found & ((mt < bt) | ((mt == bt) & (mk < bk)))
+            s["bt"][li] = torch.where(acc, mt, bt)
             s["btri"][li] = torch.where(
-                blocked, gslot.gather(1, first[:, None])[:, 0],
+                blocked, gslot.gather(1, k[:, None])[:, 0],
                 torch.where(acc, ms, bi))
+            s["bkey"][li] = torch.where(acc, mk, bk)
             walking[li] = ~blocked
         done = (s["sp"] == 0) | ~walking
         if bool(done.any()):
@@ -211,7 +227,8 @@ def binned_walk_torch(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     return t_out, tri_out
 
 
-def _check_walk_inputs(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0):
+def _check_walk_inputs(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
+                       tri0):
     """Raise ValueError unless every input is a contiguous tensor of the
     walk's dtype and shape on one device."""
     dev = ro.device
@@ -220,6 +237,7 @@ def _check_walk_inputs(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0):
         ("tl_nodes", tl_nodes, torch.float32, (None, None, 128)),
         ("tl_leaves", tl_leaves, torch.float32, (tl_nodes.shape[0], None,
                                                  128)),
+        ("first", first, torch.int32, (None,)),
         ("tid", tid, torch.int32, (r,)),
         ("ro", ro, torch.float32, (r, 3)),
         ("rd", rd, torch.float32, (r, 3)),
@@ -251,7 +269,7 @@ def _library():
         lib = load_library("binned_walk")
         lib.binned_walk_launch.restype = ctypes.c_int
         lib.binned_walk_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         )
         lib.binned_walk_error_string.restype = ctypes.c_char_p
@@ -260,8 +278,8 @@ def _library():
     return _LIB
 
 
-def binned_walk_cuda(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
-                     tmin: float, shadow_tmin: float):
+def binned_walk_cuda(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
+                     tri0, tmin: float, shadow_tmin: float):
     """Launch ``csrc/binned_walk.cu`` on the current stream (one thread per
     ray, blocks of 128). Same signature and results as
     ``binned_walk_torch``; raises on bad inputs or a failed launch.
@@ -269,7 +287,8 @@ def binned_walk_cuda(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     if ro.device.type != "cuda":
         raise ValueError(f"binned_walk_cuda needs CUDA tensors, got "
                          f"{ro.device}")
-    _check_walk_inputs(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0)
+    _check_walk_inputs(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
+                       tri0)
     lib = _library()
     r = ro.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=ro.device)
@@ -279,7 +298,8 @@ def binned_walk_cuda(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.binned_walk_launch(
-            tl_nodes.data_ptr(), tl_leaves.data_ptr(), tid.data_ptr(),
+            tl_nodes.data_ptr(), tl_leaves.data_ptr(), first.data_ptr(),
+            tid.data_ptr(),
             ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), smask.data_ptr(),
             tri0.data_ptr(), t.data_ptr(), tri.data_ptr(), r,
             tl_nodes.shape[0], tl_nodes.shape[1], tl_leaves.shape[1],
@@ -297,12 +317,12 @@ def binned_walk_cuda(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
 binned_walk_cuda.launches = 0
 
 
-def binned_walk(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0,
+def binned_walk(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask, tri0,
                 tmin: float, shadow_tmin: float):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = binned_walk_cuda if ro.device.type == "cuda" else binned_walk_torch
-    return fn(tl_nodes, tl_leaves, tid, ro, rd, tmax, smask, tri0, tmin,
-              shadow_tmin)
+    return fn(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask, tri0,
+              tmin, shadow_tmin)
 
 
 def make_binned_query(pack, max_rounds: int | None = None):
@@ -317,6 +337,7 @@ def make_binned_query(pack, max_rounds: int | None = None):
     walked one thread each."""
     tnodes = pack.tl_nodes.contiguous()
     tleaves = pack.tl_leaves.contiguous()
+    first = pack.bvh.first_slots.contiguous()
     tb_min = pack.tl_bmin
     tb_max = pack.tl_bmax
     n_tl = tnodes.shape[0]
@@ -360,7 +381,10 @@ def make_binned_query(pack, max_rounds: int | None = None):
                 lt = last_t[c][:, None]
                 later = tids[None, :] > last_tid[c][:, None]
                 after = (near > lt) | ((near == lt) & later)
-                ok = (near <= far) & after & (near <= bound[:, None])
+                # the walk's conservative box test, on the treelet's box
+                # and on the ray's bound
+                ok = ((near <= far * FAR_SCALE) & after
+                      & (near <= bound[:, None] * FAR_SCALE))
                 key = torch.where(ok, near, torch.inf)
                 s = torch.argmin(key, dim=1)
                 sel.append(s)
@@ -380,7 +404,8 @@ def make_binned_query(pack, max_rounds: int | None = None):
             order = torch.sort(sel, stable=True)[1]
             g = rays[order]
             t_o, tri_o = binned_walk(
-                tnodes, tleaves, sel[order].to(torch.int32), ro[g], rd[g],
+                tnodes, tleaves, first, sel[order].to(torch.int32), ro[g],
+                rd[g],
                 torch.where(shadow[g], tmax[g], best_t[g]), smask[g],
                 best_tri[g], tmin, shadow_tmin)
             # shadow lanes keep t = tmax; closest lanes carry the

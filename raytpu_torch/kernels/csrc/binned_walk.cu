@@ -10,162 +10,106 @@
 // rays of one window sit in neighbouring threads and share its rows in L2.
 //
 // Layout (raytpu_torch/accel/treelets.py): treelet t's node window is the
-// Sn rows of 128 floats at nodes + t*Sn*128; child k of a row sits at
-// columns 16k..16k+6: bmin.xyz, bmax.xyz, then the window-local link as
-// int32 BITS (__float_as_int): a node row, or ~leaf_row for a leaf. Leaf
-// row j of the window (leaves + (t*Sl + j)*128) holds 8 triangles of 10
-// floats: p0, e1, e2, then the triangle's global slot as int32 bits. Empty
-// child slots and padding rows carry inverted boxes; the slab test does
-// not order-normalise its intervals, so they miss every ray.
+// Sn rows of 128 floats at nodes + t*Sn*128, walked as a BVH8 with
+// window-local links (bvh8_walk.cuh). Leaf row j of the window (leaves +
+// (t*Sl + j)*128) holds 8 triangles of 10 floats: p0, e1, e2, then the
+// triangle's global slot as int32 bits.
 //
-// Per lane (raytpu's arithmetic, kept bit for bit with the plain version
+// Per lane (kept bit for bit with the plain version
 // kernels/binned.py:binned_walk_torch): smask == 1 flags a shadow lane,
-// any-hit over [shadow_tmin, tmax], which stops at its first blocker;
-// other lanes are closest-hit over [tmin, best) starting from
-// best = min(F32_MAX, tmax) and their incoming slot tri0, ties to the lowest
-// slot. The slab test uses min(tmin, shadow_tmin) for every lane and a
-// LIMIT read once per popped node. The build passes --fmad=false,
-// -prec-div=true and -ftz=false; max/min propagate NaN like
-// torch.maximum/minimum.
-//
-// What bounds it on an H100: dependent global loads (a 512-byte node row
-// per pop, 320 bytes of triangles per leaf row; a window is at most about
-// 1 MB and rays of one window run together, so its rows stay in L2), warp
-// divergence as walks part, and the per-thread stack in local memory (1 KB
-// a thread). This first version keeps the walk simple and correct: no
-// shared-memory staging of windows, no warp cooperation.
+// any-hit over [shadow_tmin, tmax], which stops at its first blocker and
+// returns t = min(F32_MAX, tmax); other lanes are closest-hit over
+// [tmin, best) starting from best = min(F32_MAX, tmax), their incoming
+// slot tri0 and its key first[tri0], keeping the smallest (t, first[slot])
+// pair. The slab test uses min(tmin, shadow_tmin) for every lane and a
+// LIMIT read once per popped node. Float rules and the conservative box
+// test: walk_common.cuh.
 
-#include <cuda_runtime.h>
+#include "bvh8_walk.cuh"
 
 namespace {
 
-constexpr float kF32Max = 3.40282347e38f;
-constexpr float kTiny = 1e-36f;
+using namespace walk;
+
 constexpr int kStackDepth = 256;  // kernels/binned.py:STACK_DEPTH
-constexpr int kWidth = 8;         // children per node
 constexpr int kRowFloats = 128;   // node and leaf rows
-constexpr int kLeafSize = 8;
 constexpr int kBlock = 128;
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
+struct Args {
+  const float* nodes;
+  const float* leaves;
+  const int* first;
+  const int* tid;
+  const float* ro;
+  const float* rd;
+  const float* tmax;
+  const float* smask;
+  const int* tri0;
+  float* t_out;
+  int* tri_out;
+  int n_rays, n_treelets, sn, sl;
+  float tmin, shadow_tmin;
+};
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
-
-// 1/d with exactly-zero components clamped to +/-TINY (sign of the zero)
-__device__ __forceinline__ float safe_inv(float d) {
-  float s = d;
-  if (d == 0.0f) s = (1.0f / d < 0.0f) ? -kTiny : kTiny;
-  return 1.0f / s;
-}
-
-__global__ void __launch_bounds__(kBlock) binned_walk_kernel(
-    const float* __restrict__ nodes, const float* __restrict__ leaves,
-    const int* __restrict__ tid, const float* __restrict__ ro,
-    const float* __restrict__ rd, const float* __restrict__ tmax,
-    const float* __restrict__ smask, const int* __restrict__ tri0,
-    float* __restrict__ t_out, int* __restrict__ tri_out, int n_rays,
-    int n_treelets, int sn, int sl, float tmin, float shadow_tmin) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const bool shad = __ldg(smask + i) == 1.0f;
-  float best_t = nan_min(kF32Max, __ldg(tmax + i));
-  int best_tri = shad ? -1 : __ldg(tri0 + i);
-  const int t = __ldg(tid + i);
-  if (t < 0 || t >= n_treelets) {
-    t_out[i] = best_t;
-    tri_out[i] = best_tri;
-    return;
-  }
-  const float ox = __ldg(ro + 3 * i + 0);
-  const float oy = __ldg(ro + 3 * i + 1);
-  const float oz = __ldg(ro + 3 * i + 2);
-  const float dx = __ldg(rd + 3 * i + 0);
-  const float dy = __ldg(rd + 3 * i + 1);
-  const float dz = __ldg(rd + 3 * i + 2);
-  const float ix = safe_inv(dx);
-  const float iy = safe_inv(dy);
-  const float iz = safe_inv(dz);
-  const bool nx = ix < 0.0f;
-  const bool ny = iy < 0.0f;
-  const bool nz = iz < 0.0f;
-  const float tcut = shad ? shadow_tmin : tmin;
-  const float slab_tmin = fminf(tmin, shadow_tmin);
-  const float* win = nodes + static_cast<size_t>(t) * sn * kRowFloats;
-  const float* lwin = leaves + static_cast<size_t>(t) * sl * kRowFloats;
-
-  int stack[kStackDepth];
-  stack[0] = 0;
-  int sp = 1;
-  for (int pops = 0; sp > 0 && pops < sn; ++pops) {
-    const float* nd = win + static_cast<size_t>(stack[--sp]) * kRowFloats;
-    const float limit = best_t;  // read once per popped node
-    for (int k = 0; k < kWidth; ++k) {
-      const float* c = nd + 16 * k;
-      const float bx0 = __ldg(c + 0), by0 = __ldg(c + 1), bz0 = __ldg(c + 2);
-      const float bx1 = __ldg(c + 3), by1 = __ldg(c + 4), bz1 = __ldg(c + 5);
-      const int link = __float_as_int(__ldg(c + 6));
-      const float lox = ((nx ? bx1 : bx0) - ox) * ix;
-      const float hix = ((nx ? bx0 : bx1) - ox) * ix;
-      const float loy = ((ny ? by1 : by0) - oy) * iy;
-      const float hiy = ((ny ? by0 : by1) - oy) * iy;
-      const float loz = ((nz ? bz1 : bz0) - oz) * iz;
-      const float hiz = ((nz ? bz0 : bz1) - oz) * iz;
-      const float t_near = nan_max(nan_max(lox, loy), nan_max(loz, slab_tmin));
-      const float t_far = nan_min(nan_min(hix, hiy), nan_min(hiz, limit));
-      if (!(t_near <= t_far)) continue;
-      if (link >= 0) {
-        if (link < sn) {
-          // clamp as raytpu does: an overflowing push drops a subtree
-          stack[min(sp, kStackDepth - 1)] = link;
-          sp = min(sp + 1, kStackDepth - 1);
-        }
-        continue;
-      }
-      const int lr = ~link;
-      if (lr >= sl) continue;
-      const float* lf = lwin + static_cast<size_t>(lr) * kRowFloats;
-      for (int q = 0; q < kLeafSize; ++q) {
-        const float* tp = lf + 10 * q;
-        const float p0x = __ldg(tp + 0), p0y = __ldg(tp + 1), p0z = __ldg(tp + 2);
-        const float e1x = __ldg(tp + 3), e1y = __ldg(tp + 4), e1z = __ldg(tp + 5);
-        const float e2x = __ldg(tp + 6), e2y = __ldg(tp + 7), e2z = __ldg(tp + 8);
-        const int slot = __float_as_int(__ldg(tp + 9));
-        // Moller-Trumbore in raytpu's order: (ax*bx + ay*by) + az*bz
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const float inv = 1.0f / det;
-        const float tvx = ox - p0x;
-        const float tvy = oy - p0y;
-        const float tvz = oz - p0z;
-        const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-        const float qx = tvy * e1z - tvz * e1y;
-        const float qy = tvz * e1x - tvx * e1z;
-        const float qz = tvx * e1y - tvy * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv;
-        const float th = (e2x * qx + e2y * qy + e2z * qz) * inv;
-        const bool geo = (det != 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
-                         (u + v <= 1.0f);
-        if (geo && th >= tcut &&
-            (th < best_t || (th == best_t && (shad || slot < best_tri)))) {
-          best_t = th;
-          best_tri = slot;
-          if (shad) {  // the first blocker ends a shadow lane's walk
-            t_out[i] = best_t;
-            tri_out[i] = best_tri;
-            return;
-          }
-        }
-      }
+template <int kV>
+__global__ void __launch_bounds__(kBlock) binned_kernel(Args a) {
+  __shared__ int sstack[(kV & bvh8::kSmem) ? bvh8::kShort * kBlock : 1];
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i - (threadIdx.x & 31) >= a.n_rays) return;  // warp-uniform
+  const bool real = i < a.n_rays;
+  const bool shad = real && __ldg(a.smask + i) == 1.0f;
+  Best b;
+  b.t = nan_min(kF32Max, real ? __ldg(a.tmax + i) : -kF32Max);
+  b.tri = (real && !shad) ? __ldg(a.tri0 + i) : -1;
+  b.key = b.tri >= 0 ? __ldg(a.first + b.tri) : -1;
+  const int t = real ? __ldg(a.tid + i) : -1;
+  const bool live = t >= 0 && t < a.n_treelets;
+  const Ray r = live ? load_ray(a.ro, a.rd, i)
+                     : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+  const float tcut = shad ? a.shadow_tmin : a.tmin;
+  const float* win =
+      a.nodes + static_cast<size_t>(live ? t : 0) * a.sn * kRowFloats;
+  const float* lwin =
+      a.leaves + static_cast<size_t>(live ? t : 0) * a.sl * kRowFloats;
+  auto leaf = [&](int lr) -> bool {
+    const float* lf = lwin + static_cast<size_t>(lr) * kRowFloats;
+    if constexpr ((kV & bvh8::kF4) != 0) {
+      return shad ? test_row<true, true>(r, lf, 0, a.first, tcut, b.t, &b)
+                  : test_row<false, true>(r, lf, 0, a.first, tcut, b.t, &b);
+    } else {
+      return shad ? bvh8::test_row_scalar<true, true>(r, lf, 0, a.first,
+                                                      tcut, b.t, &b)
+                  : bvh8::test_row_scalar<false, true>(r, lf, 0, a.first,
+                                                       tcut, b.t, &b);
     }
+  };
+  // a shadow lane's best t stays its bound, so LIMIT is best t for both
+  bvh8::walk<kV, kStackDepth, kBlock, true>(
+      win, a.sn, a.sl, r, fminf(a.tmin, a.shadow_tmin), &b.t, live,
+      sstack + threadIdx.x, leaf);
+  if (real) {
+    a.t_out[i] = b.t;
+    a.tri_out[i] = b.tri;
   }
-  t_out[i] = best_t;
-  tri_out[i] = best_tri;
+}
+
+template <int kV>
+int launch(const Args& a, cudaStream_t stream) {
+  const int grid = (a.n_rays + kBlock - 1) / kBlock;
+  binned_kernel<kV><<<grid, kBlock, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_variant(const Args& a, int variant, cudaStream_t s) {
+  switch (variant) {
+    case 0: return launch<0>(a, s);
+    case 1: return launch<1>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    case 5: return launch<5>(a, s);
+    case 7: return launch<7>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -173,18 +117,29 @@ __global__ void __launch_bounds__(kBlock) binned_walk_kernel(
 // Launch on `stream` (a cudaStream_t passed as a pointer); returns the
 // cudaGetLastError() code after the launch, 0 on success.
 extern "C" int binned_walk_launch(const float* nodes, const float* leaves,
-                                  const int* tid, const float* ro,
-                                  const float* rd, const float* tmax,
-                                  const float* smask, const int* tri0,
-                                  float* t_out, int* tri_out, int n_rays,
-                                  int n_treelets, int sn, int sl, float tmin,
+                                  const int* first, const int* tid,
+                                  const float* ro, const float* rd,
+                                  const float* tmax, const float* smask,
+                                  const int* tri0, float* t_out,
+                                  int* tri_out, int n_rays, int n_treelets,
+                                  int sn, int sl, float tmin,
                                   float shadow_tmin, void* stream) {
   if (n_rays <= 0) return 0;
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  binned_walk_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, leaves, tid, ro, rd, tmax, smask, tri0, t_out, tri_out, n_rays,
-      n_treelets, sn, sl, tmin, shadow_tmin);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{nodes, leaves, first, tid, ro, rd, tmax, smask, tri0, t_out,
+               tri_out, n_rays, n_treelets, sn, sl, tmin, shadow_tmin};
+  return launch_variant(a, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int binned_walk_variant_launch(
+    const float* nodes, const float* leaves, const int* first,
+    const int* tid, const float* ro, const float* rd, const float* tmax,
+    const float* smask, const int* tri0, float* t_out, int* tri_out,
+    int n_rays, int n_treelets, int sn, int sl, float tmin,
+    float shadow_tmin, int variant, void* stream) {
+  if (n_rays <= 0) return 0;
+  const Args a{nodes, leaves, first, tid, ro, rd, tmax, smask, tri0, t_out,
+               tri_out, n_rays, n_treelets, sn, sl, tmin, shadow_tmin};
+  return launch_variant(a, variant, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* binned_walk_error_string(int code) {

@@ -48,8 +48,10 @@ from .intersect import F32_MAX, Hit, moller_trumbore
 from .strand import (
     ANY_TMIN,
     CLOSEST_TMIN,
+    FAR_SCALE,
     _check_baked_tmin,
     _check_inputs,
+    _leaf_closest,
     _per_ray,
     _safe_inv,
 )
@@ -60,10 +62,12 @@ STACK_DEPTH = 512
 _PLAIN_STACK0 = 64  # the plain version's first stack width; it grows
 
 
-def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                       any_hit: bool, counts: dict | None = None):
-    """Plain torch version of the BVH8 stack walk. ro/rd [R,3], tmax [R];
-    returns (t [R] f32, tri [R] i32). Each loop iteration pops one node for
+def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
+                       tmin: float, any_hit: bool,
+                       counts: dict | None = None):
+    """Plain torch version of the BVH8 stack walk. ``first`` is the tie
+    keys (``first_slots``), ro/rd [R,3], tmax [R]; returns (t [R] f32,
+    tri [R] i32). Each loop iteration pops one node for
     every unfinished ray; finished rays leave the working set. The stack is
     a [W, width] tensor whose width grows to STACK_DEPTH as pushes need.
     A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
@@ -91,6 +95,7 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
         idx=torch.arange(r, device=dev), o=ro, d=rd, inv=inv, neg=inv < 0.0,
         tm=tmax, bt=best_t,
         btri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+        bkey=torch.full((r,), -1, dtype=torch.int32, device=dev),
         sp=torch.ones(r, dtype=torch.long, device=dev), stack=stack,
     )
     k8 = torch.arange(8, device=dev, dtype=torch.int32)
@@ -116,31 +121,46 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
             seen_node[node] = True
         kb = boxes[node]  # [W, 8, 6]
         kl = links[node]  # [W, 8]
-        walking = torch.ones(w, dtype=torch.bool, device=dev)
-        for k in range(8):
-            bmin, bmax, link = kb[:, k, 0:3], kb[:, k, 3:6], kl[:, k]
-            lo = (torch.where(s["neg"], bmax, bmin) - s["o"]) * s["inv"]
-            hi = (torch.where(s["neg"], bmin, bmax) - s["o"]) * s["inv"]
-            limit = s["tm"] if any_hit else s["bt"]
-            near = torch.maximum(
-                torch.maximum(lo[:, 0], lo[:, 1]),
-                torch.maximum(lo[:, 2], torch.full_like(lo[:, 2], tmin)),
-            )
-            far = torch.minimum(
-                torch.minimum(hi[:, 0], hi[:, 1]), torch.minimum(hi[:, 2], limit)
-            )
-            hit = (near <= far) & walking
-            push = hit & (link >= 0) & (link < n_nodes)
+        # every child's box against the LIMIT of the pop
+        neg = s["neg"][:, None, :]
+        lo = (torch.where(neg, kb[..., 3:6], kb[..., 0:3])
+              - s["o"][:, None, :]) * s["inv"][:, None, :]
+        hi = (torch.where(neg, kb[..., 0:3], kb[..., 3:6])
+              - s["o"][:, None, :]) * s["inv"][:, None, :]
+        limit = (s["tm"] if any_hit else s["bt"])[:, None]
+        near = torch.maximum(
+            torch.maximum(lo[..., 0], lo[..., 1]),
+            torch.maximum(lo[..., 2], torch.full_like(lo[..., 2], tmin)),
+        )
+        far = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
+                            torch.minimum(hi[..., 2], limit))
+        hit = near <= far * FAR_SCALE
+        inner = hit & (kl >= 0) & (kl < n_nodes)
+        at_leaf = hit & (kl < 0) & (~kl < n_leaf_rows)
+        # visit order: the kernel's key, the entry distance's bits with
+        # the low 3 bits replaced by k (+ 0.0 turns -0 into +0), after
+        # every hit child the missed ones
+        key = torch.where(hit, ((near + 0.0).view(torch.int32) & ~7) | k8,
+                          0x7FFFFFF8 | k8)
+        order = torch.sort(key, dim=1)[1]
+        inner, at_leaf, kl = (x.gather(1, order)
+                              for x in (inner, at_leaf, kl))
+        # interior children far-first, so the nearest is popped next
+        for j in range(7, -1, -1):
+            push = inner[:, j]
             if bool(push.any()):
                 slot = torch.clamp(s["sp"], max=STACK_DEPTH - 1)
-                s["stack"][lane[push], slot[push]] = link[push]
+                s["stack"][lane[push], slot[push]] = kl[push, j]
                 s["sp"] = torch.clamp(s["sp"] + push.long(),
                                       max=STACK_DEPTH - 1)
-            at_leaf = hit & (link < 0) & (~link < n_leaf_rows)
-            if not bool(at_leaf.any()):
+        # leaves near-first
+        walking = torch.ones(w, dtype=torch.bool, device=dev)
+        for j in range(8):
+            at = at_leaf[:, j] & walking
+            if not bool(at.any()):
                 continue
-            li = at_leaf.nonzero().squeeze(1)
-            lr = ~link[li]
+            li = at.nonzero().squeeze(1)
+            lr = ~kl[li, j]
             if counts is not None:
                 counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
                 seen_leaf[lr.long()] = True
@@ -151,25 +171,23 @@ def packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
                 tri[:, :, 0:3], tri[:, :, 3:6], tri[:, :, 6:9], tmin, lim,
             )
             slots = lr[:, None] * 8 + k8  # [L, 8]
-            found = ok.any(dim=1)
             if any_hit:
                 # the first accepted triangle blocks and ends the walk
-                first = ok.to(torch.int32).argmax(dim=1)
+                found = ok.any(dim=1)
+                k = ok.to(torch.int32).argmax(dim=1)
                 s["btri"][li] = torch.where(
-                    found, slots.gather(1, first[:, None])[:, 0],
+                    found, slots.gather(1, k[:, None])[:, 0],
                     s["btri"][li],
                 )
                 walking[li] = ~found
             else:
-                # the kernel's in-order accept rule keeps the smallest
-                # (t, slot) pair: the leaf's lowest t, lowest slot on ties
-                tc = torch.where(ok, t, torch.inf)
-                mt = tc.amin(dim=1)
-                ms = slots.gather(1, tc.argmin(dim=1)[:, None])[:, 0]
-                bt, bi = s["bt"][li], s["btri"][li]
-                acc = found & ((mt < bt) | ((mt == bt) & (ms < bi)))
+                found, mt, ms, mk = _leaf_closest(ok, t, slots,
+                                                  first[slots.long()])
+                bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
+                acc = found & ((mt < bt) | ((mt == bt) & (mk < bk)))
                 s["bt"][li] = torch.where(acc, mt, bt)
                 s["btri"][li] = torch.where(acc, ms, bi)
+                s["bkey"][li] = torch.where(acc, mk, bk)
         done = (s["sp"] == 0) | ~walking
         if bool(done.any()):
             t_out[s["idx"][done]] = s["bt"][done]
@@ -197,7 +215,7 @@ def _library():
         lib = load_library("packet_walk")
         lib.packet_walk_launch.restype = ctypes.c_int
         lib.packet_walk_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.packet_walk_error_string.restype = ctypes.c_char_p
@@ -206,8 +224,8 @@ def _library():
     return _LIB
 
 
-def packet_query_cuda(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
-                      any_hit: bool):
+def packet_query_cuda(node8_rows, leaf_tris, first, ro, rd, tmax,
+                      tmin: float, any_hit: bool):
     """Launch ``csrc/packet_walk.cu`` on the current stream (one thread per
     ray, blocks of 128). Same signature and results as
     ``packet_query_torch``; raises on bad inputs or a failed launch.
@@ -215,7 +233,7 @@ def packet_query_cuda(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
     if ro.device.type != "cuda":
         raise ValueError(f"packet_query_cuda needs CUDA tensors, got "
                          f"{ro.device}")
-    _check_inputs("node8_rows", node8_rows, leaf_tris, ro, rd, tmax)
+    _check_inputs("node8_rows", node8_rows, leaf_tris, ro, rd, tmax, first)
     if node8_rows.shape[0] == 0:
         raise ValueError("node8_rows: want at least the root node")
     lib = _library()
@@ -227,8 +245,9 @@ def packet_query_cuda(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.packet_walk_launch(
-            node8_rows.data_ptr(), leaf_tris.data_ptr(), ro.data_ptr(),
-            rd.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
+            node8_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), t.data_ptr(),
+            tri.data_ptr(),
             r, node8_rows.shape[0], leaf_tris.shape[0], float(tmin),
             int(any_hit), stream,
         )
@@ -244,33 +263,34 @@ def packet_query_cuda(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
 packet_query_cuda.launches = 0
 
 
-def packet_query(node8_rows, leaf_tris, ro, rd, tmax, tmin: float,
+def packet_query(node8_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
                  any_hit: bool):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if ro.device.type == "cuda":
-        return packet_query_cuda(node8_rows, leaf_tris, ro, rd, tmax, tmin,
-                                 any_hit)
-    return packet_query_torch(node8_rows, leaf_tris, ro, rd, tmax, tmin,
-                              any_hit)
+    fn = packet_query_cuda if ro.device.type == "cuda" else packet_query_torch
+    return fn(node8_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit)
 
 
 def make_packet_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
-    signature over ``pack.bvh.node8_rows``. tmin is baked: 0.001 for
-    closest-hit and 0.0 for any-hit; another value raises."""
+    signature over ``pack.bvh.node8_rows``, ties broken on
+    ``pack.bvh.first_slots``. tmin is baked: 0.001 for closest-hit and 0.0
+    for any-hit; another value raises."""
     node8 = pack.bvh.node8_rows.contiguous()
     leaves = pack.bvh.leaf_tris.contiguous()
+    first = pack.bvh.first_slots.contiguous()
 
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "packet closest")
-        t, tri = packet_query(node8, leaves, ro.contiguous(), rd.contiguous(),
-                              _per_ray(tmax, ro), CLOSEST_TMIN, False)
+        t, tri = packet_query(node8, leaves, first, ro.contiguous(),
+                              rd.contiguous(), _per_ray(tmax, ro),
+                              CLOSEST_TMIN, False)
         return Hit(t=t, tri=tri, valid=tri >= 0)
 
     def any_fn(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, ANY_TMIN, "packet any-hit")
-        _, tri = packet_query(node8, leaves, ro.contiguous(), rd.contiguous(),
-                              _per_ray(tmax, ro), ANY_TMIN, True)
+        _, tri = packet_query(node8, leaves, first, ro.contiguous(),
+                              rd.contiguous(), _per_ray(tmax, ro), ANY_TMIN,
+                              True)
         return tri >= 0
 
     return closest, any_fn

@@ -46,10 +46,11 @@ is still the minimum. The key orders copies of one triangle (identical
 data, so identical t) as one, and leaves every other comparison as it
 was whenever no copy was involved.
 
-Every walk takes the tie keys as its third argument, ``first`` (int32
-[Nl * 8]): ``pack_scene`` computes them once per pack
-(``ScenePack.bvh.first_slots``), and a tree built by hand gets them from
-``first_slots(leaf_tris)``.
+Every walk of the port (the strand walks here, the packet walk in
+kernels/packet.py, the treelet walk in kernels/binned.py) takes the tie
+keys as its third argument, ``first`` (int32 [Nl * 8]): ``pack_scene``
+computes them once per pack (``ScenePack.bvh.first_slots``), and a tree
+built by hand gets them from ``first_slots(leaf_tris)``.
 
 ``strand_query_cuda`` launches ``csrc/strand_walk.cu``;
 ``strand_query_torch`` is the plain version (a vectorised per-ray walk in
@@ -102,13 +103,18 @@ def _safe_inv(rd: torch.Tensor) -> torch.Tensor:
     return 1.0 / safe
 
 
-def first_slots(leaf_tris: torch.Tensor) -> torch.Tensor:
-    """int32 [Nl * 8] on leaf_tris' device: for each slot, the lowest slot
-    whose triangle has the same 9 floats, bit for bit (p0, e1, e2; the pad
-    is not read). A triangle that spatial splits stored in several leaves,
-    or distinct triangles with identical data, get one tie key, as the
-    sweep sees them."""
-    rows = leaf_tris.reshape(-1, 10)[:, :9].contiguous().view(torch.int32)
+def first_slots(rows: torch.Tensor) -> torch.Tensor:
+    """int32 [n] on rows' device: for each slot, the lowest slot whose
+    triangle has the same 9 floats, bit for bit (p0, e1, e2). ``rows`` is
+    one row per slot of at least 9 floats (``ScenePack.tri_row`` [T, 64],
+    whose columns 0:9 are the leaf rows' p0/e1/e2), or leaf rows [Nl, 80]
+    of 8 slots x 10 floats each; nothing past the 9 floats is read. A
+    triangle that spatial splits stored in several leaves, or distinct
+    triangles with identical data, get one tie key, as the sweep sees
+    them."""
+    if rows.shape[-1] == 80:
+        rows = rows.reshape(-1, 10)
+    rows = rows[:, :9].contiguous().view(torch.int32)
     n = rows.shape[0]
     first = torch.zeros(0, dtype=torch.int32, device=rows.device)
     if n:

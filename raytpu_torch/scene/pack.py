@@ -14,8 +14,9 @@ numpy and then placed on the requested device:
   packet route (flat mode and every wave of a scene of <= 256 slots). Its
   depth is checked against the packet walk's stack bound here, as raytpu
   does. The octant-threaded strand tree is built only above 256 slots
-  (raytpu's bounce-sort threshold), where it serves every path-mode wave,
-  with its tie keys (``first_slots``, computed once here on ``device``).
+  (raytpu's bounce-sort threshold), where it serves every path-mode wave.
+  Every pack carries the walks' tie keys (``first_slots``, computed once
+  here on ``device`` from the slots' p0/e1/e2).
   The binned route's treelet windows (accel/treelets.py) are built above
   4096 slots, or as ``treelets=`` says. Per-ray results do not depend on
   the route: ties break to the lowest slot.
@@ -267,8 +268,9 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
             np.ascontiguousarray(x)).to(device)
 
     leaf_t = None if stream and strand_rows is None else conv(leaf_tris)
+    tri_row_t = conv(tri_row)
     return ScenePack(
-        tri_row=conv(tri_row),
+        tri_row=tri_row_t,
         object_linear=conv(obj_linear),
         mat_table=conv(mat_table),
         light_table=conv(light_table),
@@ -281,9 +283,8 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
             nodes=conv(nodes),
             node8_rows=None if stream else conv(bvh8.node_rows),
             leaf_tris=leaf_t,
+            first_slots=first_slots(tri_row_t),
             strand_rows=conv(strand_rows),
-            first_slots=(None if strand_rows is None
-                         else first_slots(leaf_t)),
         ),
         has_textures=len(scene.textures) > 0,
         tl_nodes=None if tl is None else conv(tl.tnodes),

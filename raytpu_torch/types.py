@@ -20,9 +20,9 @@ slice reads:
                            None in a stream pack without a strand tree
 * ``bvh.strand_rows`` [ceil(N/2), 128]  the octant-threaded strand tree,
                            or None (scenes of <= 256 slots have none)
-* ``bvh.first_slots`` [Nl * 8] i32  each slot's lowest slot holding the
-                           same triangle bits: the strand walks' tie key
-                           (kernels/strand.py), None without a strand tree
+* ``bvh.first_slots`` [T] i32  each slot's lowest slot holding the same
+                           triangle bits: the tie key of every walk
+                           (kernels/strand.py:first_slots), in every pack
 * ``tl_nodes`` [T, Sn, 128], ``tl_leaves`` [T, Sl, 128], ``tl_bmin`` /
   ``tl_bmax`` [T, 3]     the binned route's treelet windows
                            (accel/treelets.py), or None when the scene was
@@ -78,11 +78,10 @@ class BvhPack:
     # [Nl, 80] f32; slot of row j, lane k = 8j + k; None in a stream pack
     # without a strand tree
     leaf_tris: Optional[torch.Tensor]
+    # [T] i32 tie keys (kernels/strand.py:first_slots), in every pack
+    first_slots: torch.Tensor
     # [ceil(N/2), 128] f32 (accel/strandtree.py); None up to 256 slots
     strand_rows: Optional[torch.Tensor] = None
-    # [Nl * 8] i32 (kernels/strand.py:first_slots); None without a strand
-    # tree
-    first_slots: Optional[torch.Tensor] = None
 
     def to(self, device) -> "BvhPack":
         return _to(self, device)

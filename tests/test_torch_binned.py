@@ -28,6 +28,10 @@ from raytpu.accel.treelets import build_treelets as rt_build_treelets
 from raytpu.engine import render as rt_render
 from raytpu.io.png import quantize_rgba32f
 from raytpu.kernels.binned import _binned_launch
+from raytpu.kernels.intersect import (
+    intersect_any_bruteforce as rt_any,
+    intersect_bruteforce as rt_closest,
+)
 from raytpu.kernels.binned import make_binned_query as rt_make_binned_query
 from raytpu.scene.pack import flatten_world_triangles as rt_flatten
 from raytpu.scene.pack import pack_camera as rt_pack_camera
@@ -47,6 +51,7 @@ from raytpu_torch.kernels.intersect import (
     intersect_any_bruteforce,
     intersect_bruteforce,
 )
+from raytpu_torch.kernels.strand import first_slots
 from raytpu_torch.scene.gltf import load_scene
 from raytpu_torch.scene.pack import pack_camera, pack_scene
 from raytpu_torch.types import RenderConfig
@@ -54,6 +59,8 @@ from raytpu_torch.types import RenderConfig
 from .imgdiff import assert_images_equiv
 from .test_intersect import _random_soup
 from .test_torch_host import scene_path
+from .test_torch_packet import _node_row, lost_case
+from .test_torch_strand import _f32, _tri_rows
 
 F32_MAX = np.float32(3.40282347e38)
 FRAME = dict(width=32, height=24, seed=3, samples=1, chunk_size=8)
@@ -82,7 +89,8 @@ def _soup(n_tris: int, seed: int, budget: int):
     return dict(tl=build_treelets(bvh8, leaf, budget_rows=budget),
                 rt_tl=rt_build_treelets(rt_bvh8, leaf, budget_rows=budget),
                 bvh8=bvh8, p0=per[:, 0:3].copy(), e1=per[:, 3:6].copy(),
-                e2=per[:, 6:9].copy(), order=order, leaf=leaf)
+                e2=per[:, 6:9].copy(), order=order, leaf=leaf,
+                first=first_slots(_t(leaf)))
 
 
 def _triangle(tri, order):
@@ -228,7 +236,8 @@ def test_plain_walk_matches_raytpu_launch():
     ro, rd, tmax, smask, tri0, h = rays
     tid_pp, tid = _packet_tids(tl.n_treelets, 1024, 128)
     t, tri = binned_walk_torch(
-        _t(tl.tnodes), _t(tl.tleaves), _t(tid), _t(ro), _t(rd), _t(tmax),
+        _t(tl.tnodes), _t(tl.tleaves), s["first"], _t(tid), _t(ro), _t(rd),
+        _t(tmax),
         _t(smask), _t(tri0), 0.001, 0.0)
     t, tri = t.numpy(), tri.numpy()
     want_t, want_tri = _binned_launch(
@@ -267,7 +276,8 @@ def test_plain_walk_whole_tree_matches_raytpu_mixed_packet_kernel():
     ro, rd, tmax, smask, _, h = _mixed_rays(256, 8, 1)
     tri0 = np.full(256, -1, np.int32)
     t, tri = binned_walk_torch(
-        _t(tl.tnodes), _t(tl.tleaves), torch.zeros(256, dtype=torch.int32),
+        _t(tl.tnodes), _t(tl.tleaves), s["first"],
+        torch.zeros(256, dtype=torch.int32),
         _t(ro), _t(rd), _t(tmax), _t(smask), _t(tri0), 0.001, 0.0)
     t, tri = t.numpy(), tri.numpy()
     want_t, want_tri = packet_query(
@@ -291,7 +301,8 @@ def _soup_pack(s, lib):
     tl = s["tl"] if lib == "torch" else s["rt_tl"]
     return type("P", (), dict(
         tl_nodes=conv(tl.tnodes), tl_leaves=conv(tl.tleaves),
-        tl_bmin=conv(tl.tbox_min), tl_bmax=conv(tl.tbox_max)))
+        tl_bmin=conv(tl.tbox_min), tl_bmax=conv(tl.tbox_max),
+        bvh=type("B", (), dict(first_slots=s["first"]))))
 
 
 def _query_rays(s):
@@ -381,7 +392,7 @@ def test_intersectors_bake_tmin():
 def test_dispatch_by_device_and_cuda_wrapper_refuses_cpu():
     s = _soup(300, 5, 10_000)
     ro, rd, tmax, smask, tri0, _ = _mixed_rays(256, 3, 1)
-    args = (_t(s["tl"].tnodes), _t(s["tl"].tleaves),
+    args = (_t(s["tl"].tnodes), _t(s["tl"].tleaves), s["first"],
             torch.zeros(256, dtype=torch.int32), _t(ro), _t(rd), _t(tmax),
             _t(smask), _t(tri0), 0.001, 0.0)
     before = binned_walk_cuda.launches
@@ -405,6 +416,7 @@ def test_plain_walk_counts_its_reads():
     tid = np.random.default_rng(4).integers(0, tl.n_treelets, 600)
     args = [_t(a) for a in (tl.tnodes, tl.tleaves, tid.astype(np.int32), ro,
                             rd, tmax, smask, tri0)]
+    args.insert(2, s["first"])
     tables = (tl.tnodes.size * 4 + tl.tleaves.size // 128 * 320)
     wave = {}
     got = binned_walk_torch(*args, 0.001, 0.0, counts=wave)
@@ -413,7 +425,7 @@ def test_plain_walk_counts_its_reads():
     largest = 0
     for i in range(0, 600, 30):
         one = {}
-        binned_walk_torch(args[0], args[1], *(a[i:i + 1] for a in args[2:]),
+        binned_walk_torch(*args[:3], *(a[i:i + 1] for a in args[3:]),
                           0.001, 0.0, counts=one)
         assert one["bytes"] == 64 * one["boxes"] + 40 * one.get("tris", 0)
         largest = max(largest, one["bytes"])
@@ -576,8 +588,8 @@ def test_kernel_bit_equal_plain_on_cuda():
         _, tid = _packet_tids(s["tl"].n_treelets, 65536, 128)
         ro, rd, tmax, smask, tri0, _ = rays
         args = [x.cuda() for x in (
-            _t(s["tl"].tnodes), _t(s["tl"].tleaves), _t(tid), _t(ro), _t(rd),
-            _t(tmax), _t(smask), _t(tri0))]
+            _t(s["tl"].tnodes), _t(s["tl"].tleaves), s["first"], _t(tid),
+            _t(ro), _t(rd), _t(tmax), _t(smask), _t(tri0))]
         before = binned_walk_cuda.launches
         tk, trk = binned_walk_cuda(*args, 0.001, 0.0)
         tp, trp = binned_walk_torch(*args, 0.001, 0.0)
@@ -589,7 +601,8 @@ def test_kernel_bit_equal_plain_on_cuda():
     ro, rd, tmax, smask, h = _query_rays(s)
     pack = _soup_pack(s, "torch")
     pack = type("P", (), {k: getattr(pack, k).cuda() for k in (
-        "tl_nodes", "tl_leaves", "tl_bmin", "tl_bmax")})
+        "tl_nodes", "tl_leaves", "tl_bmin", "tl_bmax")} | dict(
+        bvh=type("B", (), dict(first_slots=s["first"].cuda()))))
     t, tri = make_binned_query(pack)(
         _t(ro).cuda(), _t(rd).cuda(), _t(tmax).cuda(), _t(smask).cuda(),
         tmin=0.001, shadow_tmin=0.0)
@@ -597,3 +610,92 @@ def test_kernel_bit_equal_plain_on_cuda():
         _t(ro), _t(rd), _t(tmax), _t(smask), tmin=0.001, shadow_tmin=0.0)
     assert torch.equal(tri.cpu(), cpu_tri)
     assert torch.equal(t.cpu().view(torch.int32), cpu_t.view(torch.int32))
+
+
+# ROADMAP fault 3.5: a primary ray of phase 7a's stream scene that the
+# treelet walk lost before its repair, as f32 bit patterns: its winner W
+# lies on a floor edge it shares with O (the same t); W's leaf box missed
+# the ray by rounding, so the walk kept O, a higher slot (class ``slab``)
+BINNED_SLAB_RO = _f32(0x80000000, 0x3ef2dce9, 0xc115426f)
+BINNED_SLAB_RD = _f32(0x3ec5c0af, 0xbf06e2c5, 0x3f41d152)
+BINNED_SLAB_BOX = _f32(0x3fe147ae, 0xc0000000, 0xc0bb4e82, 0x3ff0a3d7,
+                       0xc0000000, 0xc0b8bf26)
+BINNED_SLAB_W = _f32(0x3fe9d037, 0xc0000000, 0xc0b92c60, 0xbc5a7400, 0,
+                     0x3c5a7400, 0, 0, 0x3c5a7400)
+BINNED_SLAB_O = _f32(0x3fe81b4f, 0xc0000000, 0xc0b8bf26, 0, 0, 0x3c5a7400,
+                     0x3c5a7400, 0, 0)
+
+
+def _lost_window(kind):
+    """(tl_nodes [1, 1, 128], tl_leaves [1, Sl, 128], slot rows [S, 10],
+    treelet box min and max [1, 3], ro [1, 3], rd [1, 3]) of one treelet
+    window showing a lost ray: ``tie`` is the packet walk's tie case; for
+    ``slab`` the root holds W's leaf under the box at fault and O's leaf
+    under a box around everything."""
+    if kind == "tie":
+        rows, leaf, ro, rd = lost_case("tie")
+    else:
+        big = np.array([-60, -60, -60, 60, 60, 60], np.float32)
+        rows = _node_row((BINNED_SLAB_BOX, ~0), (big, ~1))
+        leaf = _tri_rows(BINNED_SLAB_W, *[None] * 7, BINNED_SLAB_O)
+        ro, rd = BINNED_SLAB_RO[None], BINNED_SLAB_RD[None]
+    tleaves = np.zeros((1, leaf.shape[0], 128), np.float32)
+    tleaves[0, :, :80] = leaf
+    slots = np.arange(leaf.shape[0] * 8, dtype=np.int32).reshape(-1, 8)
+    tleaves[0, :, 9:80:10] = slots.view(np.float32)
+    kids = rows.reshape(8, 16)
+    real = (kids[:, 0:3] <= kids[:, 3:6]).all(1)
+    return (rows[None], tleaves, leaf.reshape(-1, 10),
+            kids[real, 0:3].min(0)[None], kids[real, 3:6].max(0)[None], ro,
+            rd)
+
+
+@pytest.mark.parametrize("kind", ["tie", "slab"])
+def test_lost_hit_found_by_the_repaired_walk(monkeypatch, kind):
+    """The repaired treelet walk, alone and in the round loop, returns
+    raytpu's brute-sweep triangle (its tie key) and the port's brute-sweep
+    t bits where a rule of the unrepaired walk lost it: the raw-slot tie
+    rule (identity keys) for ``tie``, raytpu's slab test (FAR_SCALE 1) for
+    ``slab``; a shadow lane is blocked where raytpu's brute any-hit is."""
+    tnodes, tleaves, per, bmin, bmax, ro, rd = _lost_window(kind)
+    p0, e1, e2 = (per[:, a:a + 3].copy() for a in (0, 3, 6))
+    tmax = np.full(1, F32_MAX, np.float32)
+    want = rt_closest(*map(jnp.asarray, (ro, rd, p0, e1, e2)),
+                      jnp.float32(0.001), jnp.asarray(tmax), chunk=8)
+    want_tri = int(np.asarray(want.tri)[0])
+    port = intersect_bruteforce(_t(ro), _t(rd), _t(p0), _t(e1), _t(e2),
+                                0.001, _t(tmax), chunk=8)
+    assert want_tri >= 0 and int(port.tri[0]) == want_tri
+    first = first_slots(_t(per))
+
+    def walk(keys, smask=0.0, bound=tmax):
+        return binned_walk_torch(
+            _t(tnodes), _t(tleaves), keys, torch.zeros(1, dtype=torch.int32),
+            _t(ro), _t(rd), _t(bound), torch.full((1,), smask),
+            torch.full((1,), -1, dtype=torch.int32), 0.001, 0.0)
+
+    # the test bites: the unrepaired rule loses the hit
+    if kind == "tie":
+        _, old = walk(torch.arange(per.shape[0], dtype=torch.int32))
+    else:
+        monkeypatch.setattr(binned, "FAR_SCALE", 1.0)
+        _, old = walk(first)
+        monkeypatch.undo()
+    assert int(old[0]) < 0 or not np.array_equal(per[int(old[0]), :9],
+                                                 per[want_tri, :9])
+    pack = type("P", (), dict(
+        tl_nodes=_t(tnodes), tl_leaves=_t(tleaves), tl_bmin=_t(bmin),
+        tl_bmax=_t(bmax), bvh=type("B", (), dict(first_slots=first))))
+    query = make_binned_query(pack)(_t(ro), _t(rd), _t(tmax),
+                                    torch.zeros(1), tmin=0.001,
+                                    shadow_tmin=0.0)
+    for got_t, got_tri in (walk(first), query):
+        assert int(first[got_tri[0]]) == want_tri
+        assert got_t.view(torch.int32)[0] == port.t.view(torch.int32)[0]
+        np.testing.assert_allclose(got_t.numpy(), np.asarray(want.t),
+                                   rtol=1e-4)
+    shadow = np.full(1, 100.0, np.float32)
+    blocked = walk(first, 1.0, shadow)[1] >= 0
+    ref = rt_any(*map(jnp.asarray, (ro, rd, p0, e1, e2)), jnp.float32(0.0),
+                 jnp.asarray(shadow), chunk=8)
+    assert bool(blocked[0]) == bool(np.asarray(ref)[0])

@@ -221,22 +221,27 @@ def test_pack_tables_bit_equal_raytpu(name):
 
 @pytest.mark.parametrize("name,tables", [("gallery", "auto"),
                                          ("gallery", "stream"),
-                                         ("small", "auto")])
+                                         ("small", "auto"),
+                                         ("small", "stream")])
 def test_pack_carries_the_strand_tie_keys(name, tables):
-    """A pack with a strand tree carries its leaf rows' tie keys, computed
-    once (kernels/strand.py:first_slots): each slot's key is the lowest
-    slot holding the same 9 floats, so a key is its own key; .to() moves
-    them. A pack without a strand tree has none."""
+    """Every pack carries its slots' tie keys, computed once
+    (kernels/strand.py:first_slots) from the slots' p0/e1/e2 in
+    ``tri_row``: each slot's key is the lowest slot holding the same 9
+    floats, so a key is its own key; where the pack keeps leaf rows the
+    keys equal theirs; .to() moves them. That includes a <= 256-slot pack
+    (the packet route's) and a stream pack without leaf rows (the binned
+    route's)."""
     from raytpu_torch.kernels.strand import first_slots
 
     pack = pack_scene(load_scene(scene_path(name)), "cpu", tables=tables)
     first = pack.bvh.first_slots
-    if pack.bvh.strand_rows is None:
-        assert first is None and pack.n_triangles <= 256
-        return
-    per = pack.bvh.leaf_tris.reshape(-1, 10)[:, :9].view(torch.int32)
+    per = pack.tri_row[:, :9].contiguous().view(torch.int32)
     assert first.dtype == torch.int32 and first.shape == (per.shape[0],)
-    assert torch.equal(first, first_slots(pack.bvh.leaf_tris))
+    assert torch.equal(first, first_slots(pack.tri_row))
+    if pack.bvh.leaf_tris is None:
+        assert tables == "stream" and pack.n_triangles <= 256
+    else:
+        assert torch.equal(first, first_slots(pack.bvh.leaf_tris))
     slots = torch.arange(per.shape[0], dtype=torch.int32)
     assert bool((first <= slots).all())
     assert torch.equal(first[first.long()], first)

@@ -28,6 +28,7 @@ from raytpu_torch.kernels.intersect import (
     intersect_any_bruteforce,
     intersect_bruteforce,
 )
+from raytpu_torch.kernels import packet as packet_mod
 from raytpu_torch.kernels.packet import (
     STACK_DEPTH,
     make_packet_intersectors,
@@ -35,12 +36,27 @@ from raytpu_torch.kernels.packet import (
     packet_query_cuda,
     packet_query_torch,
 )
+from raytpu_torch.kernels.strand import first_slots
 from raytpu_torch.scene import pack as pt_pack_mod
 from raytpu_torch.scene.gltf import load_scene
 
 from .conftest import isolated
 from .test_torch_host import scene_path
-from .test_torch_strand import _rays, _soup, _tie_geometry, _triangle
+from .test_torch_strand import (
+    SLAB_BOX,
+    SLAB_LEAF,
+    SLAB_RD,
+    SLAB_RO,
+    TIE_F,
+    TIE_RD,
+    TIE_RO,
+    TIE_X,
+    _rays,
+    _soup,
+    _tie_geometry,
+    _tri_rows,
+    _triangle,
+)
 
 F32_MAX = np.float32(3.40282347e38)
 N_RAYS = 1500
@@ -59,9 +75,18 @@ def _build(ntri):
             per[:, 3:6].copy(), per[:, 6:9].copy(), order)
 
 
+def _tables(t):
+    """The walk's tables before the rays: BVH8 rows, leaf rows, tie keys."""
+    return t["rows"], t["leaf"], t["first"]
+
+
 def _tensors(**arrays):
-    return {k: torch.from_numpy(np.ascontiguousarray(a))
-            for k, a in arrays.items()}
+    """The arrays as tensors, with the leaf rows' tie keys as "first"."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(a))
+           for k, a in arrays.items()}
+    if "leaf" in out:
+        out["first"] = first_slots(out["leaf"])
+    return out
 
 
 @pytest.fixture(scope="module", params=[5, 300, 3000])
@@ -76,9 +101,9 @@ def case(request):
     shadow[::5] = -np.inf
     t = _tensors(rows=rows, leaf=leaf, p0=sp0, e1=se1, e2=se2, ro=ro, rd=rd,
                  tmax=tmax, shadow=shadow)
-    closest = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+    closest = packet_query_torch(*_tables(t), t["ro"], t["rd"],
                                  t["tmax"], 0.001, False)
-    blocked = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+    blocked = packet_query_torch(*_tables(t), t["ro"], t["rd"],
                                  t["shadow"], 0.0, True)[1] >= 0
     return dict(t=t, np=dict(ro=ro, rd=rd, tmax=tmax, shadow=shadow,
                              p0=sp0, e1=se1, e2=se2),
@@ -144,14 +169,14 @@ def test_plain_walk_counts_its_reads(case):
     t = case["t"]
     tables = (t["rows"].numel() + t["leaf"].numel()) * 4
     wave = {}
-    got = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+    got = packet_query_torch(*_tables(t), t["ro"], t["rd"],
                              t["tmax"], 0.001, False, counts=wave)
     assert torch.equal(got[0], case["closest"][0])
     assert torch.equal(got[1], case["closest"][1])
     largest = 0
     for i in range(0, N_RAYS, 75):
         one = {}
-        packet_query_torch(t["rows"], t["leaf"], t["ro"][i:i + 1],
+        packet_query_torch(*_tables(t), t["ro"][i:i + 1],
                            t["rd"][i:i + 1], t["tmax"][i:i + 1], 0.001,
                            False, counts=one)
         assert one["bytes"] == 64 * one["boxes"] + 40 * one.get("tris", 0)
@@ -173,30 +198,32 @@ def test_closest_hit_bound_is_open_any_hit_closed():
     ro = np.stack([target - 2.0 * d] * 3).astype(np.float32)
     rd = np.stack([d] * 3)
     t = _tensors(rows=rows, leaf=leaf, ro=ro, rd=rd)
-    free = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+    free = packet_query_torch(*_tables(t), t["ro"], t["rd"],
                               torch.full((3,), float(F32_MAX)), 0.001, False)
     t_hit = free[0][0]
     assert int(free[1][0]) >= 0
     bounds = torch.stack([t_hit, torch.nextafter(t_hit, torch.tensor(np.inf)),
                           t_hit])
-    got_t, got_tri = packet_query_torch(t["rows"], t["leaf"], t["ro"],
+    got_t, got_tri = packet_query_torch(*_tables(t), t["ro"],
                                         t["rd"], bounds, 0.001, False)
     assert int(got_tri[0]) == -1 and got_t[0] == t_hit
     assert int(got_tri[1]) == int(free[1][0]) and got_t[1] == t_hit
-    _, blocked = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+    _, blocked = packet_query_torch(*_tables(t), t["ro"], t["rd"],
                                     bounds, 0.0, True)
     assert int(blocked[2]) >= 0
 
 
 def test_plain_walk_ties_break_to_lowest_slot():
     """Distinct triangles with identical data in two leaves: every ray
-    must commit the lowest slot, as the sweep does, whichever leaf the
-    walk reaches first."""
+    must commit the lowest slot's triangle, as the sweep does, whichever
+    leaf the walk reaches first. The copies share one tie key, the lowest
+    slot, so the walk keeps the first copy it tests and its key is the
+    sweep's slot."""
     _, rows, per, order, ro, rd = _tie_geometry()
     t = _tensors(rows=rows, leaf=per.reshape(-1, 80), ro=ro, rd=rd,
                  tmax=np.full(500, F32_MAX, np.float32))
-    _, tri = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
-                                t["tmax"], 0.001, False)
+    _, tri = packet_query_torch(*_tables(t), t["ro"],
+                                t["rd"], t["tmax"], 0.001, False)
     want = intersect_bruteforce(t["ro"], t["rd"],
                                 torch.from_numpy(per[:, 0:3].copy()),
                                 torch.from_numpy(per[:, 3:6].copy()),
@@ -206,8 +233,10 @@ def test_plain_walk_ties_break_to_lowest_slot():
     assert len(np.unique(copies // 8)) == 2
     on_copies = np.isin(tri.numpy(), copies)
     assert on_copies.mean() > 0.9
-    np.testing.assert_array_equal(tri.numpy(), want.tri.numpy())
-    assert set(tri.numpy()[on_copies]) == {copies.min()}
+    key = np.where(tri.numpy() >= 0,
+                   t["first"].numpy()[np.maximum(tri.numpy(), 0)], -1)
+    np.testing.assert_array_equal(key, want.tri.numpy())
+    assert set(key[on_copies]) == {copies.min()}
 
 
 def _chain(levels: int) -> np.ndarray:
@@ -259,12 +288,12 @@ def test_pack_depth_check_matches_raytpu(monkeypatch, levels):
 def test_dispatch_by_device_and_cuda_wrapper_refuses_cpu(case):
     t = case["t"]
     before = packet_query_cuda.launches
-    a = packet_query(t["rows"], t["leaf"], t["ro"], t["rd"], t["tmax"],
+    a = packet_query(*_tables(t), t["ro"], t["rd"], t["tmax"],
                      0.001, False)
     for x, y in zip(a, case["closest"]):
         assert torch.equal(x, y)
     with pytest.raises(ValueError):
-        packet_query_cuda(t["rows"], t["leaf"], t["ro"], t["rd"], t["tmax"],
+        packet_query_cuda(*_tables(t), t["ro"], t["rd"], t["tmax"],
                           0.001, False)
     assert packet_query_cuda.launches == before
 
@@ -272,7 +301,8 @@ def test_dispatch_by_device_and_cuda_wrapper_refuses_cpu(case):
 class _Pack:
     def __init__(self, t):
         self.bvh = type("B", (), dict(node8_rows=t["rows"],
-                                      leaf_tris=t["leaf"]))
+                                      leaf_tris=t["leaf"],
+                                      first_slots=t["first"]))
 
 
 def test_intersectors_bake_tmin(case):
@@ -306,7 +336,8 @@ def test_kernel_bit_equal_plain_on_cuda():
     tmax[::7] = -np.inf
     dev = {k: v.cuda() for k, v in _tensors(rows=rows, leaf=leaf, ro=ro,
                                              rd=rd, tmax=tmax).items()}
-    args = (dev["rows"], dev["leaf"], dev["ro"], dev["rd"], dev["tmax"])
+    args = (dev["rows"], dev["leaf"], dev["first"], dev["ro"], dev["rd"],
+            dev["tmax"])
     before = packet_query_cuda.launches
     tk, trk = packet_query_cuda(*args, 0.001, False)
     tp, trp = packet_query_torch(*args, 0.001, False)
@@ -319,9 +350,10 @@ def test_kernel_bit_equal_plain_on_cuda():
     _, ap = packet_query_torch(*args, 0.0, True)
     assert torch.equal(ak >= 0, ap >= 0)
     _, rows, per, _, ro, rd = _tie_geometry()
-    cu = [v.cuda() for v in _tensors(
+    tie = {k: v.cuda() for k, v in _tensors(
         rows=rows, leaf=per.reshape(-1, 80), ro=ro, rd=rd,
-        tmax=np.full(500, F32_MAX, np.float32)).values()]
+        tmax=np.full(500, F32_MAX, np.float32)).items()}
+    cu = [tie[k] for k in ("rows", "leaf", "first", "ro", "rd", "tmax")]
     assert torch.equal(packet_query_cuda(*cu, 0.001, False)[1],
                        packet_query_torch(*cu, 0.001, False)[1])
 
@@ -341,7 +373,7 @@ def test_plain_walk_matches_raytpu_packet_kernel_interpreted():
     tmax[::7] = -np.inf
     shadow = np.full(4096, 6.0, np.float32)
     t = _tensors(rows=rows, leaf=leaf, ro=ro, rd=rd, tmax=tmax, shadow=shadow)
-    got_t, got_tri = packet_query_torch(t["rows"], t["leaf"], t["ro"],
+    got_t, got_tri = packet_query_torch(*_tables(t), t["ro"],
                                         t["rd"], t["tmax"], 0.001, False)
     cols = [jnp.asarray(a[:, i]) for a in (ro, rd) for i in range(3)]
     want_t, want_tri = rt_packet(jnp.asarray(rows), jnp.asarray(leaf), *cols,
@@ -352,10 +384,90 @@ def test_plain_walk_matches_raytpu_packet_kernel_interpreted():
     hit = got_tri.numpy() >= 0
     np.testing.assert_allclose(got_t.numpy()[hit], np.asarray(want_t)[hit],
                                rtol=1e-4)
-    _, got_b = packet_query_torch(t["rows"], t["leaf"], t["ro"], t["rd"],
+    _, got_b = packet_query_torch(*_tables(t), t["ro"], t["rd"],
                                   t["shadow"], 0.0, True)
     _, want_b = rt_packet(jnp.asarray(rows), jnp.asarray(leaf), *cols,
                           jnp.asarray(shadow), tmin=0.0, any_hit=True,
                           interpret=True)
     np.testing.assert_array_equal(got_b.numpy() >= 0,
                                   np.asarray(want_b) >= 0)
+
+
+# ROADMAP fault 3.5: rays the packet walk lost before its repair, on the
+# smallest BVH8 that shows each loss, as f32 bit patterns.
+
+
+def _node_row(*children):
+    """One BVH8 node row [1, 128] of (box, link) children; the other
+    slots are empty (inverted boxes)."""
+    row = np.zeros((1, 128), np.float32)
+    for k in range(8):
+        row[0, 16 * k:16 * k + 3] = 1.0
+        row[0, 16 * k + 3:16 * k + 6] = -1.0
+    for k, (box, link) in enumerate(children):
+        row[0, 16 * k:16 * k + 6] = box
+        row[0, 16 * k + 6] = np.int32(link).view(np.float32)
+    return row
+
+
+FAR_BOX = np.array([50, 50, 50, 51, 51, 51], np.float32)
+NEAR_BOX = np.array([-1, -2, 0.5, 1, -2, 2.5], np.float32)
+
+
+def lost_case(kind):
+    """(node8 rows, leaf rows, ro [1, 3], rd [1, 3]) of a lost ray: for
+    ``tie`` a root over a leaf holding X's first copy away from the ray and
+    a leaf holding F, then X's second copy, where the ray hits both (fault
+    3.4's tie ray); for ``slab`` a root whose one child is the box at fault
+    over the winner's leaf: ray 744,858 of phase 6c's 1080p flat primary
+    wave, one of the 4 it lost, is fault 3.4's slab ray, and its box at
+    fault is the same flat floor box."""
+    if kind == "tie":
+        rows = _node_row((FAR_BOX, ~0), (NEAR_BOX, ~1))
+        leaf = _tri_rows(TIE_X, *[None] * 7, TIE_F, TIE_X)
+        return rows, leaf, TIE_RO[None], TIE_RD[None]
+    rows = _node_row((SLAB_BOX, ~0))
+    return rows, _tri_rows(*SLAB_LEAF), SLAB_RO[None], SLAB_RD[None]
+
+
+@pytest.mark.parametrize("kind", ["tie", "slab"])
+def test_lost_hit_found_by_the_repaired_walk(monkeypatch, kind):
+    """The repaired plain walk returns raytpu's brute-sweep triangle (its
+    tie key) and the port's brute-sweep t bits where a rule of the
+    unrepaired walk lost it: the raw-slot tie rule (identity keys) for
+    ``tie``, raytpu's slab test (FAR_SCALE 1) for ``slab``; the any-hit
+    form is blocked where raytpu's brute any-hit is."""
+    rows, leaf, ro, rd = lost_case(kind)
+    per = leaf.reshape(-1, 10)
+    p0, e1, e2 = (per[:, a:a + 3].copy() for a in (0, 3, 6))
+    tmax = np.full(1, F32_MAX, np.float32)
+    want = rt_closest(*map(jnp.asarray, (ro, rd, p0, e1, e2)),
+                      jnp.float32(0.001), jnp.asarray(tmax), chunk=8)
+    want_tri = int(np.asarray(want.tri)[0])
+    assert want_tri >= 0
+    t = _tensors(rows=rows, leaf=leaf, ro=ro, rd=rd, tmax=tmax, p0=p0,
+                 e1=e1, e2=e2)
+    args = [t[k] for k in ("rows", "leaf", "first", "ro", "rd", "tmax")]
+    port = intersect_bruteforce(t["ro"], t["rd"], t["p0"], t["e1"], t["e2"],
+                                0.001, t["tmax"], chunk=8)
+    assert int(port.tri[0]) == want_tri
+    # the test bites: the unrepaired rule loses the hit
+    if kind == "tie":
+        ident = torch.arange(per.shape[0], dtype=torch.int32)
+        _, old = packet_query_torch(*args[:2], ident, *args[3:], 0.001,
+                                    False)
+    else:
+        monkeypatch.setattr(packet_mod, "FAR_SCALE", 1.0)
+        _, old = packet_query_torch(*args, 0.001, False)
+        monkeypatch.undo()
+    assert int(old[0]) < 0 or not np.array_equal(per[int(old[0]), :9],
+                                                 per[want_tri, :9])
+    got_t, got_tri = packet_query_torch(*args, 0.001, False)
+    assert int(t["first"][got_tri[0]]) == want_tri
+    assert got_t.view(torch.int32)[0] == port.t.view(torch.int32)[0]
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want.t), rtol=1e-4)
+    shadow = torch.full((1,), 100.0)
+    blocked = packet_query_torch(*args[:5], shadow, 0.0, True)[1] >= 0
+    ref = rt_any(*map(jnp.asarray, (ro, rd, p0, e1, e2)), jnp.float32(0.0),
+                 jnp.asarray(shadow.numpy()), chunk=8)
+    assert bool(blocked[0]) == bool(np.asarray(ref)[0])
