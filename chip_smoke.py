@@ -20,14 +20,20 @@ launch count can be read:
   strand query on the block walk, each wave sampled against the brute
   sweep, both walks equal on every ray, the same PNG;
 * phase 6, the packet route through the CLI at bench.py's settings: (a)
-  the pbr+nee scene, (b) a cube stand-in, (c) flat mode on the gallery at
-  1920x1080, its primary wave sampled against the brute sweep, and every
-  ray where packet_walk and strand_walk differ held to it;
+  the pbr+nee scene and (b) a cube stand-in, every ray of every
+  packet_walk call of a frame held to the brute sweep; (c) flat mode on
+  the gallery at 1920x1080, its primary wave sampled against the brute
+  sweep, every ray where packet_walk and strand_walk differ held to it,
+  and the rays the walk's unrepaired rules lose (ROADMAP fault 3.5),
+  classed;
 * phase 7a, the binned route at bench.py's config 6 shape through
   ``pack_scene(tables="stream")`` and ``render_frame``: the gallery scaled
-  to 2.9M triangles at 640x360, 1 spp, 4 bounces;
+  to 2.9M triangles at 640x360, 1 spp, 4 bounces; every launch of a frame
+  against the plain version, the primary wave against the brute sweep
+  and strand_walk, and fault 3.5's lost rays, as in 6c;
 * phase 7b, deferred NEE beside the strand route: phase 5's scene and
-  configuration with ``bounce_backend="binned"``, held to phase 5's frame;
+  configuration with ``bounce_backend="binned"``, held to phase 5's frame,
+  its binned mixed queries sampled against the brute sweep;
 * phase 8, the per-step probe (``raytpu_torch.tools.step_bench``): every
   arm on the card against its plain replay, then the full table.
 
@@ -407,72 +413,7 @@ def f32_hex(x) -> str:
                     np.asarray(x, np.float32).reshape(-1).view(np.uint32))
 
 
-def slab_np(ro, rd, box, tmin, limit):
-    """The walks' slab test on one ray in numpy f32: (near <= far, near <=
-    far * FAR_SCALE), box = bmin.xyz, bmax.xyz."""
-    f = np.float32
-    inv = [f(1) / (d if d != 0 else (f(-1e-36) if np.signbit(d)
-                                     else f(1e-36))) for d in rd]
-    lo = [(box[a + 3 if inv[a] < 0 else a] - ro[a]) * inv[a] for a in range(3)]
-    hi = [(box[a if inv[a] < 0 else a + 3] - ro[a]) * inv[a] for a in range(3)]
-    near = max(max(lo[0], lo[1]), max(lo[2], f(tmin)))
-    far = min(min(hi[0], hi[1]), min(hi[2], f(limit)))
-    with np.errstate(over="ignore"):
-        return (bool(near <= far),
-                bool(near <= far * f(1.0 + 3.0 * 2.0 ** -23)))
-
-
-def select_np(ro, rd, bmin, bmax, limit):
-    """The binned select's test of one treelet box on one closest-hit ray
-    (tmin 0.001, tmax F32_MAX, bound ``limit``) in numpy f32: (raytpu's,
-    the widened)."""
-    f = np.float32
-    inv = [f(1) / (d if d != 0 else (f(-1e-36) if np.signbit(d)
-                                     else f(1e-36))) for d in rd]
-    near, far = f(0.001), f(F32_MAX)
-    for a in range(3):
-        lo, hi = (bmin[a] - ro[a]) * inv[a], (bmax[a] - ro[a]) * inv[a]
-        near, far = max(near, min(lo, hi)), min(far, max(lo, hi))
-    s = f(1.0 + 3.0 * 2.0 ** -23)
-    with np.errstate(over="ignore"):
-        return (bool(near <= far and near <= f(limit)),
-                bool(near <= far * s and near <= f(limit) * s))
-
-
-def bvh8_path(nodes: np.ndarray, leaf_row: int) -> list:
-    """The (node, child) steps from the root of BVH8 rows ``nodes`` [N, 128]
-    down to leaf row ``leaf_row``, or [] when no child links to it."""
-    kids = nodes.reshape(-1, 8, 16)
-    links = kids[:, :, 6].copy().view(np.int32)
-    # empty slots carry inverted boxes and whatever link bits
-    real = (kids[:, :, 0:3] <= kids[:, :, 3:6]).all(-1)
-    parent = {}
-    for n, k in zip(*np.nonzero(real)):
-        link = int(links[n, k])
-        parent[("n", link) if link >= 0 else ("l", ~link)] = (int(n), int(k))
-    path, at = [], ("l", leaf_row)
-    while at in parent and at != ("n", 0) and len(path) < len(parent):
-        n, k = parent[at]
-        path.append((n, k))
-        at = ("n", n)
-    return path[::-1] if at == ("n", 0) else []
-
-
-def box_path(nodes: np.ndarray, leaf_row: int, ro, rd, tmin, t_win):
-    """A line per box on the way from the root of BVH8 rows ``nodes`` to
-    ``leaf_row``: its bits and raytpu's and the widened slab test's
-    verdict on the ray, at LIMIT F32_MAX and at the winner's t."""
-    o, d = ro.cpu().numpy(), rd.cpu().numpy()
-    lines = []
-    for n, k in bvh8_path(nodes, leaf_row):
-        box = nodes[n, 16 * k:16 * k + 6]
-        lines.append(f"node {n} child {k} box {f32_hex(box)}: (old, new) hit "
-                     f"at LIMIT F32_MAX {slab_np(o, d, box, tmin, F32_MAX)}, "
-                     f"at the winner's t {slab_np(o, d, box, tmin, t_win)}")
-    return lines
-
-
-def lost_hits(label: str, pack, ro, rd, right, run) -> dict:
+def lost_hits(label: str, pack, ro, rd, right, run) -> None:
     """ROADMAP fault 3.5 on a closest-hit wave: the rays the unrepaired
     rules lose, and why. ``run(idx, first, repaired_box)`` is the plain walk
     (or query) on rays ``idx`` with tie keys ``first``; ``right`` the
@@ -481,8 +422,9 @@ def lost_hits(label: str, pack, ro, rd, right, run) -> dict:
     differs from ``right`` the brute sweep decides. Each lost ray is classed
     by the repair that alone recovers it: ``slab`` (the box test), ``tie``
     (the key), ``either``, or ``both`` (neither alone). Prints each lost
-    ray's bits, with its winner's and its wrong triangle's, and returns the
-    counts."""
+    ray's bits, with its winner's and its wrong triangle's, and the counts;
+    fails if the repaired kernel is wrong on any ray where the two
+    differ."""
     import torch
 
     n = ro.shape[0]
@@ -524,16 +466,14 @@ def lost_hits(label: str, pack, ro, rd, right, run) -> dict:
               f"{f32_hex(brute.t.cpu())} tri {f32_hex(rows[win])}; "
               f"unrepaired slot {got} t {f32_hex(old[0][j:j + 1].cpu())} "
               + (f"tri {f32_hex(rows[got])}" if got >= 0 else "(miss)"))
-        yield_path = getattr(run, "path", None)
-        if yield_path is not None:
-            for line in yield_path(j, win, float(brute.t[0])):
-                print(f"    {line}")
     by_class = ", ".join(f"{v} {k}" for k, v in classes.items())
     print(f"phase {label} fault 3.5: the unrepaired rules lose "
           f"{lost.numel()} of {n} rays ({by_class}); "
           f"the repaired kernel is wrong on {right_wrong} of the "
           f"{idx.numel()} rays where the two differ")
-    return dict(lost=lost.numel(), right_wrong=right_wrong, **classes)
+    if right_wrong:
+        fail(f"phase {label}: the repaired kernel disagrees with the brute "
+             f"sweep on {right_wrong} rays (ROADMAP fault 3.5)")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -551,20 +491,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, name: str) -> float:
-    """Device ms of the kernels whose name holds ``name`` in one call of
-    ``fn``, from torch.profiler: launch by launch, without the host time
-    between small launches that CUDA events around them would take in."""
+def device_times(calls: list) -> list:
+    """Device ms of each call in ``calls``, in order: all are queued behind
+    a sleep kernel, so the card runs them back to back and CUDA events
+    between them time the launches alone, not the host time between small
+    launches. Fails if the host took longer to queue them than the card
+    slept."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name in e.name) / 1e3
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(calls) + 2)]
+    ev[0].record()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's 1.98 GHz
+    ev[1].record()
+    t0 = time.perf_counter()
+    for call, e in zip(calls, ev[2:]):
+        call()
+        e.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        fail(f"queueing {len(calls)} launches took {host_ms:.1f} ms, longer "
+             "than the card slept: the launch times would include the host")
+    return [a.elapsed_time(b) for a, b in zip(ev[1:], ev[2:])]
 
 
 def profile_frame(render) -> str:
@@ -1712,13 +1662,7 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
                     node8, pack.bvh.leaf_tris, keys, ro[idx], rd[idx],
                     tmax[idx], 0.001, False)
 
-        nodes_np = node8.cpu().numpy()
-
-        def path(j, win, t_win):
-            return box_path(nodes_np, win // 8, ro[j], rd[j], 0.001, t_win)
-
-        run.path = path
-        rec["lost"] = lost_hits("6c", pack, ro, rd, right, run)
+        lost_hits("6c", pack, ro, rd, right, run)
         n_diff, packet_wrong, strand_wrong = differ_vs_brute(
             pack, right,
             strand_query_cuda(pack.bvh.strand_rows, pack.bvh.leaf_tris,
@@ -1874,8 +1818,10 @@ def phase_stream(tmp: str, errs: list) -> dict:
     sizes = [a[3].shape[0] for a in calls]
     kernel_ms = [cuda_ms(lambda a=a: binned_walk_cuda(*a), reps=3)
                  for a in calls]
-    frame_dev_ms = device_ms(
-        lambda: [binned_walk_cuda(*a) for a in calls], "binned_kernel")
+    reps = 3
+    per_launch = device_times([lambda a=a: binned_walk_cuda(*a)
+                               for _ in range(reps) for a in calls])
+    frame_dev_ms = sum(per_launch) / reps
     bounds = []
     for a in calls:
         tk, trk = binned_walk_cuda(*a)
@@ -1887,7 +1833,8 @@ def phase_stream(tmp: str, errs: list) -> dict:
         errs.append(t_err(tk, tp))
         bounds.append(walk_bound(one, a[3].shape[0], 40))
     big = calls[int(np.argmax(sizes))]
-    ms = kernel_ms[int(np.argmax(sizes))]
+    event_ms = kernel_ms[int(np.argmax(sizes))]
+    ms = float(np.mean(per_launch[int(np.argmax(sizes))::len(calls)]))
     plain_ms = cuda_ms(lambda: binned_walk_torch(*big), reps=1)
     work = {}
     binned_walk_torch(*big, counts=work)
@@ -1921,33 +1868,18 @@ def phase_stream(tmp: str, errs: list) -> dict:
             binned_mod.binned_walk = kernel
         return hit.t, hit.tri
 
-    def path(j, win, t_win):
-        o, d = ro[j].cpu().numpy(), rd[j].cpu().numpy()
-        where = (pack.tl_leaves[:, :, 9].contiguous().view(torch.int32)
-                 == win // 8 * 8).nonzero().tolist()
-        out = []
-        for t, row in where:
-            lo = pack.tl_bmin[t].cpu().numpy()
-            hi = pack.tl_bmax[t].cpu().numpy()
-            out.append(f"treelet {t} box {f32_hex(lo)} {f32_hex(hi)}: "
-                       f"(old, new) select {select_np(o, d, lo, hi, t_win)}")
-            out += [f"treelet {t} {line}" for line in box_path(
-                pack.tl_nodes[t].cpu().numpy(), row, ro[j], rd[j], 0.0,
-                t_win)]
-        return out
-
-    run.path = path
-    lost = lost_hits("7a", pack, ro, rd, (hb.t, hb.tri), run)
+    lost_hits("7a", pack, ro, rd, (hb.t, hb.tri), run)
     n_diff, binned_wrong, strand_wrong = differ_vs_brute(
         pack, (hb.t, hb.tri), (hs.t, hs.tri), ro, rd, tmax, 0.001)
     print(f"phase 7a kernel: {len(calls)} launches in frame 2, "
           f"{sum(sizes)} rays (launch sizes: min {min(sizes)}, median "
           f"{int(np.median(sizes))}, max {max(sizes)}), kernel "
-          f"{frame_dev_ms:.3f} ms of device time in all (torch.profiler; "
-          f"{sum(kernel_ms):.3f} ms by CUDA events launch by launch, host "
+          f"{frame_dev_ms:.3f} ms of device time in all (queued back to back; "
+          f"{sum(kernel_ms):.3f} ms by CUDA events around each launch, host "
           f"time included), summed bound "
           f"{sum(b['bound_ms'] for b in bounds):.4f} ms; largest launch "
-          f"{max(sizes)} rays: binned_walk {ms:.3f} ms, plain "
+          f"{max(sizes)} rays: binned_walk {ms:.4f} ms of device time "
+          f"({event_ms:.3f} ms by CUDA events around it), plain "
           f"{plain_ms:.1f} ms, bit-equal; plain-walk work {bnd['boxes']} box "
           f"/ {bnd['tris']} triangle tests; primary wave {ro.shape[0]} rays: "
           f"{int(hb.valid.sum())} hits; vs brute on {idx.numel()} rays: "
@@ -1960,8 +1892,7 @@ def phase_stream(tmp: str, errs: list) -> dict:
         fail(f"phase 7a: binned_walk disagrees with the brute sweep on "
              f"{binned_bad} sampled rays and on {binned_wrong} rays of the "
              "wave (ROADMAP fault 3.5)")
-    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms,
-                frame_ms=frame_dev_ms, **bnd)
+    return dict(launches=counts["binned"], ms=ms, plain_ms=plain_ms, **bnd)
 
 
 class recorded_mixed:

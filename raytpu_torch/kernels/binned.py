@@ -14,14 +14,18 @@ Per-lane modes, as raytpu's mixed queries have them: a lane with
 [shadow_tmin, tmax]; every other lane is closest-hit over [tmin, tmax)
 (an open bound: the walk's bound starts at ``min(F32_MAX, tmax)`` and a
 hit at exactly tmax loses). Dead lanes carry tmax = -inf. Closest-hit ties
-break to the lowest global slot, so neither the treelet order nor the
-visit order changes a result.
+break on the tie keys ``first`` (``first_slots`` of the global slots: the
+lowest slot holding the same triangle bits), so neither the treelet order
+nor the visit order changes t or the triangle; which copy's slot is
+returned is the first one tested.
 
 The query (``make_binned_query``), per round:
 
 1. select: every ray takes its nearest treelet, in (entry distance,
    treelet id) order after the one it visited last, whose box it enters
-   before its bound (its best t; a blocked shadow ray has none left);
+   before its bound (its best t; a blocked shadow ray has none left); the
+   box test and the bound are widened by FAR_SCALE, as the walk's box
+   test is;
 2. bin: the rays with a treelet are sorted by it (a stable argsort: rays
    of one treelet sit in neighbouring threads). raytpu scatters them into
    1024-ray packets that feed a TPU BlockSpec; that schedule has no
@@ -31,21 +35,21 @@ The query (``make_binned_query``), per round:
    their blocked bit. The loop ends when no ray has a treelet left: one
    host sync per round, for the count of rays still walking.
 
-The walk, shared bit for bit by the kernel and the plain version
-(raytpu's per-lane arithmetic): the safe inverse direction (zero
-components -> +/-1e-36); per popped node a LIMIT of the lane's best t
-(its tmax for a shadow lane); for each child k in storage order the slab
-test ``near = max(max(lox, loy), max(loz, min(tmin, shadow_tmin)))``,
-``far = min(min(hix, hiy), min(hiz, LIMIT))``, hit iff ``near <= far``,
-with bounds picked by the sign of the inverse direction and never
-order-normalised (empty slots carry inverted boxes and miss); a hit
-interior child is pushed at once (clamped at STACK_DEPTH - 1 as raytpu
-does), a hit leaf's 8 triangles are tested at once and accepted when
-``t >= TCUT`` (shadow_tmin or tmin) and ``t < best_t``, or ``t == best_t``
-and the lane is a shadow lane or the slot is below its best. A closest
-lane starts from its incoming ``tri0`` and walks until its stack is
-empty; a shadow lane stops at its first blocker (only its blocked bit is
-contract).
+The walk, shared bit for bit by the kernel and the plain version (the
+packet walk's, csrc/bvh8_walk.cuh, with raytpu's per-lane arithmetic): the
+safe inverse direction (zero components -> +/-1e-36); per popped node a
+LIMIT of the lane's best t (its bound for a shadow lane); every child's
+slab test ``near = max(max(lox, loy), max(loz, min(tmin, shadow_tmin)))``,
+``far = min(min(hix, hiy), min(hiz, LIMIT))``, hit iff ``near <= far *
+FAR_SCALE``, with bounds picked by the sign of the inverse direction and
+never order-normalised (empty slots carry inverted boxes and miss); the
+hit interior children pushed from child 7 down (clamped at STACK_DEPTH - 1
+as raytpu does), then the hit leaves' 8 triangles tested from child 0 up.
+A closest lane starts from its incoming ``tri0`` (key ``first[tri0]``)
+and accepts ``t >= tmin`` and ``t < best_t``, or ``t == best_t`` and a
+lower key; it walks until its stack is empty. A shadow lane accepts ``t``
+in [shadow_tmin, tmax] and stops at its first blocker; its t stays its
+bound (only its blocked bit is contract).
 
 ``binned_walk_cuda`` launches ``csrc/binned_walk.cu``;
 ``binned_walk_torch`` is the plain version. ``binned_walk`` dispatches on
@@ -122,7 +126,6 @@ def binned_walk_torch(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
         sp=torch.ones(w, dtype=torch.long, device=dev),
         stack=torch.zeros((w, _PLAIN_STACK0), dtype=torch.int32, device=dev),
     )
-    k8 = torch.arange(8, device=dev, dtype=torch.int32)
     if counts is not None:
         seen_node = torch.zeros(kids.shape[0], dtype=torch.bool, device=dev)
         seen_leaf = torch.zeros(tris.shape[0], dtype=torch.bool, device=dev)
@@ -161,15 +164,7 @@ def binned_walk_torch(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
         hit = near <= far * FAR_SCALE
         inner = hit & (kl >= 0) & (kl < sn)
         at_leaf = hit & (kl < 0) & (~kl < sl)
-        # visit order: the kernel's key, the entry distance's bits with
-        # the low 3 bits replaced by k (+ 0.0 turns -0 into +0), after
-        # every hit child the missed ones
-        key = torch.where(hit, ((near + 0.0).view(torch.int32) & ~7) | k8,
-                          0x7FFFFFF8 | k8)
-        order = torch.sort(key, dim=1)[1]
-        inner, at_leaf, kl = (x.gather(1, order)
-                              for x in (inner, at_leaf, kl))
-        # interior children far-first, so the nearest is popped next
+        # interior children from child 7 down, so child 0 is popped next
         for j in range(7, -1, -1):
             push = inner[:, j]
             if bool(push.any()):
@@ -177,7 +172,7 @@ def binned_walk_torch(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
                 s["stack"][lane[push], slot[push]] = kl[push, j]
                 s["sp"] = torch.clamp(s["sp"] + push.long(),
                                       max=STACK_DEPTH - 1)
-        # leaves near-first
+        # then the hit leaves from child 0 up
         walking = torch.ones(w, dtype=torch.bool, device=dev)
         for j in range(8):
             at = at_leaf[:, j] & walking

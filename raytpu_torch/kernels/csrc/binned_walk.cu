@@ -108,6 +108,9 @@ int launch_variant(const Args& a, int variant, cudaStream_t s) {
     case 4: return launch<4>(a, s);
     case 5: return launch<5>(a, s);
     case 7: return launch<7>(a, s);
+    case 11: return launch<11>(a, s);
+    case 13: return launch<13>(a, s);
+    case 15: return launch<15>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -127,7 +130,7 @@ extern "C" int binned_walk_launch(const float* nodes, const float* leaves,
   if (n_rays <= 0) return 0;
   const Args a{nodes, leaves, first, tid, ro, rd, tmax, smask, tri0, t_out,
                tri_out, n_rays, n_treelets, sn, sl, tmin, shadow_tmin};
-  return launch_variant(a, 0, static_cast<cudaStream_t>(stream));
+  return launch_variant(a, 5, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int binned_walk_variant_launch(

@@ -93,6 +93,9 @@ int launch_variant(const Args& a, bool any_hit, int variant,
     case 4: return launch<4>(a, any_hit, s);
     case 5: return launch<5>(a, any_hit, s);
     case 7: return launch<7>(a, any_hit, s);
+    case 11: return launch<11>(a, any_hit, s);
+    case 13: return launch<13>(a, any_hit, s);
+    case 15: return launch<15>(a, any_hit, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -110,7 +113,7 @@ extern "C" int packet_walk_launch(const float* nodes, const float* leaves,
   if (n_rays <= 0) return 0;
   const Args a{nodes, leaves, first, ro, rd, tmax, t_out, tri_out,
                n_rays, n_nodes, n_leaf_rows, tmin};
-  return launch_variant(a, any_hit != 0, 0, static_cast<cudaStream_t>(stream));
+  return launch_variant(a, any_hit != 0, 5, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int packet_walk_variant_launch(

@@ -9,28 +9,38 @@ contract and gives every ray its own stack walk of the 8-wide BVH
 (``node8_rows``: child k at columns 16k..16k+6, bmin, bmax, then the link
 as int32 bits: a child node, or ``~leaf_row`` for a leaf).
 
-Range contract, per ray (raytpu's ``packet_query``):
+Range contract, per ray (raytpu's ``packet_query``), held to the brute
+sweep (kernels/intersect.py) as the strand walks are (kernels/strand.py):
 
 * closest-hit treats a finite ``tmax`` as an OPEN bound: the walk's bound
-  starts at ``min(F32_MAX, tmax)`` and a hit is accepted iff
-  ``t >= tmin and (t < best_t or (t == best_t and slot < best_tri))``, so
-  a hit at exactly ``tmax`` is a miss. Ties break to the lowest slot, so
-  the visit order never changes a result;
+  starts at ``min(F32_MAX, tmax)`` and a hit is accepted iff ``t >= tmin
+  and (t < best_t or (t == best_t and first[slot] < best key))``, so a hit
+  at exactly ``tmax`` is a miss. ``first`` is the tie keys
+  (``first_slots``: the lowest slot holding the same triangle bits), so
+  ties break to the lowest slot of any copy and the visit order never
+  changes t or the triangle; which copy's slot is returned is the first
+  one the walk tests;
 * any-hit uses the closed range ``[tmin, tmax]`` and stops at the first
   blocker. Only ``tri >= 0`` (blocked) is contract; ``t`` returns tmax;
 * dead lanes (``tmax = -inf``) return ``t = -inf, tri = -1`` for
   closest-hit and are never blocked.
 
-The walk, shared bit for bit by the kernel and the plain version: pop a
-node; for each child k in storage order, slab-test its box (safe inverse
-direction, zero components -> +/-1e-36; ``near = max(max(lox, loy),
-max(loz, tmin))``, ``far = min(min(hix, hiy), min(hiz, LIMIT))``, hit iff
-``near <= far``; LIMIT is best_t for closest-hit and tmax for any-hit),
-push a hit interior child at once, and test a hit leaf's 8 triangles at
-once. The slab does not order-normalise its intervals, so the BVH builder's
-empty slots (inverted boxes) miss every ray. Pushes clamp at
-``STACK_DEPTH - 1`` as raytpu's do; the pack's depth check keeps a real
-tree below that bound, and pops stop after as many nodes as the tree has.
+The walk, shared bit for bit by the kernel and the plain version
+(csrc/bvh8_walk.cuh): pop a node; slab-test its 8 children against the
+LIMIT of the pop (best_t for closest-hit, tmax for any-hit), with the safe
+inverse direction (zero components -> +/-1e-36), ``near = max(max(lox,
+loy), max(loz, tmin))``, ``far = min(min(hix, hiy), min(hiz, LIMIT))``,
+hit iff ``near <= far * FAR_SCALE`` (the conservative test of
+kernels/strand.py); push the hit interior children from child 7 down, so
+child 0 is popped next; then test the hit leaves' 8 triangles from child 0
+up. The slab does not order-normalise its intervals, so the BVH builder's
+empty slots (inverted boxes) miss every ray. Pushes clamp at ``STACK_DEPTH
+- 1`` as raytpu's do; the pack's depth check keeps a real tree below that
+bound, and pops stop after as many nodes as the tree has.
+
+The two repairs of ROADMAP fault 3.5 (the conservative box test and the
+tie keys) are those of fault 3.4 in the strand walks; neither can change a
+result that was already right (kernels/strand.py says why).
 
 ``packet_query_cuda`` launches ``csrc/packet_walk.cu``;
 ``packet_query_torch`` is the plain version (a vectorised per-ray walk in
@@ -137,15 +147,7 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
         hit = near <= far * FAR_SCALE
         inner = hit & (kl >= 0) & (kl < n_nodes)
         at_leaf = hit & (kl < 0) & (~kl < n_leaf_rows)
-        # visit order: the kernel's key, the entry distance's bits with
-        # the low 3 bits replaced by k (+ 0.0 turns -0 into +0), after
-        # every hit child the missed ones
-        key = torch.where(hit, ((near + 0.0).view(torch.int32) & ~7) | k8,
-                          0x7FFFFFF8 | k8)
-        order = torch.sort(key, dim=1)[1]
-        inner, at_leaf, kl = (x.gather(1, order)
-                              for x in (inner, at_leaf, kl))
-        # interior children far-first, so the nearest is popped next
+        # interior children from child 7 down, so child 0 is popped next
         for j in range(7, -1, -1):
             push = inner[:, j]
             if bool(push.any()):
@@ -153,7 +155,7 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
                 s["stack"][lane[push], slot[push]] = kl[push, j]
                 s["sp"] = torch.clamp(s["sp"] + push.long(),
                                       max=STACK_DEPTH - 1)
-        # leaves near-first
+        # then the hit leaves from child 0 up
         walking = torch.ones(w, dtype=torch.bool, device=dev)
         for j in range(8):
             at = at_leaf[:, j] & walking

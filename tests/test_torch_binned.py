@@ -403,6 +403,23 @@ def test_dispatch_by_device_and_cuda_wrapper_refuses_cpu():
     assert binned_walk_cuda.launches == before
 
 
+@pytest.mark.parametrize("bad", ["dtype", "stride"])
+def test_kernel_inputs_refuse_bad_tie_keys(bad):
+    """binned_walk_cuda's input check (run before every launch) takes the
+    tie keys only as a contiguous int32 tensor on the rays' device."""
+    s = _soup(300, 5, 10_000)
+    ro, rd, tmax, smask, tri0, _ = _mixed_rays(64, 3, 1)
+    first = {"dtype": s["first"].long(),
+             "stride": s["first"].repeat_interleave(2)[::2]}[bad]
+    args = [_t(s["tl"].tnodes), _t(s["tl"].tleaves), s["first"],
+            torch.zeros(64, dtype=torch.int32), _t(ro), _t(rd), _t(tmax),
+            _t(smask), _t(tri0)]
+    binned._check_walk_inputs(*args)
+    args[2] = first
+    with pytest.raises(ValueError, match="first"):
+        binned._check_walk_inputs(*args)
+
+
 def test_plain_walk_counts_its_reads():
     """The plain walk's counts, the inputs of chip_smoke.py's bounds, on
     treelets at budget 48: one ray pops each node of its treelet once (8

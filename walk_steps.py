@@ -5,10 +5,14 @@
 Each variant (a bit each: 1 float4 loads, 2 near-first order, 4
 while-while with postponed leaves, 8 a shared-memory short stack) is held
 to the plain version (t bits and first[tri]; the blocked bit for shadow
-lanes; tri exactly where the orders match) and timed with CUDA events on
-the same waves: 6c's 1080p flat primary wave and 6a's largest closest and
-any-hit waves for packet_walk, 7a's frame launches for binned_walk
-(chip_smoke.py's cells). Variants run in turns, forward then backward.
+lanes; tri exactly where the visit order is the plain walk's: while-while
+without near-first) and timed on the same waves: 6c's 1080p flat primary
+wave and 6a's largest closest and any-hit waves for packet_walk, 7a's
+frame launches and its largest launch for binned_walk (chip_smoke.py's
+cells). Each repeat queues every variant's launches behind one sleep
+kernel (chip_smoke.device_times: CUDA events between launches that run
+back to back), variants in turns, forward then backward; each line gives
+the mean over the repeats and, in brackets, the lowest and highest.
 """
 
 from __future__ import annotations
@@ -22,7 +26,11 @@ import numpy as np
 
 import chip_smoke as c
 
-VARIANTS = [0, 1, 3, 4, 5, 7]
+VARIANTS = [0, 1, 3, 4, 5, 7, 11, 13, 15]
+
+
+def exact(v: int) -> bool:
+    return bool(v & 4) and not v & 2
 
 
 def packet_variant(lib, tables, ro, rd, tmax, tmin, any_hit, v):
@@ -78,9 +86,32 @@ def agree(first, got, want, shadow=None, exact=False) -> int:
     return int(bad.sum())
 
 
-def table(name, kernel, waves, run, plain, repeats):
-    """Time every variant on every wave in turns (device time of the
-    kernels named ``kernel``); fail on a mismatch."""
+def timed(groups, repeats):
+    """groups: {(v, label): [call, ...]}. Each repeat queues every group's
+    calls, variants in turns, behind one sleep; returns {(v, label): [ms
+    of the group's calls summed, per repeat]}."""
+    out = {key: [] for key in groups}
+    for rep in range(repeats):
+        order = VARIANTS if rep % 2 == 0 else VARIANTS[::-1]
+        keys = [key for v in order for key in groups if key[0] == v]
+        calls = [call for key in keys for call in groups[key]]
+        times = c.device_times(calls)
+        i = 0
+        for key in keys:
+            n = len(groups[key])
+            out[key].append(sum(times[i:i + n]))
+            i += n
+    return out
+
+
+def fmt(ms, n=1) -> str:
+    ms = [m / n for m in ms]
+    return (f"{sum(ms) / len(ms):.4f} ms [{min(ms):.4f}-{max(ms):.4f}]")
+
+
+def table(name, waves, run, plain, repeats):
+    """Time every variant on every wave in turns (3 launches a wave);
+    fail on a mismatch."""
     import torch
 
     want = [plain(w) for w in waves]
@@ -88,19 +119,15 @@ def table(name, kernel, waves, run, plain, repeats):
     for v in VARIANTS:
         for w, p in zip(waves, want):
             bad = agree(w["tables"][2], run(w, v), p, w.get("shadow"),
-                        exact=bool(v & 2))
+                        exact=exact(v))
             if bad:
                 c.fail(f"{name} variant {v} differs from the plain version "
                        f"on {bad} lanes of {w['label']}")
-    ms = {v: [0.0] * len(waves) for v in VARIANTS}
-    for rep in range(repeats):
-        for v in (VARIANTS if rep % 2 == 0 else VARIANTS[::-1]):
-            for i, w in enumerate(waves):
-                ms[v][i] += c.device_ms(lambda: [run(w, v) for _ in range(3)],
-                                        kernel) / 3 / repeats
+    ms = timed({(v, w["label"]): [lambda w=w, v=v: run(w, v)] * 3
+                for v in VARIANTS for w in waves}, repeats)
     for v in VARIANTS:
         print(f"{name} v{v}: " + ", ".join(
-            f"{w['label']} {m:.4f} ms" for w, m in zip(waves, ms[v])))
+            f"{w['label']} {fmt(ms[(v, w['label'])], 3)}" for w in waves))
 
 
 def main() -> int:
@@ -164,7 +191,7 @@ def main() -> int:
                           shadow=torch.full((a[3].shape[0],), any_hit,
                                             device="cuda")))
         del pack
-        table("packet_walk", "packet_kernel", waves,
+        table("packet_walk", waves,
               lambda w, v: packet_variant(plib, w["tables"], w["ro"], w["rd"],
                                           w["tmax"], w["tmin"], w["any_hit"],
                                           v),
@@ -195,26 +222,22 @@ def main() -> int:
         want = {id(w): binned_walk_torch(*w["a"]) for w in frame}
         for v in VARIANTS:
             bad = sum(agree(pack.bvh.first_slots, run_all(w, v),
-                            want[id(w)], w["shadow"], exact=bool(v & 2))
+                            want[id(w)], w["shadow"], exact=exact(v))
                       for w in frame)
             if bad:
                 c.fail(f"binned_walk variant {v} differs from the plain "
                        f"version on {bad} lanes of 7a's launches")
-        total = {v: 0.0 for v in VARIANTS}
-        largest = {v: 0.0 for v in VARIANTS}
-        big = max(range(len(frame)), key=lambda i: frame[i]["a"][3].shape[0])
-        for rep in range(repeats):
-            for v in (VARIANTS if rep % 2 == 0 else VARIANTS[::-1]):
-                total[v] += c.device_ms(
-                    lambda: [run_all(w, v) for w in frame],
-                    "binned_kernel") / repeats
-                largest[v] += c.device_ms(
-                    lambda: [run_all(frame[big], v) for _ in range(3)],
-                    "binned_kernel") / 3 / repeats
+        big = max(frame, key=lambda w: w["a"][3].shape[0])
+        groups = {}
         for v in VARIANTS:
-            print(f"binned_walk v{v}: 7a frame {total[v]:.4f} ms over "
+            groups[(v, "frame")] = [lambda w=w, v=v: run_all(w, v)
+                                    for w in frame]
+            groups[(v, "largest")] = [lambda v=v: run_all(big, v)] * 3
+        ms = timed(groups, repeats)
+        for v in VARIANTS:
+            print(f"binned_walk v{v}: 7a frame {fmt(ms[(v, 'frame')])} over "
                   f"{len(frame)} launches, largest ({sizes[-1]} rays) "
-                  f"{largest[v]:.4f} ms")
+                  f"{fmt(ms[(v, 'largest')], 3)}")
     return 0
 
 
