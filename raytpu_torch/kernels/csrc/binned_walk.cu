@@ -24,6 +24,17 @@
 // pair. The slab test uses min(tmin, shadow_tmin) for every lane and a
 // LIMIT read once per popped node. Float rules and the conservative box
 // test: walk_common.cuh.
+//
+// What bounds it on an H100: per lane the dependent chain of node rows
+// (512 bytes) and leaf rows (320 bytes of triangles) of its window, in L2
+// while rays of one window run together; the warp's divergence; and the
+// frame's many small launches (7a: 38, most of a few thousand rays). The
+// design has the packet walk's two kept steps (bvh8_walk.cuh: 16-byte
+// loads, while-while traversal with postponed leaves), each of which gained
+// on phase 7a's frame (PERF.md); near-first order and a shared-memory short
+// stack gained nothing there and were reverted. The stack stays in local
+// memory (1 KB a thread); no window is staged in shared memory (one is up
+// to 1 MiB).
 
 #include "bvh8_walk.cuh"
 
@@ -51,9 +62,7 @@ struct Args {
   float tmin, shadow_tmin;
 };
 
-template <int kV>
 __global__ void __launch_bounds__(kBlock) binned_kernel(Args a) {
-  __shared__ int sstack[(kV & bvh8::kSmem) ? bvh8::kShort * kBlock : 1];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i - (threadIdx.x & 31) >= a.n_rays) return;  // warp-uniform
   const bool real = i < a.n_rays;
@@ -67,51 +76,20 @@ __global__ void __launch_bounds__(kBlock) binned_kernel(Args a) {
   const Ray r = live ? load_ray(a.ro, a.rd, i)
                      : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
   const float tcut = shad ? a.shadow_tmin : a.tmin;
-  const float* win =
-      a.nodes + static_cast<size_t>(live ? t : 0) * a.sn * kRowFloats;
-  const float* lwin =
-      a.leaves + static_cast<size_t>(live ? t : 0) * a.sl * kRowFloats;
-  auto leaf = [&](int lr) -> bool {
-    const float* lf = lwin + static_cast<size_t>(lr) * kRowFloats;
-    if constexpr ((kV & bvh8::kF4) != 0) {
-      return shad ? test_row<true, true>(r, lf, 0, a.first, tcut, b.t, &b)
-                  : test_row<false, true>(r, lf, 0, a.first, tcut, b.t, &b);
-    } else {
-      return shad ? bvh8::test_row_scalar<true, true>(r, lf, 0, a.first,
-                                                      tcut, b.t, &b)
-                  : bvh8::test_row_scalar<false, true>(r, lf, 0, a.first,
-                                                       tcut, b.t, &b);
-    }
-  };
+  const size_t w = live ? t : 0;
+  const float* lwin = a.leaves + w * a.sl * kRowFloats;
   // a shadow lane's best t stays its bound, so LIMIT is best t for both
-  bvh8::walk<kV, kStackDepth, kBlock, true>(
-      win, a.sn, a.sl, r, fminf(a.tmin, a.shadow_tmin), &b.t, live,
-      sstack + threadIdx.x, leaf);
+  bvh8::walk<kStackDepth>(
+      a.nodes + w * a.sn * kRowFloats, a.sn, a.sl, r,
+      fminf(a.tmin, a.shadow_tmin), &b.t, live, [&](int lr) {
+        const float* lf = lwin + static_cast<size_t>(lr) * kRowFloats;
+        return shad ? test_row<true, true>(r, lf, 0, a.first, tcut, b.t, &b)
+                    : test_row<false, true>(r, lf, 0, a.first, tcut, b.t,
+                                            &b);
+      });
   if (real) {
     a.t_out[i] = b.t;
     a.tri_out[i] = b.tri;
-  }
-}
-
-template <int kV>
-int launch(const Args& a, cudaStream_t stream) {
-  const int grid = (a.n_rays + kBlock - 1) / kBlock;
-  binned_kernel<kV><<<grid, kBlock, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_variant(const Args& a, int variant, cudaStream_t s) {
-  switch (variant) {
-    case 0: return launch<0>(a, s);
-    case 1: return launch<1>(a, s);
-    case 3: return launch<3>(a, s);
-    case 4: return launch<4>(a, s);
-    case 5: return launch<5>(a, s);
-    case 7: return launch<7>(a, s);
-    case 11: return launch<11>(a, s);
-    case 13: return launch<13>(a, s);
-    case 15: return launch<15>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -130,19 +108,9 @@ extern "C" int binned_walk_launch(const float* nodes, const float* leaves,
   if (n_rays <= 0) return 0;
   const Args a{nodes, leaves, first, tid, ro, rd, tmax, smask, tri0, t_out,
                tri_out, n_rays, n_treelets, sn, sl, tmin, shadow_tmin};
-  return launch_variant(a, 5, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int binned_walk_variant_launch(
-    const float* nodes, const float* leaves, const int* first,
-    const int* tid, const float* ro, const float* rd, const float* tmax,
-    const float* smask, const int* tri0, float* t_out, int* tri_out,
-    int n_rays, int n_treelets, int sn, int sl, float tmin,
-    float shadow_tmin, int variant, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Args a{nodes, leaves, first, tid, ro, rd, tmax, smask, tri0, t_out,
-               tri_out, n_rays, n_treelets, sn, sl, tmin, shadow_tmin};
-  return launch_variant(a, variant, static_cast<cudaStream_t>(stream));
+  const int grid = (n_rays + kBlock - 1) / kBlock;
+  binned_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* binned_walk_error_string(int code) {

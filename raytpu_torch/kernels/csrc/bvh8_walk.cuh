@@ -4,18 +4,24 @@
 // Layout (raytpu_torch/accel/bvh.py, accel/treelets.py): node n is the 128
 // floats at nodes + n*128; child k sits at columns 16k..16k+6: bmin.xyz,
 // bmax.xyz, then the link as int32 BITS (read with __float_as_int, never a
-// value cast): a child node, or ~leaf_row for a leaf. Empty child slots
-// carry an inverted box (bmin > bmax); the slab test does not
-// order-normalise its intervals, so they miss every ray.
+// value cast): a child node, or ~leaf_row for a leaf. A child is two
+// float4 (walk_common.cuh:Box). Empty child slots carry an inverted box
+// (bmin > bmax); the slab test does not order-normalise its intervals, so
+// they miss every ray.
 //
-// Design steps (a bit each in kV; PERF.md times them): kF4 reads a child
-// as two float4 and a triangle pair as five; kNear orders a node's hit
-// children by the ray's own entry distance (ties by k), tests its leaves
-// near-first and pushes its interior children far-first; kWW is
-// Aila-Laine while-while traversal with postponed leaves; kSmem keeps the
-// first kShort stack entries of each thread in shared memory. Without kNear
-// and kWW the walk tests each child in storage order and a hit leaf at
-// once.
+// The walk, kept bit for bit by the plain versions (kernels/packet.py,
+// kernels/binned.py): pop a node; test its 8 children's boxes against one
+// LIMIT, read at the pop; push the hit interior children from child 7 down
+// to child 0 (so child 0 is popped next); then test the hit leaves from
+// child 0 up. Pushes clamp at kDepth - 1 as raytpu's do (the pack's depth
+// check keeps real trees below it), and a walk pops at most as many nodes
+// as the tree has.
+//
+// The traversal is Aila-Laine "while-while" with postponed leaves: a lane
+// pops nodes until it holds the hit leaves of its last node, or is done,
+// and the warp tests leaves once no lane is still stepping, so triangle
+// tests run at the warp's width. A lane holding leaves waits (no
+// speculative steps), so each lane walks as it would alone.
 
 #pragma once
 
@@ -26,219 +32,65 @@ namespace bvh8 {
 using namespace walk;
 
 constexpr int kNodeFloats = 128;  // 8 children x 16 floats
-constexpr int kShort = 32;        // stack entries a thread keeps in smem
-constexpr int kF4 = 1, kNear = 2, kWW = 4, kSmem = 8;
-
-__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
-
-template <bool kVec>
-__device__ __forceinline__ Box load_child(const float* __restrict__ nd,
-                                          int k) {
-  if (kVec) return load_box(nd + 16 * k);
-  const float* c = nd + 16 * k;
-  Box x;
-  x.a = make_float4(__ldg(c + 0), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3));
-  x.b = make_float4(__ldg(c + 4), __ldg(c + 5), __ldg(c + 6), 0.0f);
-  return x;
-}
-
-// test_row with every float read on its own
-template <bool kAny, bool kSlotInRow>
-__device__ __forceinline__ bool test_row_scalar(
-    const Ray& r, const float* __restrict__ lf, int slot0,
-    const int* __restrict__ first, float tmin, float tm, Best* b) {
-  for (int q = 0; q < kLeafSize; ++q) {
-    float f[9];
-#pragma unroll
-    for (int m = 0; m < 9; ++m) f[m] = __ldg(lf + 10 * q + m);
-    const int slot = kSlotInRow ? __float_as_int(__ldg(lf + 10 * q + 9))
-                                : slot0 + q;
-    if (test_tri<kAny>(r, f, slot, first, tmin, tm, b)) return true;
-  }
-  return false;
-}
-
-// A thread's stack of node indices. Pushes clamp at kDepth - 1 as raytpu's
-// do (the pack's depth check keeps real trees below it).
-template <int kDepth, int kBlock, bool kShared>
-struct Stack {
-  int sp;
-  int* sh;  // this thread's column of the block's shared stack
-  int local[kShared ? kDepth - kShort : kDepth];
-
-  __device__ __forceinline__ void push(int x) {
-    const int s = min(sp, kDepth - 1);
-    if (kShared && s < kShort) {
-      sh[s * kBlock] = x;
-    } else {
-      local[kShared ? s - kShort : s] = x;
-    }
-    sp = min(sp + 1, kDepth - 1);
-  }
-
-  __device__ __forceinline__ int pop() {
-    --sp;
-    return (kShared && sp < kShort) ? sh[sp * kBlock]
-                                    : local[kShared ? sp - kShort : sp];
-  }
-};
-
-// A popped node's children in visit order: key[j] & 7 is the j-th child
-// to visit; inner and leaf are bit masks over k of the hit interior
-// children and hit leaves; link[k] is child k's link.
-struct Visit {
-  unsigned key[8];
-  int link[8];
-  unsigned inner, leaf;
-
-  __device__ __forceinline__ int link_of(int k) const {
-    int l = link[0];
-#pragma unroll
-    for (int q = 1; q < 8; ++q) l = (k == q) ? link[q] : l;
-    return l;
-  }
-};
-
-__device__ __forceinline__ void order(unsigned& x, unsigned& y) {
-  const unsigned lo = min(x, y);
-  y = max(x, y);
-  x = lo;
-}
-
-// Batcher's odd-even merge sort of 8
-__device__ __forceinline__ void sort8(unsigned* c) {
-  order(c[0], c[1]); order(c[2], c[3]); order(c[4], c[5]); order(c[6], c[7]);
-  order(c[0], c[2]); order(c[1], c[3]); order(c[4], c[6]); order(c[5], c[7]);
-  order(c[1], c[2]); order(c[5], c[6]); order(c[0], c[4]); order(c[3], c[7]);
-  order(c[1], c[5]); order(c[2], c[6]); order(c[1], c[4]); order(c[3], c[6]);
-  order(c[2], c[4]); order(c[3], c[5]); order(c[3], c[4]);
-}
-
-// Box-test node nd's 8 children against one LIMIT. With kNearFirst the
-// visit order is by key = the entry distance's bits with the low 3 bits
-// replaced by k (near >= 0, and near + 0 turns -0 into +0, so the bits
-// order as the floats do; missed children get 0x7ffffff8 | k, after every
-// hit one), in storage order without.
-template <bool kVec, bool kNearFirst>
-__device__ __forceinline__ void test_children(
-    const float* __restrict__ nd, const Ray& r, float slab_tmin,
-    float limit, int n_nodes, int n_leaf_rows, Visit* v) {
-  v->inner = 0;
-  v->leaf = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const Box x = load_child<kVec>(nd, k);
-    float near;
-    const bool hit = slab(r, x, slab_tmin, limit, &near);
-    const int link = __float_as_int(x.b.z);
-    v->link[k] = link;
-    v->key[k] = !kNearFirst ? k
-                : hit ? (__float_as_uint(near + 0.0f) & ~7u) | k
-                      : 0x7ffffff8u | k;
-    if (hit && link >= 0 && link < n_nodes) v->inner |= 1u << k;
-    if (hit && link < 0 && ~link < n_leaf_rows) v->leaf |= 1u << k;
-  }
-  if (kNearFirst) sort8(v->key);
-}
 
 // One lane's walk from the root of `nodes` (n_nodes rows, n_leaf_rows leaf
-// rows, at most n_nodes pops). `limit` is read for every box test (once per
-// popped node with kOncePerNode or in a node pass); leaf(row) tests a leaf
-// row and returns true when the lane is blocked, which ends its walk. With
-// kWW every lane of the warp must call this (dead lanes with live false).
-template <int kV, int kDepth, int kBlock, bool kOncePerNode, class Leaf>
+// rows). `limit` points at the LIMIT, read once per popped node; leaf(row)
+// tests a leaf row and returns true when the lane is blocked, which ends
+// its walk. Every lane of the warp must call this (a lane with no walk
+// passes live = false).
+template <int kDepth, class Leaf>
 __device__ __forceinline__ void walk(const float* __restrict__ nodes,
                                      int n_nodes, int n_leaf_rows,
                                      const Ray& r, float slab_tmin,
-                                     const float* limit, bool live, int* sh,
+                                     const float* limit, bool live,
                                      Leaf&& leaf) {
-  constexpr bool kVec = kV & kF4;
-  constexpr bool kNearFirst = kV & kNear;
-  constexpr bool kWhile = kV & kWW;
-  Stack<kDepth, kBlock, (kV & kSmem) != 0> st;
-  st.sh = sh;
-  st.sp = 0;
-  if (live) st.push(0);
+  int stack[kDepth];
+  int sp = 0;
+  if (live) stack[sp++] = 0;
   int pops = 0;
   bool done = false;
-  if (!kNearFirst && !kWhile) {
-    while (st.sp > 0 && pops < n_nodes && !done) {
-      const float* nd = nodes + static_cast<size_t>(st.pop()) * kNodeFloats;
-      ++pops;
-      const float lim0 = *limit;
-      for (int k = 0; k < 8 && !done; ++k) {
-        const Box x = load_child<kVec>(nd, k);
-        if (!box_hit(r, x, slab_tmin, kOncePerNode ? lim0 : *limit)) continue;
-        const int link = __float_as_int(x.b.z);
-        if (link >= 0) {
-          if (link < n_nodes) st.push(link);
-        } else if (~link < n_leaf_rows) {
-          done = leaf(~link);
-        }
-      }
-    }
-    return;
-  }
-  if (!kWhile) {
-    while (st.sp > 0 && pops < n_nodes && !done) {
-      const float* nd = nodes + static_cast<size_t>(st.pop()) * kNodeFloats;
-      ++pops;
-      Visit v;
-      test_children<kVec, kNearFirst>(nd, r, slab_tmin, *limit, n_nodes,
-                                      n_leaf_rows, &v);
-#pragma unroll
-      for (int j = 7; j >= 0; --j) {
-        const int k = v.key[j] & 7;
-        if ((v.inner >> k) & 1) st.push(v.link_of(k));
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int k = v.key[j] & 7;
-        if (!done && ((v.leaf >> k) & 1)) done = leaf(~v.link_of(k));
-      }
-    }
-    return;
-  }
-  // while-while: a lane pops nodes until it holds leaves (its next node's
-  // hit leaves, in visit order, as 4-bit child indices) or is done; the
-  // warp tests leaves once no lane is still stepping. A lane holding
-  // leaves waits, so it walks as it would alone.
-  unsigned pend = 0;
-  int n_pend = 0;
+  unsigned pend = 0;  // the hit leaves of pend_nd, a bit per child
   const float* pend_nd = nodes;
   for (;;) {
     for (;;) {
-      const bool stepping = n_pend == 0 && st.sp > 0 && pops < n_nodes &&
-                            !done;
+      const bool stepping = pend == 0 && sp > 0 && pops < n_nodes && !done;
       if (!__any_sync(kFull, stepping)) break;
       if (stepping) {
-        const float* nd =
-            nodes + static_cast<size_t>(st.pop()) * kNodeFloats;
+        const float* nd = nodes + static_cast<size_t>(stack[--sp]) *
+                                      kNodeFloats;
         ++pops;
-        Visit v;
-        test_children<kVec, kNearFirst>(nd, r, slab_tmin, *limit, n_nodes,
-                                        n_leaf_rows, &v);
+        const float lim = *limit;
+        int link[8];
+        unsigned inner = 0;
 #pragma unroll
-        for (int j = 7; j >= 0; --j) {
-          const unsigned k = v.key[j] & 7;
-          if ((v.inner >> k) & 1) st.push(v.link_of(k));
-          if ((v.leaf >> k) & 1) {
-            pend = (pend << 4) | k;
-            ++n_pend;
+        for (int k = 0; k < 8; ++k) {
+          const Box x = load_box(nd + 16 * k);
+          link[k] = __float_as_int(x.b.z);
+          if (!box_hit(r, x, slab_tmin, lim)) continue;
+          if (link[k] >= 0) {
+            if (link[k] < n_nodes) inner |= 1u << k;
+          } else if (~link[k] < n_leaf_rows) {
+            pend |= 1u << k;
+          }
+        }
+#pragma unroll
+        for (int k = 7; k >= 0; --k) {
+          if ((inner >> k) & 1) {
+            stack[min(sp, kDepth - 1)] = link[k];
+            sp = min(sp + 1, kDepth - 1);
           }
         }
         pend_nd = nd;
       }
     }
-    if (!__any_sync(kFull, n_pend > 0)) break;
-    while (__any_sync(kFull, n_pend > 0)) {
-      if (n_pend > 0) {
-        const int k = pend & 15u;
-        pend >>= 4;
-        --n_pend;
+    if (!__any_sync(kFull, pend != 0)) break;
+    while (__any_sync(kFull, pend != 0)) {
+      if (pend != 0) {
+        const int k = __ffs(pend) - 1;
+        pend &= pend - 1;
         if (leaf(~__float_as_int(__ldg(pend_nd + 16 * k + 6)))) {
           done = true;
-          n_pend = 0;
+          pend = 0;
         }
       }
     }

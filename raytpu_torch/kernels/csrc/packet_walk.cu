@@ -14,6 +14,17 @@
 // of row j is slot 8j + k. Float rules and the conservative box test:
 // walk_common.cuh, shared bit for bit with the plain version
 // (kernels/packet.py:packet_query_torch).
+//
+// What bounds it on an H100: the dependent chain of node rows a lane pops
+// (512 bytes, 8 box tests each) and its leaf rows (320 bytes, 8 triangle
+// tests), out of L2 for scenes up to ~50 MB, and the warp's divergence as
+// its lanes' walks part. The design has two steps over the first port,
+// each of which gained on phase 6c's 1080p flat wave and phase 6a's waves
+// (PERF.md): 16-byte loads of children and triangle pairs, and while-while
+// traversal with postponed leaves (bvh8_walk.cuh). Near-first child order
+// (by the ray's entry distance, as raytpu's kernel orders by a packet
+// representative) and a shared-memory short stack measured slower and were
+// reverted; the stack stays in local memory (2 KB a thread).
 
 #include "bvh8_walk.cuh"
 
@@ -38,9 +49,8 @@ struct Args {
   float tmin;
 };
 
-template <bool kAny, int kV>
+template <bool kAny>
 __global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
-  __shared__ int sstack[(kV & bvh8::kSmem) ? bvh8::kShort * kBlock : 1];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i - (threadIdx.x & 31) >= a.n_rays) return;  // warp-uniform
   const bool real = i < a.n_rays;
@@ -54,49 +64,16 @@ __global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
   b.t = kAny ? tm : nan_min(kF32Max, tm);
   b.tri = -1;
   b.key = -1;
-  auto leaf = [&](int lr) -> bool {
-    const float* lf = a.leaves + static_cast<size_t>(lr) * kLeafFloats;
-    if constexpr ((kV & bvh8::kF4) != 0) {
-      return test_row<kAny, false>(r, lf, lr * kLeafSize, a.first, a.tmin,
-                                   tm, &b);
-    } else {
-      return bvh8::test_row_scalar<kAny, false>(r, lf, lr * kLeafSize,
-                                                a.first, a.tmin, tm, &b);
-    }
-  };
-  bvh8::walk<kV, kStackDepth, kBlock, false>(
+  bvh8::walk<kStackDepth>(
       a.nodes, a.n_nodes, a.n_leaf_rows, r, a.tmin, kAny ? &tm : &b.t, real,
-      sstack + threadIdx.x, leaf);
+      [&](int lr) {
+        return test_row<kAny, false>(
+            r, a.leaves + static_cast<size_t>(lr) * kLeafFloats,
+            lr * kLeafSize, a.first, a.tmin, tm, &b);
+      });
   if (real) {
     a.t_out[i] = b.t;
     a.tri_out[i] = b.tri;
-  }
-}
-
-template <int kV>
-int launch(const Args& a, bool any_hit, cudaStream_t stream) {
-  const int grid = (a.n_rays + kBlock - 1) / kBlock;
-  if (any_hit) {
-    packet_kernel<true, kV><<<grid, kBlock, 0, stream>>>(a);
-  } else {
-    packet_kernel<false, kV><<<grid, kBlock, 0, stream>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_variant(const Args& a, bool any_hit, int variant,
-                   cudaStream_t s) {
-  switch (variant) {
-    case 0: return launch<0>(a, any_hit, s);
-    case 1: return launch<1>(a, any_hit, s);
-    case 3: return launch<3>(a, any_hit, s);
-    case 4: return launch<4>(a, any_hit, s);
-    case 5: return launch<5>(a, any_hit, s);
-    case 7: return launch<7>(a, any_hit, s);
-    case 11: return launch<11>(a, any_hit, s);
-    case 13: return launch<13>(a, any_hit, s);
-    case 15: return launch<15>(a, any_hit, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -113,19 +90,14 @@ extern "C" int packet_walk_launch(const float* nodes, const float* leaves,
   if (n_rays <= 0) return 0;
   const Args a{nodes, leaves, first, ro, rd, tmax, t_out, tri_out,
                n_rays, n_nodes, n_leaf_rows, tmin};
-  return launch_variant(a, any_hit != 0, 5, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int packet_walk_variant_launch(
-    const float* nodes, const float* leaves, const int* first,
-    const float* ro, const float* rd, const float* tmax, float* t_out,
-    int* tri_out, int n_rays, int n_nodes, int n_leaf_rows, float tmin,
-    int any_hit, int variant, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Args a{nodes, leaves, first, ro, rd, tmax, t_out, tri_out,
-               n_rays, n_nodes, n_leaf_rows, tmin};
-  return launch_variant(a, any_hit != 0, variant,
-                        static_cast<cudaStream_t>(stream));
+  const int grid = (n_rays + kBlock - 1) / kBlock;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit) {
+    packet_kernel<true><<<grid, kBlock, 0, s>>>(a);
+  } else {
+    packet_kernel<false><<<grid, kBlock, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* packet_walk_error_string(int code) {
