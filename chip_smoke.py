@@ -35,7 +35,16 @@ launch count can be read:
   configuration with ``bounce_backend="binned"``, held to phase 5's frame,
   its binned mixed queries sampled against the brute sweep;
 * phase 8, the per-step probe (``raytpu_torch.tools.step_bench``): every
-  arm on the card against its plain replay, then the full table.
+  arm on the card against its plain replay, then the full table;
+* phase 9, the rest of raytpu's surface: (a) the threaded-BVH route
+  (``intersector="bvh"``, plain torch ops) on a 2.6k-triangle gallery,
+  one wave's tri and t bits equal to the CPU's and a 64x64 frame; (b)
+  checkpoint/resume on phase 5's gallery at 640x360, interrupted after 2
+  of 4 tiles, bit-equal to the uninterrupted frame; (c) row and sample
+  shards against the single-device frame; (d) the CLI with ``--profile``,
+  whose trace must name strand_walk's kernel; (e) the CLI with ``--gui``
+  without a display, the same PNG as the plain run; (f) a card frame of
+  the multi-mesh scene against the port's copy of raytpu's scalar oracle.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record and ``{"ok": true, "device":
@@ -2031,6 +2040,334 @@ def phase_step_bench(errs: list) -> dict:
                         iters * walkers * 128 * STEP_FULL_OPS))
 
 
+def write_multi_mesh(path: str):
+    """tests/test_goldens.py's multi-mesh scene: a red box on a grey floor,
+    an emissive lamp box, one light and a glTF camera; 26 triangles."""
+    GlbBuilder, box, quad = _writer()
+    b = GlbBuilder()
+    red = b.add_material(color=(0.8, 0.2, 0.2, 1.0))
+    grey = b.add_material(color=(0.7, 0.7, 0.7, 1.0))
+    glow = b.add_material(color=(1.0, 0.9, 0.6, 1.0), emission=4.0)
+    bpos, bnrm, buv, bidx = box(1.0)
+    qpos, qnrm, quv, qidx = quad(6.0, z=-1.0)
+    lpos, lnrm, luv, lidx = box(0.3)
+    b.add_node(mesh=b.add_mesh([(bpos, bnrm, buv, bidx, red, np.uint16)]))
+    b.add_node(mesh=b.add_mesh([(qpos, qnrm, quv, qidx, grey, np.uint16)]),
+               rotation=(-0.7071068, 0.0, 0.0, 0.7071068))
+    b.add_node(mesh=b.add_mesh([(lpos, lnrm, luv, lidx, glow, np.uint16)]),
+               translation=(1.5, 1.5, -1.0))
+    b.add_node(light=b.add_light(color=(1.0, 1.0, 1.0), intensity=50.0),
+               translation=(0.0, 3.0, -3.0))
+    b.add_node(camera=b.add_camera(aspect=1.0, yfov=0.6),
+               translation=(0.0, 0.5, 6.0))
+    b.write(path)
+
+
+def warm_s(render, reps: int = 2) -> list:
+    """Host seconds of each of ``reps`` calls of ``render``, each ending in
+    a synchronise (the first is the warm-up)."""
+    import torch
+
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def launched(label: str, counts: dict, want: tuple) -> str:
+    """Fail unless every kernel in ``want`` launched in the run and no
+    other did; the counts as a note."""
+    used = {k for k, n in counts.items() if n}
+    if used != set(want):
+        fail(f"phase {label}: launched {sorted(used)}, want {sorted(want)}")
+    return (", ".join(f"{counts[k]} {KERNELS[k]['name']}" for k in want)
+            or "no kernel launches")
+
+
+def phase_bvh_route(tmp: str) -> str:
+    """Phase 9a: the threaded-BVH route (plain torch ops, no kernel) on the
+    card. One 128x128 primary wave of a 2.6k-triangle gallery (> 2048
+    slots) through ``intersect_bvh`` on the card and on the CPU: tri and t
+    bits equal, closest and any-hit. Then a 64x64 frame with
+    ``intersector="bvh"``, card vs CPU within tests/imgdiff.py's bar, and
+    its warm time. Returns the scene's path for 9d/9e."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.kernels.intersect import intersect_bvh
+    from raytpu_torch.scene.camera import camera_from_lookat
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.types import RenderConfig
+
+    glb = os.path.join(tmp, "gallery36.glb")
+    write_gallery(glb, cells=36)
+    scene = load_scene(glb)
+    packs = {dev: pack_scene(scene, dev) for dev in ("cuda", "cpu")}
+    slots = packs["cpu"].n_triangles
+    if slots <= 2048:
+        fail(f"phase 9a: {slots} slots, want > 2048")
+    eye, at, fov = GALLERY_CAM["origin"], GALLERY_CAM["at"], GALLERY_CAM["fov"]
+    ro, rd = primary_wave(pack_camera(camera_from_lookat(eye, at, fov, 128,
+                                                         128), "cuda"),
+                          128, 128, 16, 1)
+    tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
+    shadow = torch.full((ro.shape[0],), 4.0, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    card = intersect_bvh(ro, rd, packs["cuda"].bvh, 0.001, tmax)
+    blocked = intersect_bvh(ro, rd, packs["cuda"].bvh, 0.0, shadow,
+                            any_hit=True)
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    wave_counts = read_launches()
+    cpu = intersect_bvh(ro.cpu(), rd.cpu(), packs["cpu"].bvh, 0.001,
+                        tmax.cpu())
+    blocked_cpu = intersect_bvh(ro.cpu(), rd.cpu(), packs["cpu"].bvh, 0.0,
+                                shadow.cpu(), any_hit=True)
+    if not (torch.equal(card.tri.cpu(), cpu.tri)
+            and same_bits(card.t.cpu(), cpu.t)
+            and torch.equal(blocked.cpu(), blocked_cpu)):
+        fail("phase 9a: intersect_bvh on the card != on the CPU")
+    hits = float(cpu.valid.float().mean())
+    cfg = RenderConfig(width=64, height=64, seed=3, samples=1, bounces=4,
+                       chunk_size=16, intersector="bvh")
+    cams = {dev: pack_camera(camera_from_lookat(eye, at, fov, 64, 64), dev)
+            for dev in packs}
+    reset_launches()
+    secs = warm_s(lambda: render_frame(packs["cuda"], cams["cuda"], cfg))
+    counts = read_launches()
+    frame = render_frame(packs["cuda"], cams["cuda"], cfg)
+    n_diff, frac, s = png_diff(frame, render_frame(packs["cpu"], cams["cpu"],
+                                                   cfg))
+    lit = float((frame[..., :3].max(-1) > 0).mean())
+    print(f"phase 9a bvh route: {slots} slots; {ro.shape[0]}-ray primary "
+          f"wave, closest and any-hit, {wave_s:.3f} s on the card, tri, t "
+          f"bits and blocked bit equal to the CPU's ({hits:.3f} hit); 64x64 "
+          f"1spp 4 bounces frame {secs[0]:.3f} s cold, {secs[1]:.3f} s warm, "
+          f"{lit:.3f} non-black, card vs CPU {n_diff} PNG pixels differ "
+          f"({frac:.4f}), SSIM {s:.5f}; "
+          + launched("9a", {k: wave_counts[k] + counts[k] for k in counts},
+                     ()))
+    if frac > 0.02 or s < 0.99 or lit < 0.3:
+        fail("phase 9a: the card's bvh frame is off the CPU's")
+    return glb
+
+
+class interrupted:
+    """Context manager: ``engine.progressive``'s tile generator stops with
+    KeyboardInterrupt after ``n`` tiles, as a killed render stops."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        from raytpu_torch.engine import progressive
+
+        self.mod, self.real = progressive, progressive.render_frame_tiles
+
+        def tiles(*args, **kwargs):
+            for i, item in enumerate(self.real(*args, **kwargs)):
+                if i == self.n:
+                    raise KeyboardInterrupt
+                yield item
+
+        progressive.render_frame_tiles = tiles
+
+    def __exit__(self, *exc):
+        self.mod.render_frame_tiles = self.real
+
+
+def phase_checkpoint(tmp: str, main_rec: dict) -> None:
+    """Phase 9b: checkpoint/resume on phase 5's gallery at 640x360, 1 spp,
+    4 bounces, ``tile_rows=90`` (4 tiles): interrupted after 2 tiles and
+    resumed, bit-equal to the uninterrupted frame and to render_frame."""
+    import torch
+
+    from raytpu_torch.engine.progressive import render_with_checkpoint
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.scene.camera import load_camera_json
+    from raytpu_torch.scene.pack import pack_camera
+    from raytpu_torch.types import RenderConfig
+
+    pack = main_rec["pack"]
+    cam = pack_camera(load_camera_json(main_rec["cam_json"], 640, 360),
+                      "cuda")
+    cfg = RenderConfig(width=640, height=360, seed=1, samples=1, bounces=4,
+                       chunk_size=8, tile_rows=90)
+    plain_s = warm_s(lambda: render_frame(pack, cam, cfg))
+    plain = render_frame(pack, cam, cfg)
+    fresh = (os.path.join(tmp, f"whole{i}.npz") for i in range(3))
+    reset_launches()
+    whole_s = warm_s(lambda: render_with_checkpoint(pack, cam, cfg,
+                                                    next(fresh)))
+    whole = render_with_checkpoint(pack, cam, cfg, next(fresh))
+    ck = os.path.join(tmp, "ck.npz")
+    t0 = time.perf_counter()
+    try:
+        with interrupted(2):
+            render_with_checkpoint(pack, cam, cfg, ck)
+        fail("phase 9b: the interrupted render ran to its end")
+    except KeyboardInterrupt:
+        pass
+    with np.load(ck) as saved:
+        saved_y0 = int(saved["next_y0"])
+    resumed = render_with_checkpoint(pack, cam, cfg, ck)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    counts = read_launches()
+    lit = float((plain[..., :3].max(-1) > 0).mean())
+    print(f"phase 9b checkpoint: 640x360 1spp 4 bounces in 4 tiles; "
+          f"render_frame {plain_s[1]:.3f} s warm, render_with_checkpoint "
+          f"{whole_s[1]:.3f} s warm; interrupted after 2 tiles (next_y0 "
+          f"{saved_y0}) and resumed, {resume_s:.3f} s in all; resumed == "
+          f"uninterrupted == render_frame bit for bit: "
+          f"{np.array_equal(resumed, whole) and np.array_equal(whole, plain)}"
+          f", {lit:.3f} non-black; " + launched("9b", counts, ("strand",)))
+    if saved_y0 != 180 or not (np.array_equal(resumed, whole)
+                               and np.array_equal(whole, plain)):
+        fail("phase 9b: the resumed frame is not the uninterrupted one")
+
+
+def phase_shards(main_rec: dict) -> None:
+    """Phase 9c: ``render_frame_sharded`` on phase 5's gallery at 640x360,
+    2 spp, 4 bounces: rows over ["cuda:0"] * 2 (raytpu's bar, rtol 2e-6,
+    atol 1e-7, bit-equal count printed), rows x spp over 2 x 2 (mean within
+    0.05), and all devices by default (``n_devices`` = device count)."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.parallel.shard import render_frame_sharded
+    from raytpu_torch.scene.camera import load_camera_json
+    from raytpu_torch.scene.pack import pack_camera
+    from raytpu_torch.types import RenderConfig
+
+    pack = main_rec["pack"]
+    cam = pack_camera(load_camera_json(main_rec["cam_json"], 640, 360),
+                      "cuda")
+    cfg = RenderConfig(width=640, height=360, seed=1, samples=2, bounces=4,
+                       chunk_size=8)
+    single_s = warm_s(lambda: render_frame(pack, cam, cfg))
+    single = render_frame(pack, cam, cfg)
+    runs = {"rows 2": dict(devices=["cuda:0"] * 2),
+            "rows 2 x spp 2": dict(devices=["cuda:0"] * 4,
+                                   n_sample_shards=2),
+            f"n_devices {torch.cuda.device_count()}": dict(
+                n_devices=torch.cuda.device_count())}
+    notes = []
+    for label, kw in runs.items():
+        reset_launches()
+        secs = warm_s(lambda: render_frame_sharded(pack, cam, cfg, **kw))
+        counts = read_launches()
+        out = render_frame_sharded(pack, cam, cfg, **kw)
+        if "spp" in label:
+            dmean = abs(float(out.mean()) - float(single.mean()))
+            ok = out.shape == single.shape and dmean < 0.05
+            note = f"mean off by {dmean:.5f}"
+        else:
+            ok = bool(np.allclose(out, single, rtol=2e-6, atol=1e-7))
+            n_eq = int(np.all(out == single, -1).sum())
+            note = (f"within rtol 2e-6/atol 1e-7: {ok}, {n_eq} of "
+                    f"{out.shape[0] * out.shape[1]} pixels bit-equal")
+        notes.append(f"{label}: {secs[1]:.3f} s warm, {note}, "
+                     + launched("9c " + label, counts, ("strand",)))
+        if not ok:
+            fail(f"phase 9c {label}: off the single-device frame")
+    print(f"phase 9c shards: 640x360 2spp 4 bounces, single device "
+          f"{single_s[1]:.3f} s warm; " + "; ".join(notes)
+          + ". One card: distinct-device threads are not exercised")
+
+
+def phase_cli_flags(tmp: str, glb: str) -> None:
+    """Phase 9d/9e: the CLI on 9a's 2.6k-triangle gallery at 640x360, 1
+    spp, 4 bounces: plain, with ``--profile`` (the trace must exist and
+    name strand_walk's kernel) and with ``--gui`` on a host without a
+    display (DISPLAY unset, matplotlib on Agg): both PNGs equal the plain
+    one."""
+    cam_json = os.path.join(tmp, "camera9.json")
+    with open(cam_json, "w") as f:
+        json.dump(GALLERY_CAM, f)
+    args = dict(width=640, height=360, seed=1, chunk_size=8, samples=1,
+                bounces=4)
+    pngs = {k: os.path.join(tmp, f"cli9_{k}.png")
+            for k in ("plain", "profile", "gui")}
+    plain_s, counts = run_cli(cli_argv(glb, pngs["plain"], args, cam_json))
+    launched("9d plain", counts, ("strand",))
+    prof = os.path.join(tmp, "prof")
+    prof_s, counts = run_cli(cli_argv(glb, pngs["profile"], args, cam_json)
+                             + ["--profile", prof])
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        fail(f"phase 9d: {len(traces)} trace files in --profile's directory")
+    path = os.path.join(prof, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    walks = sum("walk_kernel" in e.get("name", "") for e in kernels)
+    same = read_png_rgb(pngs["profile"]).tobytes() == read_png_rgb(
+        pngs["plain"]).tobytes()
+    print(f"phase 9d --profile: rc 0 in {prof_s:.2f} s (plain {plain_s:.2f} "
+          f"s); trace {traces[0]} {os.path.getsize(path) / 1e6:.1f} MB, "
+          f"{len(events)} events, {len(kernels)} device kernels, {walks} "
+          f"named walk_kernel (strand_walk); PNG equals the plain run's: "
+          f"{same}; " + launched("9d", counts, ("strand",)))
+    if not walks or not same:
+        fail("phase 9d: the trace names no strand_walk launch, or the PNG "
+             "differs")
+    saved = {k: os.environ.pop(k, None) for k in ("DISPLAY",
+                                                  "WAYLAND_DISPLAY")}
+    try:
+        with env(MPLBACKEND="Agg"):
+            gui_s, counts = run_cli(cli_argv(glb, pngs["gui"], args,
+                                             cam_json) + ["--gui"])
+    finally:
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    same = read_png_rgb(pngs["gui"]).tobytes() == read_png_rgb(
+        pngs["plain"]).tobytes()
+    print(f"phase 9e --gui, no display: rc 0 in {gui_s:.2f} s; PNG equals "
+          f"the plain run's: {same}; " + launched("9e", counts, ("strand",)))
+    if not same:
+        fail("phase 9e: the --gui PNG differs from the plain run's")
+
+
+def phase_oracle(tmp: str) -> None:
+    """Phase 9f: a card frame of the multi-mesh scene at 32x32, 2 spp, 3
+    bounces against the port's copy of raytpu's scalar oracle: SSIM >= 0.99
+    on the PNG pixels, at most 4% of pixels beyond 1e-3."""
+    import torch
+
+    from raytpu_torch import render
+    from raytpu_torch.oracle.reference import OracleRenderer
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.types import RenderConfig
+
+    glb = os.path.join(tmp, "multi.glb")
+    write_multi_mesh(glb)
+    scene = load_scene(glb)
+    cfg = RenderConfig(width=32, height=32, seed=3, samples=2, bounces=3,
+                       chunk_size=16)
+    reset_launches()
+    frame = render(scene, scene.camera, cfg)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    t0 = time.perf_counter()
+    ref = OracleRenderer(scene, scene.camera).render(32, 32, 3, 2, 3, 16)
+    oracle_s = time.perf_counter() - t0
+    _, frac, s = png_diff(frame, ref)
+    beyond = float(np.mean(np.abs(frame - ref).max(-1) > 1e-3))
+    lit = float((ref[..., :3].max(-1) > 0).mean())
+    print(f"phase 9f oracle: multi-mesh 32x32 2spp 3 bounces, card vs the "
+          f"oracle copy ({oracle_s:.1f} s on the host): SSIM {s:.5f}, "
+          f"{beyond:.4f} of pixels beyond 1e-3, {frac:.4f} of PNG pixels "
+          f"differ, {lit:.3f} non-black; " + launched("9f", counts,
+                                                       ("packet",)))
+    if s < 0.99 or beyond > 0.04 or lit < 0.1:
+        fail("phase 9f: the card's frame is off the oracle")
+
+
 def main() -> int:
     errs: dict = {k: [] for k in KERNELS}
     try:
@@ -2056,7 +2393,12 @@ def main() -> int:
                                             errs["packet"])
         recs["binned"] = phase_stream(tmp, errs["binned"])
         phase_deferred(recs["strand"])
-    recs["step"] = phase_step_bench(errs["step"])
+        recs["step"] = phase_step_bench(errs["step"])
+        glb = phase_bvh_route(tmp)
+        phase_checkpoint(tmp, recs["strand"])
+        phase_shards(recs["strand"])
+        phase_cli_flags(tmp, glb)
+        phase_oracle(tmp)
     print("bounds: " + "; ".join(
         f"{KERNELS[k]['name']} {r['n_bytes'] / 1e6:.1f} MB -> "
         f"{r['bytes_ms']:.4f} ms, {r['n_ops'] / 1e9:.3f} G operations -> "

@@ -3,21 +3,25 @@ src/main.rs:30-52, plus raytpu's extensions):
 
     python -m raytpu_torch.cli --width W --height H --seed S \
         --scene FILE.glb --chunk-size C --samples N --bounces B \
-        [--output out.png] [--camera camera.json] [--mode path|flat] \
-        [--device cuda|cpu]
+        [--gui] [--output out.png] [--camera camera.json] \
+        [--mode path|flat] [--checkpoint FILE.npz] [--devices N] \
+        [--profile DIR] [--device cuda|cpu]
 
 Camera resolution order matches src/state.rs:398-411: the JSON override
 wins; otherwise the scene's glTF camera; a scene with neither is an error.
 The device is ``cuda`` unless ``--device cpu`` asks for the CPU; with no
-GPU the run stops with status 1 and does not fall back. ``--gui``,
-``--checkpoint``, ``--devices`` > 1 and ``--profile`` are raytpu features
-this package does not run yet: they exit with status 2 before any
-work."""
+GPU the run stops with status 1 and does not fall back. As raytpu's
+``main`` does, the render is ``--gui``'s live preview, else row shards
+over ``--devices`` N > 1 (N cards, or N CPU shards with ``--device
+cpu``), else a checkpointed render with ``--checkpoint``, else one
+``render_frame``; ``--profile`` wraps whichever runs in a torch.profiler
+trace."""
 
 from __future__ import annotations
 
 import argparse
 import sys
+from contextlib import contextmanager, nullcontext
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,35 +41,38 @@ def build_parser() -> argparse.ArgumentParser:
         help="path tracing (reference behaviour) or flat primary-hit colour",
     )
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="progressive checkpoint file (not yet ported)")
+                   help="progressive checkpoint file for resume")
     p.add_argument("--devices", type=int, default=1,
-                   help="shard the frame across devices (not yet ported)")
+                   help="shard the frame's rows across this many devices")
     p.add_argument("--profile", type=str, default=None,
-                   help="profiler trace directory (not yet ported)")
+                   help="write a torch.profiler trace of the render to this "
+                        "directory (TensorBoard or Perfetto open it)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="render device (default: cuda; cpu only when asked)")
     return p
 
 
-def _not_ported(args) -> str | None:
-    if args.gui:
-        return "--gui"
-    if args.checkpoint is not None:
-        return "--checkpoint"
-    if args.devices > 1:
-        return "--devices > 1"
-    if args.profile is not None:
-        return "--profile"
-    return None
+@contextmanager
+def _profiled(trace_dir: str, device: str):
+    """A torch.profiler trace of the block, CPU activity plus CUDA activity
+    on the card, written into ``trace_dir`` as ``*.pt.trace.json`` when the
+    block ends, by an exception too."""
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing is not None:
-        print(f"ray tracer error: {missing} is not yet ported to raytpu_torch",
-              file=sys.stderr)
-        return 2
 
     import torch
 
@@ -106,8 +113,29 @@ def main(argv=None) -> int:
         chunk_size=args.chunk_size,
         mode=args.mode,
     )
-    frame = render_frame(pack_scene(scene, args.device),
-                         pack_camera(camera, args.device), config)
+    pack = pack_scene(scene, args.device)
+    cam = pack_camera(camera, args.device)
+
+    profile_ctx = (nullcontext() if args.profile is None
+                   else _profiled(args.profile, args.device))
+    with profile_ctx:  # exceptions must still close the trace
+        if args.gui:
+            from .gui import run_gui
+
+            frame = run_gui(pack, cam, config)
+        elif args.devices > 1:
+            from .parallel.shard import make_devices, render_frame_sharded
+
+            devices = (["cpu"] * args.devices if args.device == "cpu"
+                       else make_devices(args.devices))
+            frame = render_frame_sharded(pack, cam, config, devices=devices)
+        elif args.checkpoint is not None:
+            from .engine.progressive import render_with_checkpoint
+
+            frame = render_with_checkpoint(pack, cam, config, args.checkpoint)
+        else:
+            frame = render_frame(pack, cam, config)
+
     if args.output is not None:
         write_png(args.output, frame)
     return 0

@@ -20,8 +20,10 @@ one. A stream pack (no BVH8) takes the strand route, or the binned
 treelet route when it has no strand tree. The binned route, and
 ``bounce_backend="binned"``, defer each bounce's shadow rays into the next
 bounce's mixed binned query (``_mixed_bounce_query``). Every kernel runs
-as CUDA on a CUDA device and as its plain version on the CPU.
-``_shade_core`` shades the hits.
+as CUDA on a CUDA device and as its plain version on the CPU. The
+``brute`` sweep and the threaded-BVH walk (``bvh``) are plain torch ops on
+either device and run only when asked for. ``_shade_core`` shades the
+hits.
 
 Reference quirks reproduced on purpose (as in raytpu):
 
@@ -47,13 +49,7 @@ import numpy as np
 import torch
 
 from ..kernels import rng as rngk
-from ..kernels.intersect import (
-    F32_MAX,
-    Hit,
-    barycentrics,
-    intersect_any_bruteforce,
-    intersect_bruteforce,
-)
+from ..kernels.intersect import F32_MAX, Hit, barycentrics, make_intersectors
 from ..kernels.binned import make_binned_intersectors, make_binned_query
 from ..kernels.packet import make_packet_intersectors
 from ..kernels.strand import make_strand_intersectors
@@ -610,13 +606,6 @@ def _flat_shade(pack: ScenePack, closest, ro, rd):
     return torch.where(hit.valid[:, None], color, 0.0)
 
 
-# routes raytpu has that this package does not yet run, with the ROADMAP
-# item that ports each
-_NOT_PORTED = {
-    "bvh": "ROADMAP 1.10 (threaded-BVH walk)",
-}
-
-
 def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     """Resolve config.intersector to ((closest, any), packet_mode,
     mixed_fn, prefer_mixed, bounce_pair), as raytpu's TPU branch does.
@@ -633,8 +622,12 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     a tree. "binned" runs every query through the treelets, with
     ``prefer_mixed`` set (deferred NEE above 256 slots). Each kernel is the
     CUDA one for a pack on a CUDA device, its plain version on the CPU;
-    all walk rays in 32x32-block order. "brute" is the torch sweep in row
-    order."""
+    all walk rays in 32x32-block order. "brute" and "bvh" go through
+    ``make_intersectors`` in row order, with ``packet_mode`` False, as
+    raytpu's last branch does: the torch sweep, and the threaded-BVH walk
+    with raytpu's visit-order ties. "auto" never picks them (raytpu's CPU
+    "auto" does, at 2048 slots; the port follows its TPU branch on both
+    devices)."""
     which = config.intersector
     if config.bounce_backend == "mixed":
         raise NotImplementedError(
@@ -643,10 +636,6 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
         )
     if config.bounce_backend not in ("sorted", "binned"):
         raise ValueError(f"unknown bounce_backend {config.bounce_backend!r}")
-    if which in _NOT_PORTED:
-        raise NotImplementedError(
-            f"intersector={which!r} is not ported yet: {_NOT_PORTED[which]}"
-        )
     if which == "auto":
         if pack.bvh.node8_rows is not None:
             which = "packet"
@@ -689,18 +678,10 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     if which == "strand":
         pair = make_strand_intersectors(pack)
         return pair, True, None, False, pair
-    if which == "brute":
-        def closest(ro, rd, tmin, tmax):
-            return intersect_bruteforce(
-                ro, rd, pack.tri_p0, pack.tri_e1, pack.tri_e2, tmin, tmax
-            )
-
-        def any_hit(ro, rd, tmin, tmax):
-            return intersect_any_bruteforce(
-                ro, rd, pack.tri_p0, pack.tri_e1, pack.tri_e2, tmin, tmax
-            )
-
-        return (closest, any_hit), False, None, False, None
+    if which in ("brute", "bvh"):
+        return (make_intersectors(
+            pack, bruteforce_max_tris=config.bruteforce_max_tris,
+            which=which), False, None, False, None)
     raise ValueError(f"unknown intersector {which!r}")
 
 
@@ -850,12 +831,18 @@ def _auto_tile_rows(config: RenderConfig, n_tris: int) -> int:
 
 
 def render_frame_tiles(pack: ScenePack, camera: CameraPack,
-                       config: RenderConfig):
-    """Generator over (y0, rows, tile [rows, W, 4] numpy f32)."""
+                       config: RenderConfig, first_row: int = 0):
+    """Generator over (y0, rows, tile [rows, W, 4] numpy f32): the
+    progressive API of the GUI and checkpoint/resume (the reference's
+    per-chunk loop, src/main.rs:310-317). Tiles that end at or before
+    ``first_row`` are neither rendered nor yielded (a resumed checkpoint;
+    raytpu renders them and its caller drops them)."""
     tile_h = _auto_tile_rows(config, pack.n_triangles)
     for y0 in range(0, config.height, tile_h):
-        tile = render_tile(pack, camera, y0, config, tile_h)
         rows = min(tile_h, config.height - y0)
+        if y0 + rows <= first_row:
+            continue
+        tile = render_tile(pack, camera, y0, config, tile_h)
         yield y0, rows, tile[:rows].cpu().numpy()
 
 

@@ -12,6 +12,11 @@ The flags pin the float rules the kernels share with their plain torch
 versions: no FMA contraction, IEEE division and square root, and no
 flush-to-zero. A missing ``nvcc`` or a failed build raises; nothing falls
 back to the plain version.
+
+Building and loading are thread-safe: one re-entrant module lock
+(``LOCK``) serialises them, so two threads that ask for one library at
+once build it once, and the wrappers' lazy initialisers hold the same lock
+around ``load_library``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -30,6 +36,7 @@ NVCC_FLAGS = [
     "-prec-sqrt=true", "-ftz=false", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -61,25 +68,27 @@ def library_path(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its shared object is missing, then load
     it. The compiler's output, with ptxas's register and spill report, is
-    kept beside it as ``<so>.log``."""
+    kept beside it as ``<so>.log``. Holds ``LOCK`` throughout; the
+    temporary file is named per process and thread."""
     so_path = library_path(name)
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = so_path + f".tmp{os.getpid()}"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, name + ".cu"),
-             "-o", tmp],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {name}.cu (rc {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
+    with LOCK:
+        if not os.path.exists(so_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = so_path + f".tmp{os.getpid()}.{threading.get_ident()}"
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, name + ".cu"),
+                 "-o", tmp],
+                capture_output=True, text=True,
             )
-        with open(so_path + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, so_path)
-    return ctypes.CDLL(so_path)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {name}.cu (rc {proc.returncode}):"
+                    f"\n{proc.stdout}\n{proc.stderr}"
+                )
+            with open(so_path + ".log", "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            os.replace(tmp, so_path)
+        return ctypes.CDLL(so_path)
 
 
 def build_log(name: str) -> str:

@@ -258,18 +258,19 @@ _LIB = None
 def _library():
     """The built kernel library with its C signatures declared."""
     global _LIB
-    if _LIB is None:
-        from ._build import load_library
+    from ._build import LOCK, load_library
 
-        lib = load_library("binned_walk")
-        lib.binned_walk_launch.restype = ctypes.c_int
-        lib.binned_walk_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-        )
-        lib.binned_walk_error_string.restype = ctypes.c_char_p
-        lib.binned_walk_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
+    with LOCK:
+        if _LIB is None:
+            lib = load_library("binned_walk")
+            lib.binned_walk_launch.restype = ctypes.c_int
+            lib.binned_walk_launch.argtypes = (
+                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+            )
+            lib.binned_walk_error_string.restype = ctypes.c_char_p
+            lib.binned_walk_error_string.argtypes = [ctypes.c_int]
+            _LIB = lib
     return _LIB
 
 
@@ -329,7 +330,8 @@ def make_binned_query(pack, max_rounds: int | None = None):
     ``max_rounds`` truncates the round loop (diagnostics only: results are
     exact only when the loop runs to its end). raytpu's ``packet`` (rays
     per TPU packet) has no counterpart: rays are sorted by treelet and
-    walked one thread each."""
+    walked one thread each. On a CUDA pack the kernel's library is built or
+    loaded here, on the caller's thread."""
     tnodes = pack.tl_nodes.contiguous()
     tleaves = pack.tl_leaves.contiguous()
     first = pack.bvh.first_slots.contiguous()
@@ -337,6 +339,8 @@ def make_binned_query(pack, max_rounds: int | None = None):
     tb_max = pack.tl_bmax
     n_tl = tnodes.shape[0]
     chunk = max(4096, min(262144, (SELECT_ELEMS // max(n_tl, 1)) // 128 * 128))
+    if tnodes.device.type == "cuda":  # build or load here, not at a launch
+        _library()
 
     def query(ro, rd, tmax, smask, *, tmin: float, shadow_tmin: float):
         dev = ro.device

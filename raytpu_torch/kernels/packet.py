@@ -211,18 +211,19 @@ _LIB = None
 def _library():
     """The built kernel library with its C signatures declared."""
     global _LIB
-    if _LIB is None:
-        from ._build import load_library
+    from ._build import LOCK, load_library
 
-        lib = load_library("packet_walk")
-        lib.packet_walk_launch.restype = ctypes.c_int
-        lib.packet_walk_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        lib.packet_walk_error_string.restype = ctypes.c_char_p
-        lib.packet_walk_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
+    with LOCK:
+        if _LIB is None:
+            lib = load_library("packet_walk")
+            lib.packet_walk_launch.restype = ctypes.c_int
+            lib.packet_walk_launch.argtypes = (
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            )
+            lib.packet_walk_error_string.restype = ctypes.c_char_p
+            lib.packet_walk_error_string.argtypes = [ctypes.c_int]
+            _LIB = lib
     return _LIB
 
 
@@ -276,10 +277,13 @@ def make_packet_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
     signature over ``pack.bvh.node8_rows``, ties broken on
     ``pack.bvh.first_slots``. tmin is baked: 0.001 for closest-hit and 0.0
-    for any-hit; another value raises."""
+    for any-hit; another value raises. On a CUDA pack the kernel's library
+    is built or loaded here, on the caller's thread."""
     node8 = pack.bvh.node8_rows.contiguous()
     leaves = pack.bvh.leaf_tris.contiguous()
     first = pack.bvh.first_slots.contiguous()
+    if node8.device.type == "cuda":  # build or load here, not at a launch
+        _library()
 
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "packet closest")

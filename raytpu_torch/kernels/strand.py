@@ -278,20 +278,22 @@ def _library(name: str) -> ctypes.CDLL:
     """The built ``csrc/<name>.cu`` with its launch signature declared:
     (rows, leaves, first, ro, rd, tmax, t, tri, [stats,] n_rays, n_nodes,
     n_leaf_rows, tmin, any_hit, stream)."""
-    if name not in _LIBS:
-        from ._build import load_library
+    from ._build import LOCK, load_library
 
-        lib = load_library(name)
-        launch = getattr(lib, name + "_launch")
-        launch.restype = ctypes.c_int
-        n_ptr = 9 if name == "strand_block" else 8
-        launch.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        err = getattr(lib, name + "_error_string")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
-    return _LIBS[name]
+    with LOCK:
+        if name not in _LIBS:
+            lib = load_library(name)
+            launch = getattr(lib, name + "_launch")
+            launch.restype = ctypes.c_int
+            n_ptr = 9 if name == "strand_block" else 8
+            launch.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+                               + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p])
+            err = getattr(lib, name + "_error_string")
+            err.restype = ctypes.c_char_p
+            err.argtypes = [ctypes.c_int]
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def _launch(name, strand_rows, leaf_tris, first, ro, rd, tmax, tmin,
@@ -523,7 +525,8 @@ def make_strand_intersectors(pack):
     the persistent kernel, and so does the port). raytpu's block-kernel
     scheduling knobs (``groups``, ``RAYTPU_STRAND_SKIP_DONE``,
     ``RAYTPU_STRAND_MULTIROLL``, the leaf-queue deferral) are TPU
-    scheduling and have no counterpart."""
+    scheduling and have no counterpart. On a CUDA pack the chosen walk's
+    library is built or loaded here, on the caller's thread."""
     if pack.bvh.strand_rows is None:
         raise ValueError(
             "intersector='strand' needs a strand tree; scenes above "
@@ -536,6 +539,8 @@ def make_strand_intersectors(pack):
     if (tree.numel() + leaves.numel()) * 4 > STRAND_TABLE_BUDGET:
         persistent = True
     query = strand_query if persistent else strand_block_query
+    if tree.device.type == "cuda":  # build or load here, not at a launch
+        _library("strand_walk" if persistent else "strand_block")
 
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "strand closest")

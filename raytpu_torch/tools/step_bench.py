@@ -186,20 +186,23 @@ _LIB = None
 def _library():
     """The built step_bench library with its C signatures declared."""
     global _LIB
-    if _LIB is None:
-        from ..kernels._build import load_library
+    from ..kernels._build import LOCK, load_library
 
-        lib = load_library("step_bench")
-        lib.step_bench_launch.restype = ctypes.c_int
-        lib.step_bench_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.step_bench_empty_launch.restype = ctypes.c_int
-        lib.step_bench_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.step_bench_smem_bytes.restype = ctypes.c_int
-        lib.step_bench_smem_bytes.argtypes = [ctypes.c_int]
-        lib.step_bench_error_string.restype = ctypes.c_char_p
-        lib.step_bench_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
+    with LOCK:
+        if _LIB is None:
+            lib = load_library("step_bench")
+            lib.step_bench_launch.restype = ctypes.c_int
+            lib.step_bench_launch.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+            lib.step_bench_empty_launch.restype = ctypes.c_int
+            lib.step_bench_empty_launch.argtypes = [ctypes.c_int,
+                                                    ctypes.c_void_p]
+            lib.step_bench_smem_bytes.restype = ctypes.c_int
+            lib.step_bench_smem_bytes.argtypes = [ctypes.c_int]
+            lib.step_bench_error_string.restype = ctypes.c_char_p
+            lib.step_bench_error_string.argtypes = [ctypes.c_int]
+            _LIB = lib
     return _LIB
 
 

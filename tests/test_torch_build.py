@@ -1,0 +1,104 @@
+"""The lazy kernel build is thread-safe: with ``nvcc`` and
+``ctypes.CDLL`` stubbed, threads that ask for one library at once build
+it exactly once into one file, and the wrappers' lazy initialisers load
+once."""
+
+import os
+import subprocess
+import sys
+import threading
+import time
+from types import SimpleNamespace
+
+import pytest
+
+from raytpu_torch.kernels import _build, binned, packet, strand
+from raytpu_torch.tools import step_bench
+
+
+@pytest.fixture
+def stub_nvcc(tmp_path, monkeypatch):
+    """Stub compiler and loader; returns the list of builds (names)."""
+    builds = []
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+
+    def run(cmd, **kwargs):
+        out = cmd[cmd.index("-o") + 1]
+        builds.append(os.path.basename(cmd[-3]))
+        time.sleep(0.05)  # widen the window a second build would race in
+        with open(out, "wb") as f:
+            f.write(b"so")
+        return subprocess.CompletedProcess(cmd, 0, "ptxas info", "")
+
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        yield builds
+    finally:
+        sys.setswitchinterval(old)
+
+
+def _together(fn, args):
+    """Run fn(arg) for each arg on its own thread, started together."""
+    go = threading.Barrier(len(args))
+    out = [None] * len(args)
+
+    def body(i):
+        go.wait(timeout=10)
+        out[i] = fn(args[i])
+
+    threads = [threading.Thread(target=body, args=(i,))
+               for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=20)
+    assert not any(t.is_alive() for t in threads)
+    return out
+
+
+def test_two_threads_build_one_library_once(stub_nvcc, tmp_path):
+    libs = _together(_build.load_library, ["strand_walk"] * 2)
+    assert stub_nvcc == ["strand_walk.cu"]
+    so = _build.library_path("strand_walk")
+    assert libs == [("lib", so)] * 2
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(so), os.path.basename(so) + ".log"])
+    # loaded again: no build
+    assert _build.load_library("strand_walk") == ("lib", so)
+    assert len(stub_nvcc) == 1
+
+
+class _FakeLib:
+    """Any attribute is a settable stand-in for a ctypes function."""
+
+    def __getattr__(self, name):
+        fn = SimpleNamespace()
+        object.__setattr__(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("module,arg", [(packet, None), (binned, None),
+                                        (strand, "strand_walk"),
+                                        (strand, "strand_block"),
+                                        (step_bench, None)])
+def test_lazy_initialisers_load_once(monkeypatch, module, arg):
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        time.sleep(0.05)
+        return _FakeLib()
+
+    monkeypatch.setattr(_build, "load_library", load)
+    if module is strand:
+        monkeypatch.setattr(strand, "_LIBS", {})
+    else:
+        monkeypatch.setattr(module, "_LIB", None)
+    libs = _together(lambda a: module._library(*([a] if a else [])),
+                     [arg] * 4)
+    assert len(loads) == 1
+    assert all(lib is libs[0] for lib in libs)

@@ -177,14 +177,12 @@ def test_tiles_stitch_to_the_frame():
     assert rows == [12, 12, 8]
 
 
-@pytest.mark.parametrize("which", ["bvh", "binned"])
+@pytest.mark.parametrize("which", ["binned"])
 def test_unported_routes_raise(which):
-    """"bvh" is not ported yet; "binned" is, and on a pack without treelets
-    it raises raytpu's ValueError."""
+    """Every route is ported; "binned" on a pack without treelets raises
+    raytpu's ValueError."""
     (pack, cam), _ = _packs("small")
-    err, match = {"bvh": (NotImplementedError, "ROADMAP"),
-                  "binned": (ValueError, "treelet tables")}[which]
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match="treelet tables"):
         render.render_tile(pack, cam, 0, RenderConfig(**CFG, intersector=which),
                            8)
 
@@ -319,14 +317,6 @@ def test_cli_writes_the_rendered_png(tmp_path):
     # without --camera the scene's glTF camera is used
     assert cli.main(_cli_args(tmp_path, "gltf.png", camera=False)) == 0
     assert (tmp_path / "gltf.png").stat().st_size > 0
-
-
-@pytest.mark.parametrize("flag", [["--gui"], ["--checkpoint", "ck.npz"],
-                                  ["--devices", "2"], ["--profile", "prof"]])
-def test_cli_unported_flags_exit_2(tmp_path, capsys, flag):
-    assert cli.main(_cli_args(tmp_path) + flag) == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not (tmp_path / "out.png").exists()
 
 
 def test_cli_without_device_refuses_without_a_gpu(tmp_path, capsys):
