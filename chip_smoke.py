@@ -5,7 +5,9 @@
 Builds the CUDA kernels from source (strand walk, the packet route's
 BVH8 walk, the binned route's treelet walk, the block-scheduled strand
 walk and the per-step probe, one nvcc each, in parallel), holds each
-walk bit for bit against its plain torch version (phases 3, 3b, 3c, 3d),
+walk bit for bit against its plain torch version (phases 3, 3b, 3c, 3d;
+3e and 3f the mixed-lane forms of the strand and packet walks, also
+against their separate closest-hit and any-hit launches),
 renders small frames on the card and on the CPU (phase 4, the packet
 route in path and flat mode; phase 4b, the binned route on a stream
 pack), then drives the entry points in this process, so each kernel's
@@ -44,7 +46,13 @@ launch count can be read:
   shards against the single-device frame; (d) the CLI with ``--profile``,
   whose trace must name strand_walk's kernel; (e) the CLI with ``--gui``
   without a display, the same PNG as the plain run; (f) a card frame of
-  the multi-mesh scene against the port's copy of raytpu's scalar oracle.
+  the multi-mesh scene against the port's copy of raytpu's scalar oracle;
+* phase 10, raytpu's remaining engine arms on phase 5's frame: (a)
+  ``bounce_backend="mixed"`` (deferred NEE through the strand walk's
+  mixed form), whose PNG must equal phase 7b's and whose mixed queries
+  are sampled against the brute sweep; (b) ``RAYTPU_WAVE_MODE=resort``
+  and ``compact``; (c) ``RAYTPU_SORT_MODE=gather``, ``seg`` and
+  ``RAYTPU_COMPACT=1``, each PNG equal to phase 5's.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record and ``{"ok": true, "device":
@@ -105,6 +113,18 @@ KERNELS = {
         route="cuda",
         source="raytpu_torch/kernels/csrc/step_bench.cu",
         replaces="benchmarks/step_bench.py:62",
+    ),
+    "strand_mixed": dict(
+        name="strand_walk (mixed)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/strand_walk.cu",
+        replaces="raytpu/kernels/strand_persistent.py:52",
+    ),
+    "packet_mixed": dict(
+        name="packet_walk (mixed)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/packet_walk.cu",
+        replaces="raytpu/kernels/intersect_pallas.py:71",
     ),
 }
 # one H100 SXM's peaks (NVIDIA's data sheet, at a 700 W limit)
@@ -232,31 +252,39 @@ def kernel_fns(which: str):
             packet_query_torch)
 
 
-def _wrappers() -> dict:
+def _counters() -> dict:
+    """Each kernel's launch count as (wrapper, attribute): packet_walk's
+    wrapper counts its mixed form apart."""
     from raytpu_torch.kernels.binned import binned_walk_cuda
     from raytpu_torch.kernels.packet import packet_query_cuda
     from raytpu_torch.kernels.strand import (
         strand_block_query_cuda,
+        strand_mixed_query_cuda,
         strand_query_cuda,
     )
     from raytpu_torch.tools.step_bench import step_bench_cuda
 
-    return dict(strand=strand_query_cuda, packet=packet_query_cuda,
-                binned=binned_walk_cuda, block=strand_block_query_cuda,
-                step=step_bench_cuda)
+    return dict(strand=(strand_query_cuda, "launches"),
+                packet=(packet_query_cuda, "launches"),
+                binned=(binned_walk_cuda, "launches"),
+                block=(strand_block_query_cuda, "launches"),
+                step=(step_bench_cuda, "launches"),
+                strand_mixed=(strand_mixed_query_cuda, "launches"),
+                packet_mixed=(packet_query_cuda, "mixed_launches"))
 
 
 def reset_launches() -> None:
     """Every launch count, and the binned queries' round counts, to 0."""
     from raytpu_torch.kernels.binned import QUERY_STATS
 
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
     QUERY_STATS.update(queries=0, rounds=0, max_rounds=0)
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
 
 
 def rounds_note() -> str:
@@ -587,14 +615,21 @@ def phase_build():
         _build.load_library(name)
         return name, time.perf_counter() - t0
 
-    names = [k["name"] for k in KERNELS.values()]
+    # one library per source: a kernel's mixed form lives in its source
+    names = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
+                    for k in KERNELS.values()})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build, names))
     notes = []
     for name, secs in built:
-        ptxas = [line.strip() for line in _build.build_log(name).splitlines()
-                 if "registers" in line or "spill" in line]
+        # ptxas -v: each kernel's mangled name, then its stack, spills and
+        # registers
+        ptxas = [line.split()[-1] if "Function properties" in line
+                 else line.strip()
+                 for line in _build.build_log(name).splitlines()
+                 if "registers" in line or "spill" in line
+                 or "Function properties" in line]
         notes.append(f"{name}.cu in {secs:.2f} s: " + " | ".join(ptxas))
     print(f"phase 2 build: ok — {len(built)} sources in "
           f"{time.perf_counter() - t0:.2f} s; " + "; ".join(notes))
@@ -681,6 +716,167 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
           "rays (closest t/tri, any-hit blocked); " + "; ".join(notes))
     if total_bad:
         fail(f"{name}: {total_bad} kernel-vs-brute mismatches")
+
+
+def mixed_fns(which: str):
+    """(kernel, plain version, device dispatcher) of a walk's mixed form,
+    each called as ``fn(*tables, ro, rd, tmax, smask, tmin,
+    shadow_tmin)``."""
+    if which == "strand":
+        from raytpu_torch.kernels.strand import (
+            strand_mixed_query,
+            strand_mixed_query_cuda,
+            strand_mixed_query_torch,
+        )
+
+        return (strand_mixed_query_cuda, strand_mixed_query_torch,
+                strand_mixed_query)
+    from raytpu_torch.kernels.packet import (
+        packet_query,
+        packet_query_cuda,
+        packet_query_torch,
+    )
+
+    def kernel(*args):
+        *head, smask, tmin, shadow_tmin = args
+        return packet_query_cuda(*head, tmin, False, smask, shadow_tmin)
+
+    def plain(*args, counts=None):
+        *head, smask, tmin, shadow_tmin = args
+        return packet_query_torch(*head, tmin, False, counts, smask=smask,
+                                  shadow_tmin=shadow_tmin)
+
+    def dispatch(*args):
+        *head, smask, tmin, shadow_tmin = args
+        return packet_query(*head, tmin, False, smask, shadow_tmin)
+
+    return kernel, plain, dispatch
+
+
+def mixed_vs_separate(kernel, tables, ro, rd, tmax, smask, t_m, tri_m,
+                      tmin=0.001, shadow_tmin=0.0) -> int:
+    """Lanes where a mixed launch's result (t_m, tri_m) differs from the
+    separate closest-hit launch (t bits, tri) and any-hit launch (the
+    blocked bit) of the same walk."""
+    import torch
+
+    shad = smask == 1.0
+    neg = torch.full_like(tmax, float("-inf"))
+    t_c, tri_c = kernel(*tables, ro, rd, torch.where(shad, neg, tmax), tmin,
+                        False)
+    _, tri_a = kernel(*tables, ro, rd, torch.where(shad, tmax, neg),
+                      shadow_tmin, True)
+    bad_c = ~shad & ((tri_m != tri_c) | (t_m.view(torch.int32)
+                                         != t_c.view(torch.int32)))
+    bad_a = shad & ((tri_m >= 0) != (tri_a >= 0))
+    return int((bad_c | bad_a).sum())
+
+
+def mixed_lanes(n: int, dev: str):
+    """Bounds and shadow flags of a mixed launch over n rays: every other
+    lane a shadow lane (bound 6), the rest closest (F32_MAX, every tenth
+    5.0, an open bound), every seventh lane dead (both kinds)."""
+    import torch
+
+    smask = torch.zeros(n, device=dev)
+    smask[1::2] = 1.0
+    tmax = torch.full((n,), F32_MAX, device=dev)
+    tmax[::10] = 5.0
+    tmax = torch.where(smask == 1.0, torch.full_like(tmax, 6.0), tmax)
+    tmax[::7] = float("-inf")
+    return tmax, smask
+
+
+def phase_mixed_kernel(errs: list, which: str, label: str) -> int:
+    """Phase 3e (strand) / 3f (packet): the walk's mixed form on phase 3's
+    3 soups x 65536 rays, half of them shadow lanes, dead lanes of both
+    kinds: the kernel against its plain version (closest lanes t bits and
+    tri, shadow lanes the blocked bit) and against the walk's separate
+    closest-hit and any-hit launches, lane for lane. For the packet walk
+    also raytpu's capped two-round check (tests/test_intersect.py): a
+    round capped at 6 and a second round over [6, tmax) from tmin =
+    shadow_tmin = 6 give the one-round answer. No engine path calls the
+    packet walk's mixed form, as in raytpu: its launches are those of the
+    queries through ``packet_query`` (the one round and the two capped
+    rounds on each soup), counted from 0."""
+    import torch
+
+    tables_of, sep_kernel, _ = kernel_fns(which)
+    kernel, plain, dispatch = mixed_fns(which)
+    name = KERNELS[which + "_mixed"]["name"]
+    dev = "cuda"
+    notes, launches = [], 0
+    for ntri in (5, 300, 3000):
+        bvh, bvh8, per, order = slot_rows(*soup(ntri))
+        leaf = torch.from_numpy(per.reshape(-1, 80).copy()).to(dev)
+        tables = tables_of(bvh, bvh8.node_rows, leaf)
+        ro_np, rd_np = soup_rays(65536, seed=ntri)
+        ro = torch.from_numpy(ro_np).to(dev)
+        rd = torch.from_numpy(rd_np).to(dev)
+        tmax, smask = mixed_lanes(65536, dev)
+        shad = smask == 1.0
+        if which == "packet":
+            cap = 6.0
+            reset_launches()
+            t_m, tri_m = dispatch(*tables, ro, rd, tmax, smask, 0.001,
+                                         0.0)
+            t1, tri1 = dispatch(*tables, ro, rd,
+                                       torch.clamp(tmax, max=cap), smask,
+                                       0.001, 0.0)
+            unresolved = (tri1 < 0) & (tmax > cap)
+            t2, tri2 = dispatch(
+                *tables, ro, rd,
+                torch.where(unresolved, tmax, float("-inf")), smask, cap,
+                cap)
+            torch.cuda.synchronize()
+            launches += read_launches()["packet_mixed"]
+            # two walks may return different copies of one triangle: the
+            # closest lanes are compared on the tie key
+            first = tables[-1]
+
+            def key(tri):
+                return torch.where(tri >= 0, first[tri.clamp(min=0).long()],
+                                   -1)
+
+            tri12 = torch.where(tri1 >= 0, tri1, tri2)
+            t12 = torch.where(tri1 >= 0, t1, t2)
+            hit = ~shad & (tri_m >= 0)
+            two_bad = int((~shad & (key(tri12) != key(tri_m))).sum()
+                          + (hit & (t12.view(torch.int32)
+                                    != t_m.view(torch.int32))).sum()
+                          + (shad & ((tri12 >= 0) != (tri_m >= 0))).sum())
+            if two_bad:
+                fail(f"{name} {ntri} tris: the capped two rounds differ "
+                     f"from one round on {two_bad} lanes")
+        else:
+            t_m, tri_m = kernel(*tables, ro, rd, tmax, smask, 0.001, 0.0)
+        t_p, tri_p = plain(*tables, ro, rd, tmax, smask, 0.001, 0.0)
+        torch.cuda.synchronize()
+        bad = int((~shad & ((tri_m != tri_p) | (t_m.view(torch.int32)
+                                               != t_p.view(torch.int32)))
+                   | (shad & ((tri_m >= 0) != (tri_p >= 0)))).sum())
+        if bad:
+            fail(f"{name} {ntri} tris: kernel != plain on {bad} lanes")
+        dead = tmax < 0
+        if not bool((tri_m[dead] == -1).all()):
+            fail(f"{name} {ntri} tris: a dead lane returned a hit")
+        sep = mixed_vs_separate(sep_kernel, tables, ro, rd, tmax, smask, t_m,
+                                tri_m)
+        if sep:
+            fail(f"{name} {ntri} tris: the mixed launch differs from the "
+                 f"separate closest and any-hit launches on {sep} lanes")
+        errs.append(t_err(t_m[~shad], t_p[~shad]))
+        notes.append(f"{ntri} tris: {int((~shad & (tri_m >= 0)).sum())} "
+                     f"closest hits, {int((shad & (tri_m >= 0)).sum())} "
+                     "shadow lanes blocked")
+    extra = (f"; capped two rounds == one round on every lane; "
+             f"{launches} launches through packet_query"
+             if which == "packet" else "")
+    print(f"phase {label} {name} vs plain: bit-equal on 3 soups x 65536 "
+          "lanes (half shadow lanes; closest t/tri, shadow blocked), equal "
+          "to the separate closest-hit and any-hit launches lane for lane; "
+          + "; ".join(notes) + extra)
+    return launches
 
 
 def tie_mismatches(first, tri, brute_tri) -> int:
@@ -1354,7 +1550,7 @@ def phase_main(tmp: str, errs: list) -> dict:
         fail("the path waves of a >256-slot scene did not all take strand_walk")
     return dict(launches=counts["strand"], ms=ms, plain_ms=plain_ms, **bnd,
                 glb=glb, cam_json=cam_json, png=png, pack=pack, cam=cam,
-                frame=frame)
+                frame=frame, frame_s=frame_s)
 
 
 class recorded_queries:
@@ -1905,14 +2101,19 @@ def phase_stream(tmp: str, errs: list) -> dict:
 
 
 class recorded_mixed:
-    """Context manager: the inputs and results of every binned mixed query
-    the engine makes inside it (``render.make_binned_query`` wrapped), as
-    a list of (ro, rd, tmax, smask, tmin, shadow_tmin, t, tri)."""
+    """Context manager: the inputs and results of every mixed query the
+    engine makes inside it (the factory ``render.<factory>`` wrapped:
+    ``make_binned_query`` or ``make_strand_mixed_query``), as a list of
+    (ro, rd, tmax, smask, tmin, shadow_tmin, t, tri)."""
+
+    def __init__(self, factory: str = "make_binned_query"):
+        self.factory = factory
 
     def __enter__(self):
         from raytpu_torch.engine import render as render_mod
 
-        self.mod, self.real = render_mod, render_mod.make_binned_query
+        self.mod = render_mod
+        self.real = getattr(render_mod, self.factory)
         self.calls = []
 
         def make(pack):
@@ -1927,14 +2128,38 @@ class recorded_mixed:
 
             return recorded
 
-        render_mod.make_binned_query = make
+        setattr(render_mod, self.factory, make)
         return self.calls
 
     def __exit__(self, *exc):
-        self.mod.make_binned_query = self.real
+        setattr(self.mod, self.factory, self.real)
 
 
-def phase_deferred(main_rec: dict) -> None:
+def mixed_vs_brute(label: str, pack, calls: list, seed: int) -> None:
+    """Each recorded mixed query held to the brute sweep on a seeded
+    SAMPLE of its closest lanes (t bits and the triangle's rows) and of
+    its shadow lanes (the blocked bit); fails on any mismatch."""
+    bad, notes = 0, []
+    for i, (ro, rd, tmax, smask, tmin, shadow_tmin, t, tri) in enumerate(
+            calls):
+        for shadow in (False, True):
+            lanes = ((smask == 1.0) == shadow).nonzero().squeeze(1)
+            idx = lanes[sample_of(lanes.numel(), seed + 2 * i + shadow)]
+            n_bad = int((~brute_agrees(
+                pack, t, tri, ro, rd, tmax, shadow_tmin if shadow else tmin,
+                shadow, idx)).sum())
+            bad += n_bad
+            notes.append(f"{'shadow' if shadow else 'closest'} {n_bad} of "
+                         f"{idx.numel()}")
+    print(f"phase {label} mixed queries vs brute on a {SAMPLE}-lane sample "
+          f"of each lane kind of the frame's {len(calls)} queries: "
+          + ", ".join(notes))
+    if bad:
+        fail(f"phase {label}: the mixed queries disagree with the brute "
+             f"sweep on {bad} sampled lanes")
+
+
+def phase_deferred(main_rec: dict) -> dict:
     """Phase 7b: phase 5's pack and configuration with
     intersector="packet", bounce_backend="binned" (strand primary and last
     shadow waves, deferred NEE in binned mixed bounces); its PNG against
@@ -1976,24 +2201,150 @@ def phase_deferred(main_rec: dict) -> None:
     with recorded_mixed() as calls:
         render_frame(pack, cam, cfg)
         torch.cuda.synchronize()
-    bad, notes = 0, []
-    for i, (ro, rd, tmax, smask, tmin, shadow_tmin, t, tri) in enumerate(
-            calls):
-        for shadow in (False, True):
-            lanes = ((smask == 1.0) == shadow).nonzero().squeeze(1)
-            idx = lanes[sample_of(lanes.numel(), 30 + 2 * i + shadow)]
-            n_bad = int((~brute_agrees(
-                pack, t, tri, ro, rd, tmax, shadow_tmin if shadow else tmin,
-                shadow, idx)).sum())
-            bad += n_bad
-            notes.append(f"{'shadow' if shadow else 'closest'} {n_bad} of "
-                         f"{idx.numel()}")
-    print(f"phase 7b binned mixed queries vs brute on a {SAMPLE}-lane sample "
-          f"of each lane kind of the frame's {len(calls)} queries: "
-          + ", ".join(notes))
-    if bad:
-        fail(f"phase 7b: the binned mixed queries disagree with the brute "
-             f"sweep on {bad} sampled lanes")
+    mixed_vs_brute("7b binned", pack, calls, 30)
+    return dict(frame=frame, frame_s=frame_s)
+
+
+def mixed_same(t_a, tri_a, t_b, tri_b, smask, first=None) -> bool:
+    """Two mixed results agree: closest lanes on t bits and tri (with
+    ``first``, two walks of one scene: on the triangle's tie key, since
+    each walk returns the first copy of a triangle it tests), shadow lanes
+    on the blocked bit."""
+    import torch
+
+    if first is not None:
+        tri_a, tri_b = (torch.where(x >= 0, first[x.clamp(min=0).long()], -1)
+                        for x in (tri_a, tri_b))
+    shad = smask == 1.0
+    return not bool((~shad & ((tri_a != tri_b) | (t_a.view(torch.int32)
+                                                  != t_b.view(torch.int32)))
+                     | (shad & ((tri_a >= 0) != (tri_b >= 0)))).any())
+
+
+def phase_mixed_route(main_rec: dict, deferred_rec: dict,
+                      errs: dict) -> tuple:
+    """Phase 10a: phase 5's pack and configuration with
+    intersector="packet", bounce_backend="mixed" (strand primary and last
+    shadow waves, deferred NEE in the strand walk's mixed queries), the
+    counts set to 0 before each frame and read after. Its PNG must equal
+    phase 7b's (the same schedule through binned_walk: 0 pixels may
+    differ) and be within tests/imgdiff.py's bar of phase 5's; each mixed
+    query of a frame is held to the brute sweep on a sample of each lane
+    kind. The frame's largest mixed query then runs through both mixed
+    kernels (the strand walk's, and the packet walk's on the pack's BVH8
+    rows) and their plain versions: bit-equal, timed, bounded. Returns the
+    two kernels' records."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.types import RenderConfig
+
+    pack, cam = main_rec["pack"], main_rec["cam"]
+    cfg = RenderConfig(**MAIN_ARGS, intersector="packet",
+                       bounce_backend="mixed")
+    frame_s = []
+    for _ in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        frame = render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        counts = read_launches()
+    n7, _, _ = png_diff(frame, deferred_rec["frame"])
+    n5, frac, s = png_diff(frame, main_rec["frame"])
+    lit = float((frame.max(-1) > 0).mean())
+    print(f"phase 10a mixed backend: {MAIN_ARGS['width']}x"
+          f"{MAIN_ARGS['height']} 1spp 4 bounces, "
+          f"intersector='packet' bounce_backend='mixed': frame 1 "
+          f"{frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s (phase 5 "
+          f"{main_rec['frame_s'][0]:.3f} / {main_rec['frame_s'][1]:.3f} s, "
+          f"phase 7b {deferred_rec['frame_s'][0]:.3f} / "
+          f"{deferred_rec['frame_s'][1]:.3f} s); "
+          + launched("10a", counts, ("strand", "strand_mixed"))
+          + f"; vs phase 7b's frame: {n7} PNG pixels differ; vs phase 5's: "
+          f"{n5} ({frac:.5f}), SSIM {s:.5f}; {lit:.3f} non-black")
+    if n7:
+        fail("phase 10a: the mixed backend's PNG is not phase 7b's")
+    if frac > 0.02 or s < 0.99:
+        fail("phase 10a frame disagrees with phase 5's")
+    with recorded_mixed("make_strand_mixed_query") as calls:
+        render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+    mixed_vs_brute("10a strand", pack, calls, 50)
+    ro, rd, tmax, smask, tmin, shadow_tmin, t_e, tri_e = max(
+        calls, key=lambda c: c[0].shape[0])
+    n = ro.shape[0]
+    recs, notes = {}, []
+    for which, tree in (("strand", pack.bvh.strand_rows),
+                        ("packet", pack.bvh.node8_rows)):
+        kernel, plain, _ = mixed_fns(which)
+        args = (tree, pack.bvh.leaf_tris, pack.bvh.first_slots, ro, rd, tmax,
+                smask, tmin, shadow_tmin)
+        ms = cuda_ms(lambda: kernel(*args), reps=5)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=1)
+        t_k, tri_k = kernel(*args)
+        work = {}
+        t_p, tri_p = plain(*args, counts=work)
+        torch.cuda.synchronize()
+        if not mixed_same(t_k, tri_k, t_p, tri_p, smask):
+            fail(f"phase 10a: {which}_walk's mixed form != its plain version "
+                 "on the largest mixed query")
+        if not mixed_same(t_k, tri_k, t_e, tri_e, smask,
+                          pack.bvh.first_slots):
+            fail(f"phase 10a: {which}_walk's mixed form != the engine's "
+                 "strand mixed query")
+        shad = smask == 1.0
+        errs[which + "_mixed"].append(t_err(t_k[~shad], t_p[~shad]))
+        recs[which] = dict(ms=ms, plain_ms=plain_ms,
+                           **walk_bound(work, n, 32))
+        notes.append(f"{KERNELS[which + '_mixed']['name']} {ms:.3f} ms, "
+                     f"plain {plain_ms:.1f} ms, bound "
+                     f"{recs[which]['bound_ms']:.4f} ms "
+                     f"({recs[which]['bound_by']})")
+    print(f"phase 10a largest mixed query ({n} lanes, "
+          f"{int((smask == 1.0).sum())} shadow): both mixed kernels "
+          "bit-equal to their plain versions and to the engine's result; "
+          + "; ".join(notes))
+    recs["strand"]["launches"] = counts["strand_mixed"]
+    return recs["strand"], recs["packet"]
+
+
+def phase_sorted_arms(main_rec: dict) -> None:
+    """Phases 10b and 10c: phase 5's frame with RAYTPU_WAVE_MODE=resort and
+    compact (10b), and with RAYTPU_SORT_MODE=gather, seg (RAYTPU_SORT_SEG at
+    its default, 131,072) and RAYTPU_COMPACT=1 (10c), each knob set just
+    before and restored just after: each PNG must equal phase 5's, and
+    only strand_walk may launch."""
+    import torch
+
+    from raytpu_torch.engine.render import WAVE_STATS, render_frame
+    from raytpu_torch.types import RenderConfig
+
+    pack, cam = main_rec["pack"], main_rec["cam"]
+    cfg = RenderConfig(**MAIN_ARGS)
+    arms = [("10b", dict(RAYTPU_WAVE_MODE="resort")),
+            ("10b", dict(RAYTPU_WAVE_MODE="compact")),
+            ("10c", dict(RAYTPU_SORT_MODE="gather")),
+            ("10c", dict(RAYTPU_SORT_MODE="seg")),
+            ("10c", dict(RAYTPU_COMPACT="1"))]
+    for label, knobs in arms:
+        with env(**knobs):
+            reset_launches()
+            secs = warm_s(lambda: render_frame(pack, cam, cfg))
+            counts = read_launches()
+            frame = render_frame(pack, cam, cfg)
+            torch.cuda.synchronize()
+            waves = dict(WAVE_STATS)
+        n_diff, _, _ = png_diff(frame, main_rec["frame"])
+        n_f32 = int(np.any(frame != main_rec["frame"], -1).sum())
+        name = " ".join(f"{k}={v}" for k, v in knobs.items())
+        print(f"phase {label} {name}: mode '{waves['mode']}', work width per "
+              f"bounce {waves['widths']}; frames {secs[0]:.3f} / "
+              f"{secs[1]:.3f} s (phase 5 {main_rec['frame_s'][1]:.3f} s); "
+              f"vs phase 5's frame: {n_diff} PNG pixels differ ({n_f32} f32 "
+              "pixels); " + launched(label, counts, ("strand",)))
+        if n_diff:
+            fail(f"phase {label} {name}: the PNG is not phase 5's")
 
 
 def phase_step_bench(errs: list) -> dict:
@@ -2368,8 +2719,19 @@ def phase_oracle(tmp: str) -> None:
         fail("phase 9f: the card's frame is off the oracle")
 
 
+@contextlib.contextmanager
+def timed(secs: dict, label: str):
+    """The block's host seconds into ``secs[label]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        secs[label] = time.perf_counter() - t0
+
+
 def main() -> int:
     errs: dict = {k: [] for k in KERNELS}
+    secs: dict = {}
     try:
         import raytpu_torch  # noqa: F401
     except ImportError as e:
@@ -2379,26 +2741,47 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
-    phase_kernel(errs["strand"], "strand", "3")
-    phase_kernel(errs["packet"], "packet", "3b")
-    phase_binned_kernel(errs["binned"])
-    phase_block_kernel(errs["block"])
+    with timed(secs, "2"):
+        phase_build()
+    with timed(secs, "3-3f"):
+        phase_kernel(errs["strand"], "strand", "3")
+        phase_kernel(errs["packet"], "packet", "3b")
+        phase_binned_kernel(errs["binned"])
+        phase_block_kernel(errs["block"])
+        phase_mixed_kernel(errs["strand_mixed"], "strand", "3e")
+        packet_mixed_launches = phase_mixed_kernel(errs["packet_mixed"],
+                                                   "packet", "3f")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_card_vs_cpu(tmp)
-        phase_binned_card_vs_cpu(tmp)
-        recs = {"strand": phase_main(tmp, errs["strand"])}
-        recs["block"] = phase_block_route(recs["strand"], errs["block"])
-        recs["packet"] = phase_packet_route(tmp, recs["strand"],
-                                            errs["packet"])
-        recs["binned"] = phase_stream(tmp, errs["binned"])
-        phase_deferred(recs["strand"])
-        recs["step"] = phase_step_bench(errs["step"])
-        glb = phase_bvh_route(tmp)
-        phase_checkpoint(tmp, recs["strand"])
-        phase_shards(recs["strand"])
-        phase_cli_flags(tmp, glb)
-        phase_oracle(tmp)
+        with timed(secs, "4-4b"):
+            phase_card_vs_cpu(tmp)
+            phase_binned_card_vs_cpu(tmp)
+        with timed(secs, "5"):
+            recs = {"strand": phase_main(tmp, errs["strand"])}
+        with timed(secs, "5b"):
+            recs["block"] = phase_block_route(recs["strand"], errs["block"])
+        with timed(secs, "6"):
+            recs["packet"] = phase_packet_route(tmp, recs["strand"],
+                                                errs["packet"])
+        with timed(secs, "7a"):
+            recs["binned"] = phase_stream(tmp, errs["binned"])
+        with timed(secs, "7b"):
+            deferred = phase_deferred(recs["strand"])
+        with timed(secs, "8"):
+            recs["step"] = phase_step_bench(errs["step"])
+        with timed(secs, "9"):
+            glb = phase_bvh_route(tmp)
+            phase_checkpoint(tmp, recs["strand"])
+            phase_shards(recs["strand"])
+            phase_cli_flags(tmp, glb)
+            phase_oracle(tmp)
+        with timed(secs, "10a"):
+            recs["strand_mixed"], recs["packet_mixed"] = phase_mixed_route(
+                recs["strand"], deferred, errs)
+        recs["packet_mixed"]["launches"] = packet_mixed_launches
+        with timed(secs, "10b-10c"):
+            phase_sorted_arms(recs["strand"])
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in secs.items()))
     print("bounds: " + "; ".join(
         f"{KERNELS[k]['name']} {r['n_bytes'] / 1e6:.1f} MB -> "
         f"{r['bytes_ms']:.4f} ms, {r['n_ops'] / 1e9:.3f} G operations -> "

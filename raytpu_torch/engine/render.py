@@ -1,6 +1,6 @@
 """The renderer: ray generation, bounce loop, sample accumulation, tiling.
 
-Torch counterpart of ``raytpu.engine.render`` in path mode's *query*
+Torch counterpart of ``raytpu.engine.render``: path mode's *query*
 schedule and, on waves of 2^20 lanes or more, its *fused* wave mode
 (``_wave_mode``, ``_fused_bounces``). One wavefront of rays per
 framebuffer tile: every per-bounce
@@ -19,7 +19,13 @@ walk, with the rays coherence-sorted before each query except the primary
 one. A stream pack (no BVH8) takes the strand route, or the binned
 treelet route when it has no strand tree. The binned route, and
 ``bounce_backend="binned"``, defer each bounce's shadow rays into the next
-bounce's mixed binned query (``_mixed_bounce_query``). Every kernel runs
+bounce's mixed binned query (``_mixed_bounce_query``);
+``bounce_backend="mixed"`` does the same through the strand walk's mixed
+form. raytpu's wave modes (``query``, ``fused``, ``resort``, ``compact``)
+and sort knobs (RAYTPU_SORT_MODE, RAYTPU_SORT_SEG, RAYTPU_COMPACT,
+RAYTPU_MORTON_BITS, RAYTPU_B0_STRAND, RAYTPU_B0S_NOSORT,
+RAYTPU_SORT_MIN_TRIS) are read where raytpu reads them; each leaves the
+frame bit-identical. Every kernel runs
 as CUDA on a CUDA device and as its plain version on the CPU. The
 ``brute`` sweep and the threaded-BVH walk (``bvh``) are plain torch ops on
 either device and run only when asked for. ``_shade_core`` shades the
@@ -52,9 +58,9 @@ from ..kernels import rng as rngk
 from ..kernels.intersect import F32_MAX, Hit, barycentrics, make_intersectors
 from ..kernels.binned import make_binned_intersectors, make_binned_query
 from ..kernels.packet import make_packet_intersectors
-from ..kernels.strand import make_strand_intersectors
+from ..kernels.strand import make_strand_intersectors, make_strand_mixed_query
 from ..kernels.texture import sample_bilinear
-from ..scene.pack import SORT_MIN_TRIS
+from ..scene.pack import _sort_min_tris
 from ..types import CameraPack, RenderConfig, ScenePack
 
 # f32 values held as Python floats (exactly representable, so every torch
@@ -62,7 +68,6 @@ from ..types import CameraPack, RenderConfig, ScenePack
 PI = float(np.float32(3.1415926))  # src/shader.wgsl:3
 INV_PI = float(np.float32(0.3183098))  # src/shader.wgsl:4
 F32_EPSILON = float(np.float32(1.1920929e-7))  # src/shader.wgsl:2
-MORTON_BITS = 6  # origin quantisation bits per axis in the sort key
 NEG_INF = float("-inf")
 
 
@@ -190,10 +195,24 @@ def _morton(q, bits: int):
     return spread(q[0]) | (spread(q[1]) << 1) | (spread(q[2]) << 2)
 
 
+def _morton_bits() -> int:
+    """Origin-quantisation bits per axis of the coherence key:
+    RAYTPU_MORTON_BITS, default 6, at most 9 (so ``octant << 3*bits``
+    stays in int32), raytpu's knob."""
+    return min(int(os.environ.get("RAYTPU_MORTON_BITS", "6")), 9)
+
+
+def _dead_key() -> int:
+    """The key of a dead lane: above every live key, so dead lanes sort
+    last."""
+    return 1 << (3 * _morton_bits() + 3)
+
+
 def _ray_sort_key(pack: ScenePack, ro, rd, alive):
     """Coherence key: dead lanes last, then direction octant (major), then
-    the Morton cell of the origin (scene bounds quantised, 6 bits/axis)."""
-    bits = MORTON_BITS
+    the Morton cell of the origin (scene bounds quantised,
+    ``_morton_bits()`` per axis)."""
+    bits = _morton_bits()
     cells = float(1 << bits)
     ext = torch.clamp(pack.scene_bmax - pack.scene_bmin, min=1e-6)
     q = torch.clamp(
@@ -207,27 +226,96 @@ def _ray_sort_key(pack: ScenePack, ro, rd, alive):
         | ((rd[:, 2] < 0).to(torch.int32) << 2)
     )
     key = (octant << (3 * bits)) | morton
-    return torch.where(alive, key, 1 << (3 * bits + 3))
+    return torch.where(alive, key, _dead_key())
+
+
+def _compact_prefix(r: int, alive) -> int:
+    """RAYTPU_COMPACT's live-prefix width for a sorted query of ``r`` rays
+    (raytpu's payload mode): the smallest of the tiers r/4 and r/2, rounded
+    up to 128, that holds every live lane, else r. Off (r) unless
+    RAYTPU_COMPACT is set to anything but "0", and below 512 rays."""
+    if os.environ.get("RAYTPU_COMPACT", "0") == "0" or r < 512:
+        return r
+    tiers = [p for p in (-(-(r // 4) // 128) * 128, -(-(r // 2) // 128) * 128)
+             if 0 < p < r]
+    n = int(alive.sum())
+    return next((p for p in tiers if n <= p), r)
+
+
+def _unsort(out, idx, n: int, returns_hit):
+    """The results ``out`` of the rays at positions ``idx`` scattered back
+    among ``n`` lanes; a lane not in ``idx`` gets a dead lane's result
+    (t = -inf, tri = -1; not blocked)."""
+    dev = idx.device
+    if returns_hit:
+        t = torch.full((n,), NEG_INF, device=dev)
+        tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        t[idx] = out.t
+        tri[idx] = out.tri
+        return Hit(t=t, tri=tri, valid=tri >= 0)
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    blocked[idx] = out
+    return blocked
 
 
 def _sorted_query(fn, pack, ro, rd, tmin, tmax, alive, returns_hit):
-    """Run an intersector on coherence-sorted rays and unsort the result
-    (raytpu's payload mode: a stable sort of the key, then gathers in and
-    the inverse scatter out). Per-ray results never depend on the order:
-    ties break to the lowest slot."""
+    """Run an intersector on coherence-sorted rays and unsort the result.
+    Per-ray results never depend on the order (ties break on the tie keys)
+    and every mode restores the exact original positions, so the modes
+    are bit-identical. RAYTPU_SORT_MODE picks the permutation plumbing, as
+    in raytpu:
+
+    * ``payload`` (the default; ``payload_split``, raytpu's two-sort split
+      of the same permutation, is the same here): a stable sort of the key,
+      the rays gathered in, a closest query's bound taken from the sorted
+      key (dead lanes carry -inf, live ones F32_MAX), one scatter out. With
+      RAYTPU_COMPACT the query runs on the live prefix only
+      (``_compact_prefix``); the dead tail gets a dead lane's result;
+    * ``gather``: the key alone argsorted, every column (the bound too)
+      moved with gathers, and the inverse permutation built with one
+      scatter and gathered from;
+    * ``seg``: segments of RAYTPU_SORT_SEG rays (131,072) sorted
+      independently, the last padded with dead lanes (the dead key, ro 0,
+      rd 1, bound -inf), the padded wave queried and cut back."""
     r = ro.shape[0]
-    perm = torch.sort(_ray_sort_key(pack, ro, rd, alive), stable=True)[1]
-    tm = torch.as_tensor(tmax, dtype=torch.float32, device=ro.device)
-    out = fn(ro[perm], rd[perm], tmin, tm.expand(r)[perm])
+    dev = ro.device
+    key = _ray_sort_key(pack, ro, rd, alive)
+    tm = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
+    mode = os.environ.get("RAYTPU_SORT_MODE", "payload")
+    if mode == "seg":
+        seg = int(os.environ.get("RAYTPU_SORT_SEG", "131072"))
+        n_seg = max(1, -(-r // seg))
+        pad = n_seg * seg - r
+        key = torch.cat([key, key.new_full((pad,), _dead_key())])
+        perm = torch.sort(key.reshape(n_seg, seg), dim=1, stable=True)[1]
+        perm = (perm + torch.arange(n_seg, device=dev)[:, None] * seg
+                ).reshape(-1)
+        ro = torch.cat([ro, ro.new_zeros((pad, 3))])
+        rd = torch.cat([rd, rd.new_ones((pad, 3))])
+        tm = torch.cat([tm, tm.new_full((pad,), NEG_INF)])
+        out = _unsort(fn(ro[perm], rd[perm], tmin, tm[perm]), perm, r + pad,
+                      returns_hit)
+        return Hit(*(x[:r] for x in out)) if returns_hit else out[:r]
+    if mode == "gather":
+        perm = torch.argsort(key, stable=True)
+        out = fn(ro[perm], rd[perm], tmin, tm[perm])
+        inv = torch.empty_like(perm)
+        inv.scatter_(0, perm, torch.arange(r, device=dev))
+        if returns_hit:
+            return Hit(t=out.t[inv], tri=out.tri[inv],
+                       valid=out.tri[inv] >= 0)
+        return out[inv]
+    if mode not in ("payload", "payload_split"):
+        raise ValueError(f"unknown RAYTPU_SORT_MODE {mode!r}")
+    key_s, perm = torch.sort(key, stable=True)
     if returns_hit:
-        t = torch.empty_like(out.t)
-        tri = torch.empty_like(out.tri)
-        t[perm] = out.t
-        tri[perm] = out.tri
-        return Hit(t=t, tri=tri, valid=tri >= 0)
-    blocked = torch.empty_like(out)
-    blocked[perm] = out
-    return blocked
+        # a closest query's bound is the alive bit: F32_MAX or -inf
+        tm_s = torch.where(key_s == _dead_key(), NEG_INF, F32_MAX)
+    else:
+        tm_s = tm[perm]
+    live = perm[:_compact_prefix(r, alive)]
+    return _unsort(fn(ro[live], rd[live], tmin, tm_s[:live.shape[0]]), live,
+                   r, returns_hit)
 
 
 def _mixed_bounce_query(mixed_fn, pack, ro, rd, alive, s_ro, s_rd, s_dist,
@@ -395,18 +483,14 @@ def _bounce_work(pack: ScenePack, closest, any_hit, sop, sdp, rngp, alivep,
 def _wave_mode(r: int, fusable: bool) -> str:
     """raytpu's bounce-wave schedule for a tile of ``r`` lanes
     (``render.py:1080-1086``): RAYTPU_WAVE_MODE, by default "fused" on
-    waves of at least RAYTPU_LARGE_WAVE lanes (2^20) and "query" below.
-    Fused mode applies only to sorted waves with immediate NEE
-    (``fusable``); elsewhere the query schedule runs."""
+    waves of at least RAYTPU_LARGE_WAVE lanes (2^20) and "query" below;
+    "resort" and "compact" are raytpu's other two. The three sorted modes
+    apply only to sorted waves with immediate NEE (``fusable``); elsewhere
+    the query schedule runs."""
     large_wave = r >= int(os.environ.get("RAYTPU_LARGE_WAVE", str(1 << 20)))
     mode = os.environ.get("RAYTPU_WAVE_MODE",
                           "fused" if large_wave else "query")
-    if mode in ("resort", "compact"):
-        raise NotImplementedError(
-            f"RAYTPU_WAVE_MODE={mode!r} is a raytpu A/B arm that is not "
-            "ported (ROADMAP: Arms not to port); use 'fused' or 'query'"
-        )
-    if mode not in ("fused", "query"):
+    if mode not in ("fused", "query", "resort", "compact"):
         raise ValueError(f"unknown RAYTPU_WAVE_MODE {mode!r}")
     return mode if fusable else "query"
 
@@ -426,34 +510,47 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     (src/shader.wgsl:321-381), vectorised with masks. ``mask`` restricts
     which lanes trace at all (lanes outside return 0 radiance). Query
     schedule: immediate NEE, and with ``sort_bounced`` every query but
-    the primary one runs coherence-sorted. When ``bounce_pair`` (the
-    strand pair) is given, every wave uses it: primary, shadow and bounce,
-    as raytpu does by default. The bounce loop stops once no lane is alive
-    (a bounce over dead lanes changes nothing).
+    the primary one runs coherence-sorted (RAYTPU_B0S_NOSORT leaves the
+    first shadow wave unsorted). When ``bounce_pair`` (the strand pair) is
+    given, every bounce wave uses it, and so do the primary and first
+    shadow waves unless RAYTPU_B0_STRAND=0, as raytpu does. The bounce
+    loop stops once no lane is alive (a bounce over dead lanes changes
+    nothing).
 
-    Fused wave mode (``_wave_mode``; raytpu's ``fused_step``): bounce 0
-    runs as above; from bounce 1 on the wave stays in coherence-sorted
-    order. Each bounce sorts only the previous bounce's work tier (the
-    live lanes lie inside it) by the unique key ``key << 32 | pixel``,
-    runs ``_bounce_work`` on the smallest tier of ``_compact_tiers``
-    holding every live lane, and passes the lanes beyond it through; one
-    scatter by pixel index at path exit restores the order. Per-lane math
-    never depends on order or width, so the frame is the query
-    schedule's.
+    The sorted wave modes (``_wave_mode``) run bounce 0 as above and
+    bounces 1.. their own way; per-lane math never depends on order or
+    width, so each frame is the query schedule's:
 
-    With ``mixed_fn`` (a binned query) NEE is deferred, as raytpu's
-    ``use_mixed`` branch does it: bounce b's shadow rays ride bounce
-    b+1's continuation query in one mixed call (``_mixed_bounce_query``),
-    and the last bounce's shadow rays go through ``any_hit`` after the
-    loop. Each lane's pending NEE radiance lands before the next bounce's
-    emissive term, the reference's per-lane order, so the image is the
-    immediate schedule's up to triangle ties.
+    * fused (raytpu's ``fused_step``): the wave stays in coherence-sorted
+      order; each bounce sorts only the previous bounce's work tier (the
+      live lanes lie inside it) by the unique key ``key << 32 | pixel``,
+      runs ``_bounce_work`` on the smallest tier of ``_compact_tiers``
+      holding every live lane, and passes the lanes beyond it through;
+      one scatter by pixel index at path exit restores the order;
+    * resort (raytpu's ``persistent_sort``): each bounce moves the whole
+      path state by one sort of ``key << 32 | pixel`` and runs its queries
+      and shading in that order, the shadow wave unsorted; one scatter at
+      path exit;
+    * compact (raytpu's ``compact_step``): each bounce sorts the wave,
+      runs the whole bounce on the smallest tier holding every live lane,
+      and scatters radiance and path state back.
+
+    With ``mixed_fn`` (a binned or strand mixed query) NEE is deferred, as
+    raytpu's ``use_mixed`` branch does it: bounce b's shadow rays ride
+    bounce b+1's continuation query in one mixed call
+    (``_mixed_bounce_query``), and the last bounce's shadow rays go
+    through the any-hit query after the loop. Each lane's pending NEE
+    radiance lands before the next bounce's emissive term, the reference's
+    per-lane order, so the image is the immediate schedule's up to
+    triangle ties.
 
     With ``count_mask`` also returns the number of ray queries issued by
     masked lanes, as a Python int: 1 primary + 2 per bounce iteration a
     lane survives (the reference's cost model, SURVEY.md §3.4)."""
-    if bounce_pair is not None:
-        closest, any_hit = bounce_pair
+    b_closest, b_any = bounce_pair if bounce_pair is not None else (
+        closest, any_hit)
+    if os.environ.get("RAYTPU_B0_STRAND", "1") != "0":
+        closest, any_hit = b_closest, b_any
     n_rays = int(count_mask.sum()) if count_mask is not None else None
     r = ro.shape[0]
     dev = ro.device
@@ -469,10 +566,11 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     WAVE_STATS.update(mode=mode, widths=[])
 
     for b in range(bounces):
-        if b == 1 and mode == "fused":
-            return _fused_bounces(pack, closest, any_hit, ro, rd, rng,
-                                  radiance, attenuation, alive, bounces,
-                                  count_mask, n_rays)
+        if b == 1 and mode != "query":
+            run = dict(fused=_fused_bounces, resort=_resort_bounces,
+                       compact=_compact_bounces)[mode]
+            return run(pack, b_closest, b_any, ro, rd, rng, radiance,
+                       attenuation, alive, bounces, count_mask, n_rays)
         if not bool(alive.any()):
             break
         WAVE_STATS["widths"].append(r)
@@ -480,13 +578,16 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
             # immediate NEE: the bounce's query, shading, shadow query and
             # continuation (:339-377); dead lanes get tmax = -inf, so no
             # query may produce hits for them
-            query = closest
+            query, shadow = (closest, any_hit) if b == 0 else (b_closest,
+                                                               b_any)
             if sort_bounced and b > 0:
                 def query(o, d, tmin, tmax, alive=alive):
-                    return _sorted_query(closest, pack, o, d, tmin, tmax,
+                    return _sorted_query(b_closest, pack, o, d, tmin, tmax,
                                          alive, True)
+            sort_shadow = sort_bounced and not (
+                b == 0 and os.environ.get("RAYTPU_B0S_NOSORT"))
             delta, mult, ro, rd, bounce_on, rng = _bounce_work(
-                pack, query, any_hit, ro, rd, rng, alive, sort_bounced)
+                pack, query, shadow, ro, rd, rng, alive, sort_shadow)
             radiance = radiance + delta
         else:
             if pend is None:
@@ -522,7 +623,95 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
             n_rays += 2 * int((alive & count_mask).sum())
     if pend is not None and bool(pend[4].any()):
         # the last bounce's shadow wave, alone (raytpu's resolve_last)
-        radiance = radiance + _nee(pack, any_hit, *pend, sort_bounced)
+        radiance = radiance + _nee(pack, b_any, *pend, sort_bounced)
+    if n_rays is not None:
+        return radiance * attenuation, rng, n_rays
+    return radiance * attenuation, rng
+
+
+def _resort_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
+                    attenuation, alive, bounces, count_mask, n_rays):
+    """Bounces 1..B-1 of ``_trace_paths`` in resort wave mode, from bounce
+    0's state, with the strand pair; returns what ``_trace_paths``
+    returns. Each bounce permutes the whole path state (the count mask
+    too) by one sort of the unique key ``key << 32 | pixel`` and runs at
+    full width in that order, its shadow wave unsorted (its origins are
+    the sorted hit points); one scatter by pixel index at path exit."""
+    r = ro.shape[0]
+    state = dict(ro=ro, rd=rd, rng=rng, rad=radiance, att=attenuation,
+                 alive=alive,
+                 pxi=torch.arange(r, dtype=torch.int32, device=ro.device))
+    if n_rays is not None:
+        state["cm"] = count_mask
+    for _ in range(1, bounces):
+        if not bool(state["alive"].any()):
+            break  # a bounce over dead lanes changes nothing
+        WAVE_STATS["widths"].append(r)
+        key = _ray_sort_key(pack, state["ro"], state["rd"], state["alive"])
+        perm = torch.sort((key.long() << 32) | state["pxi"].long())[1]
+        state = {k: x[perm] for k, x in state.items()}
+        delta, mult, nro, nrd, bounce_on, rng_b = _bounce_work(
+            pack, closest, any_hit, state["ro"], state["rd"], state["rng"],
+            state["alive"], sort_shadow=False)
+        state.update(
+            ro=nro, rd=nrd, rng=rng_b, rad=state["rad"] + delta,
+            att=torch.where(bounce_on[:, None], state["att"] * mult,
+                            state["att"]),
+            alive=bounce_on)
+        if n_rays is not None:
+            n_rays += 2 * int((bounce_on & state["cm"]).sum())
+    # one scatter back to pixel order, radiance * attenuation first
+    pxi = state["pxi"].long()
+    out = torch.empty((r, 4), dtype=torch.float32, device=ro.device)
+    out[pxi] = state["rad"] * state["att"]
+    rng_out = torch.empty_like(state["rng"])
+    rng_out[pxi] = state["rng"]
+    if n_rays is not None:
+        return out, rng_out, n_rays
+    return out, rng_out
+
+
+def _compact_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
+                     attenuation, alive, bounces, count_mask, n_rays):
+    """Bounces 1..B-1 of ``_trace_paths`` in compact wave mode, from bounce
+    0's state, with the strand pair; returns what ``_trace_paths``
+    returns. Each bounce sorts the wave by its coherence key (dead lanes
+    last), runs ``_bounce_work`` on the smallest tier of ``_compact_tiers``
+    holding every live lane, and scatters the radiance delta, the
+    attenuation multiplier and the path state back to pixel order; the
+    lanes beyond the tier are dead and pass through. Radiance and
+    attenuation take three colour columns per bounce (w is left as
+    raytpu's ``compact_step`` leaves it)."""
+    r = ro.shape[0]
+    dev = ro.device
+    tiers = _compact_tiers(r)
+    for _ in range(1, bounces):
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break  # a bounce over dead lanes changes nothing
+        perm = torch.sort(_ray_sort_key(pack, ro, rd, alive), stable=True)[1]
+        p = next((t for t in tiers if n_alive <= t), r)
+        WAVE_STATS["widths"].append(p)
+        live = perm[:p]
+        delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
+            pack, closest, any_hit, ro[live], rd[live], rng[live],
+            alive[live])
+        # the dead lanes beyond the tier keep their state: zero delta,
+        # no bounce
+        d3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+        m3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+        on = torch.zeros(r, dtype=torch.bool, device=dev)
+        ro, rd, rng = ro.clone(), rd.clone(), rng.clone()
+        d3[live], m3[live], on[live] = delta[:, :3], mult[:, :3], bounce_on
+        ro[live], rd[live], rng[live] = nro, nrd, rng_p
+        zero = torch.zeros((r, 1), dtype=torch.float32, device=dev)
+        radiance = radiance + torch.cat([d3, zero], dim=1)
+        attenuation = torch.where(
+            on[:, None], attenuation * torch.cat([m3, zero + 1.0], dim=1),
+            attenuation)
+        alive = on
+        if n_rays is not None:
+            n_rays += 2 * int((alive & count_mask).sum())
     if n_rays is not None:
         return radiance * attenuation, rng, n_rays
     return radiance * attenuation, rng
@@ -616,10 +805,13 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     the strand pair when the pack has a strand tree (> 256 slots), else
     None, and ``_trace_paths`` then sends every path-mode wave through it.
     With ``bounce_backend="binned"`` ``mixed_fn`` is the binned query,
-    which carries the deferred-NEE bounces. raytpu's VMEM budget check has
+    with ``"mixed"`` the strand walk's mixed query
+    (``make_strand_mixed_query``; a pack without a strand tree raises);
+    either carries the deferred-NEE bounces. raytpu's VMEM budget check has
     no counterpart: on the card every table lives in global memory.
-    "strand" uses the strand pair everywhere and raises on a pack without
-    a tree. "binned" runs every query through the treelets, with
+    "strand" uses the strand pair everywhere, with the strand mixed query
+    for ``bounce_backend="mixed"``, and raises on a pack without a tree.
+    "binned" runs every query through the treelets, with
     ``prefer_mixed`` set (deferred NEE above 256 slots). Each kernel is the
     CUDA one for a pack on a CUDA device, its plain version on the CPU;
     all walk rays in 32x32-block order. "brute" and "bvh" go through
@@ -629,12 +821,7 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     "auto" does, at 2048 slots; the port follows its TPU branch on both
     devices)."""
     which = config.intersector
-    if config.bounce_backend == "mixed":
-        raise NotImplementedError(
-            "bounce_backend='mixed' is a retired raytpu arm (ROADMAP: Arms "
-            "not to port); use 'sorted' or 'binned'"
-        )
-    if config.bounce_backend not in ("sorted", "binned"):
+    if config.bounce_backend not in ("sorted", "binned", "mixed"):
         raise ValueError(f"unknown bounce_backend {config.bounce_backend!r}")
     if which == "auto":
         if pack.bvh.node8_rows is not None:
@@ -671,13 +858,23 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
                     "4096 triangles)"
                 )
             mixed = make_binned_query(pack)
+        elif config.bounce_backend == "mixed":
+            if pack.bvh.strand_rows is None:
+                raise ValueError(
+                    "bounce_backend='mixed' needs a strand tree; pack "
+                    "the scene with the default packed tables"
+                )
+            mixed = make_strand_mixed_query(pack)
         bounce_pair = None
         if pack.bvh.strand_rows is not None:
             bounce_pair = make_strand_intersectors(pack)
         return make_packet_intersectors(pack), True, mixed, False, bounce_pair
     if which == "strand":
         pair = make_strand_intersectors(pack)
-        return pair, True, None, False, pair
+        mixed = None
+        if config.bounce_backend == "mixed":
+            mixed = make_strand_mixed_query(pack)
+        return pair, True, mixed, False, pair
     if which in ("brute", "bvh"):
         return (make_intersectors(
             pack, bruteforce_max_tris=config.bruteforce_max_tris,
@@ -688,13 +885,13 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
 def _route(pack: ScenePack, config: RenderConfig):
     """(closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair)
     for one tile: ``mixed_fn`` is None unless the waves are sorted and the
-    route prefers deferred NEE or ``bounce_backend`` is "binned" (raytpu's
-    ``use_mixed`` rule)."""
+    route prefers deferred NEE or ``bounce_backend`` is "binned" or
+    "mixed" (raytpu's ``use_mixed`` rule)."""
     (closest, any_hit), packet_mode, mixed_fn, prefer_mixed, bounce_pair = (
         _choose_intersectors(pack, config))
-    sort_bounced = packet_mode and pack.n_triangles > SORT_MIN_TRIS
-    use_mixed = sort_bounced and (prefer_mixed
-                                  or config.bounce_backend == "binned")
+    sort_bounced = packet_mode and pack.n_triangles > _sort_min_tris()
+    use_mixed = sort_bounced and (
+        prefer_mixed or config.bounce_backend in ("binned", "mixed"))
     return (closest, any_hit, packet_mode, sort_bounced,
             mixed_fn if use_mixed else None, bounce_pair)
 

@@ -68,8 +68,9 @@ extern "C" int strand_block_launch(const float* rows, const float* leaves,
                                    int n_rays, int n_nodes, int n_leaf_rows,
                                    float tmin, int any_hit, void* stream) {
   if (n_rays <= 0) return 0;
-  const strand::Args a{rows, leaves, first, ro, rd, tmax, t_out, tri_out,
-                       stats, n_rays, n_nodes, n_leaf_rows, tmin};
+  const strand::Args a{rows,  leaves, first,   ro,      rd,
+                       tmax,  t_out,  tri_out, stats,   nullptr,
+                       n_rays, n_nodes, n_leaf_rows, tmin, tmin};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return any_hit ? launch<true>(a, s) : launch<false>(a, s);
 }

@@ -58,8 +58,9 @@ struct Args {
   float* t_out;
   int* tri_out;
   int* stats;  // block walk: per-strand steps and leaf visits, or null
+  const float* smask;  // mixed walk: 1.0 flags a shadow lane, or null
   int n_rays, n_nodes, n_leaf_rows;
-  float tmin;
+  float tmin, shadow_tmin;
 };
 
 // ---------------------------------------------------------------------
@@ -71,8 +72,14 @@ struct Args {
 // triangle loop runs at the warp's width. A lane holding a leaf waits (no
 // speculative steps), so every lane tests each leaf with the best t it
 // would hold in a lone walk: the results are a lone walk's, bit for bit.
+//
+// kMixed is the mixed-lane form (raytpu's mixed=True): smask == 1 flags a
+// shadow lane, any-hit over [shadow_tmin, tmax] with its best t at tmax,
+// which stops at its first blocker; every other lane is closest-hit over
+// [tmin, best) from min(F32_MAX, tmax). Every lane's slab test uses
+// min(tmin, shadow_tmin) and LIMIT = the lane's best t. kAny is unused.
 // ---------------------------------------------------------------------
-template <int kBlock, bool kAny>
+template <int kBlock, bool kAny, bool kMixed = false>
 __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   const int lane = threadIdx.x & 31;
   const int base = (blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5)) * 32;
@@ -81,16 +88,19 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   const bool real = i < a.n_rays;
   Ray r = make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
   float tm = -kF32Max;
+  bool shad = false;
   if (real) {
     r = load_ray(a.ro, a.rd, i);
     tm = __ldg(a.tmax + i);
+    if (kMixed) shad = __ldg(a.smask + i) == 1.0f;
   }
   // closest: LIMIT = best t from min(F32_MAX, tmax) (a dead lane with
   // tmax = -inf returns t = -inf, tri = -1); any-hit: LIMIT = tmax
   Best b;
-  b.t = kAny ? tm : nan_min(kF32Max, tm);
+  b.t = (kMixed ? shad : kAny) ? tm : nan_min(kF32Max, tm);
   b.tri = -1;
   b.key = -1;
+  const float slab_tmin = kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin;
   int c = real ? 0 : -1;
   int steps = 0;
   int leaf = -1;
@@ -104,7 +114,7 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
         ++steps;
         const int hl = hit_link(q);
         c = miss_link(q);
-        if (box_hit(r, q, a.tmin, kAny ? tm : b.t)) {
+        if (box_hit(r, q, slab_tmin, (kAny && !kMixed) ? tm : b.t)) {
           if (hl >= 0) {
             c = hl;
           } else if (~hl < a.n_leaf_rows) {
@@ -115,9 +125,17 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
     }
     if (!__any_sync(kFull, leaf >= 0)) break;
     if (leaf >= 0) {
-      if (test_leaf<kAny>(r, a.leaves, a.first, leaf, a.tmin, tm, &b)) {
-        c = -1;  // blocked: stop
+      bool blocked;
+      if (kMixed) {
+        blocked = shad ? test_leaf<true>(r, a.leaves, a.first, leaf,
+                                         a.shadow_tmin, tm, &b)
+                       : test_leaf<false>(r, a.leaves, a.first, leaf,
+                                          a.tmin, tm, &b);
+      } else {
+        blocked = test_leaf<kAny>(r, a.leaves, a.first, leaf, a.tmin, tm,
+                                  &b);
       }
+      if (blocked) c = -1;  // blocked: stop
       leaf = -1;
     }
   }

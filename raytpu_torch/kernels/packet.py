@@ -3,8 +3,9 @@ version, and the engine's intersector factory.
 
 Replaces ``raytpu/kernels/intersect_pallas.py:_packet_kernel`` /
 ``_one_packet`` (entry ``packet_query``, factory
-``make_packet_intersectors``) in its closest-hit and any-hit forms. The
-TPU kernel walks one shared stack per 4096-ray packet; this port keeps the
+``make_packet_intersectors``) in its closest-hit, any-hit and mixed forms
+(``smask``, below). The TPU kernel walks one shared stack per 4096-ray
+packet; this port keeps the
 contract and gives every ray its own stack walk of the 8-wide BVH
 (``node8_rows``: child k at columns 16k..16k+6, bmin, bmax, then the link
 as int32 bits: a child node, or ``~leaf_row`` for a leaf).
@@ -46,6 +47,15 @@ result that was already right (kernels/strand.py says why).
 ``packet_query_torch`` is the plain version (a vectorised per-ray walk in
 torch ops, the same arithmetic in the same order). ``packet_query``
 dispatches on the tensors' device alone.
+
+Each of the three takes ``smask`` and ``shadow_tmin`` for the mixed form,
+raytpu's ``packet_query(..., smask, mixed=True, shadow_tmin)``: lanes
+with ``smask == 1`` are shadow lanes, any-hit over the closed range
+[shadow_tmin, tmax]; the others closest-hit over [tmin, tmax); every
+lane's bound starts at ``min(F32_MAX, tmax)`` and the slab test uses
+``min(tmin, shadow_tmin)``, the treelet walk's per-lane contract
+(kernels/binned.py). No engine path calls it, as in raytpu; with ``smask``
+None a call runs the closest-hit or any-hit form.
 """
 
 from __future__ import annotations
@@ -74,7 +84,8 @@ _PLAIN_STACK0 = 64  # the plain version's first stack width; it grows
 
 def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
                        tmin: float, any_hit: bool,
-                       counts: dict | None = None):
+                       counts: dict | None = None, smask=None,
+                       shadow_tmin: float = 0.0):
     """Plain torch version of the BVH8 stack walk. ``first`` is the tie
     keys (``first_slots``), ro/rd [R,3], tmax [R]; returns (t [R] f32,
     tri [R] i32). Each loop iteration pops one node for
@@ -82,9 +93,29 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
     a [W, width] tensor whose width grows to STACK_DEPTH as pushes need.
     A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
     ("tris") and the table bytes it reads, each distinct 512-byte node row
-    and 320-byte leaf row once ("bytes")."""
+    and 320-byte leaf row once ("bytes").
+
+    With ``smask`` [R] (raytpu's ``packet_query(mixed=True)``), the mixed
+    form: ``smask == 1`` flags a shadow lane, any-hit over [shadow_tmin,
+    tmax] that stops at its first blocker; the other lanes are closest-hit
+    over [tmin, tmax). Every lane's best t starts at min(F32_MAX, tmax)
+    and is its LIMIT (a shadow lane's t returns it), and the slab test uses
+    min(tmin, shadow_tmin), as in the treelet walk. ``any_hit`` must be
+    False. Without ``smask`` shadow_tmin is not read."""
     dev = ro.device
     r = ro.shape[0]
+    # the any-hit lanes: every lane or none, or smask's shadow lanes
+    if smask is None:
+        shad = torch.full((r,), any_hit, dtype=torch.bool, device=dev)
+        shadow_tmin = tmin
+    elif any_hit:
+        raise ValueError("the mixed form (smask given) needs any_hit=False")
+    else:
+        shad = smask == 1.0
+    slab_tmin = min(tmin, shadow_tmin)
+    tcut = torch.where(shad, shadow_tmin, tmin).to(torch.float32)
+    any_lanes = bool(shad.any())
+    closest_lanes = not bool(shad.all())
     n_nodes = node8_rows.shape[0]
     n_leaf_rows = leaf_tris.shape[0]
     kids = node8_rows.reshape(n_nodes, 8, 16)
@@ -95,6 +126,8 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
     t_out = torch.empty(r, dtype=torch.float32, device=dev)
     tri_out = torch.empty(r, dtype=torch.int32, device=dev)
     inv = _safe_inv(rd)
+    # the any-hit form's LIMIT is tmax itself; every other lane's is its
+    # best t, from min(F32_MAX, tmax)
     best_t = tmax.clone() if any_hit else torch.minimum(
         torch.full_like(tmax, F32_MAX), tmax
     )
@@ -103,7 +136,7 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
     # stack (column 0 holds 0)
     s = dict(
         idx=torch.arange(r, device=dev), o=ro, d=rd, inv=inv, neg=inv < 0.0,
-        tm=tmax, bt=best_t,
+        shad=shad, tcut=tcut, bt=best_t,
         btri=torch.full((r,), -1, dtype=torch.int32, device=dev),
         bkey=torch.full((r,), -1, dtype=torch.int32, device=dev),
         sp=torch.ones(r, dtype=torch.long, device=dev), stack=stack,
@@ -137,10 +170,10 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
               - s["o"][:, None, :]) * s["inv"][:, None, :]
         hi = (torch.where(neg, kb[..., 0:3], kb[..., 3:6])
               - s["o"][:, None, :]) * s["inv"][:, None, :]
-        limit = (s["tm"] if any_hit else s["bt"])[:, None]
+        limit = s["bt"][:, None]
         near = torch.maximum(
             torch.maximum(lo[..., 0], lo[..., 1]),
-            torch.maximum(lo[..., 2], torch.full_like(lo[..., 2], tmin)),
+            torch.maximum(lo[..., 2], torch.full_like(lo[..., 2], slab_tmin)),
         )
         far = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
                             torch.minimum(hi[..., 2], limit))
@@ -167,29 +200,31 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
                 counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
                 seen_leaf[lr.long()] = True
             tri = tris[lr.long()]  # [L, 8, 10]
-            lim = (s["tm"] if any_hit else s["bt"])[li][:, None]
+            bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
             t, _, _, ok = moller_trumbore(
                 s["o"][li][:, None, :], s["d"][li][:, None, :],
-                tri[:, :, 0:3], tri[:, :, 3:6], tri[:, :, 6:9], tmin, lim,
+                tri[:, :, 0:3], tri[:, :, 3:6], tri[:, :, 6:9],
+                s["tcut"][li][:, None], bt[:, None],
             )
             slots = lr[:, None] * 8 + k8  # [L, 8]
-            if any_hit:
-                # the first accepted triangle blocks and ends the walk
-                found = ok.any(dim=1)
-                k = ok.to(torch.int32).argmax(dim=1)
-                s["btri"][li] = torch.where(
-                    found, slots.gather(1, k[:, None])[:, 0],
-                    s["btri"][li],
-                )
-                walking[li] = ~found
-            else:
+            sh = s["shad"][li]
+            ti, tk = bi, bk
+            if closest_lanes:
                 found, mt, ms, mk = _leaf_closest(ok, t, slots,
                                                   first[slots.long()])
-                bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
-                acc = found & ((mt < bt) | ((mt == bt) & (mk < bk)))
+                acc = ~sh & found & ((mt < bt) | ((mt == bt) & (mk < bk)))
                 s["bt"][li] = torch.where(acc, mt, bt)
-                s["btri"][li] = torch.where(acc, ms, bi)
-                s["bkey"][li] = torch.where(acc, mk, bk)
+                ti = torch.where(acc, ms, bi)
+                tk = torch.where(acc, mk, bk)
+            if any_lanes:
+                # the first accepted triangle blocks and ends the walk
+                blocked = sh & ok.any(dim=1)
+                k = ok.to(torch.int32).argmax(dim=1)
+                ti = torch.where(blocked, slots.gather(1, k[:, None])[:, 0],
+                                 ti)
+                walking[li] = ~blocked
+            s["btri"][li] = ti
+            s["bkey"][li] = tk
         done = (s["sp"] == 0) | ~walking
         if bool(done.any()):
             t_out[s["idx"][done]] = s["bt"][done]
@@ -221,6 +256,11 @@ def _library():
                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             )
+            lib.packet_walk_mixed_launch.restype = ctypes.c_int
+            lib.packet_walk_mixed_launch.argtypes = (
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            )
             lib.packet_walk_error_string.restype = ctypes.c_char_p
             lib.packet_walk_error_string.argtypes = [ctypes.c_int]
             _LIB = lib
@@ -228,49 +268,73 @@ def _library():
 
 
 def packet_query_cuda(node8_rows, leaf_tris, first, ro, rd, tmax,
-                      tmin: float, any_hit: bool):
+                      tmin: float, any_hit: bool, smask=None,
+                      shadow_tmin: float = 0.0):
     """Launch ``csrc/packet_walk.cu`` on the current stream (one thread per
-    ray, blocks of 128). Same signature and results as
-    ``packet_query_torch``; raises on bad inputs or a failed launch.
-    ``packet_query_cuda.launches`` counts the launches."""
+    ray, blocks of 128); with ``smask``, its mixed form. Same signature and
+    results as ``packet_query_torch``; raises on bad inputs or a failed
+    launch. ``packet_query_cuda.launches`` counts the closest-hit and
+    any-hit launches, ``packet_query_cuda.mixed_launches`` the mixed
+    ones."""
     if ro.device.type != "cuda":
         raise ValueError(f"packet_query_cuda needs CUDA tensors, got "
                          f"{ro.device}")
     _check_inputs("node8_rows", node8_rows, leaf_tris, ro, rd, tmax, first)
     if node8_rows.shape[0] == 0:
         raise ValueError("node8_rows: want at least the root node")
+    if smask is not None:
+        if any_hit:
+            raise ValueError("the mixed form (smask given) needs "
+                             "any_hit=False")
+        if (smask.dtype != torch.float32 or smask.device != ro.device
+                or smask.shape != tmax.shape or not smask.is_contiguous()):
+            raise ValueError(f"smask: want a contiguous float32 "
+                             f"[{ro.shape[0]}] tensor on {ro.device}")
     lib = _library()
     r = ro.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=ro.device)
     tri = torch.empty(r, dtype=torch.int32, device=ro.device)
     if r == 0:
         return t, tri
+    head = (node8_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr())
+    sizes = (r, node8_rows.shape[0], leaf_tris.shape[0], float(tmin))
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.packet_walk_launch(
-            node8_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
-            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), t.data_ptr(),
-            tri.data_ptr(),
-            r, node8_rows.shape[0], leaf_tris.shape[0], float(tmin),
-            int(any_hit), stream,
-        )
+        if smask is None:
+            rc = lib.packet_walk_launch(*head, t.data_ptr(), tri.data_ptr(),
+                                        *sizes, int(any_hit), stream)
+        else:
+            rc = lib.packet_walk_mixed_launch(
+                *head, smask.data_ptr(), t.data_ptr(), tri.data_ptr(),
+                *sizes, float(shadow_tmin), stream)
     if rc != 0:
         raise RuntimeError(
             "packet_walk launch failed: "
             + lib.packet_walk_error_string(rc).decode()
         )
-    packet_query_cuda.launches += 1
+    if smask is None:
+        packet_query_cuda.launches += 1
+    else:
+        packet_query_cuda.mixed_launches += 1
     return t, tri
 
 
 packet_query_cuda.launches = 0
+packet_query_cuda.mixed_launches = 0
 
 
 def packet_query(node8_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
-                 any_hit: bool):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    fn = packet_query_cuda if ro.device.type == "cuda" else packet_query_torch
-    return fn(node8_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit)
+                 any_hit: bool, smask=None, shadow_tmin: float = 0.0):
+    """The kernel for CUDA tensors, the plain version for CPU tensors;
+    ``smask`` selects the mixed form (raytpu's ``packet_query(...,
+    smask, mixed=True, shadow_tmin)``), which no engine path calls."""
+    if ro.device.type == "cuda":
+        return packet_query_cuda(node8_rows, leaf_tris, first, ro, rd, tmax,
+                                 tmin, any_hit, smask, shadow_tmin)
+    return packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
+                              tmin, any_hit, smask=smask,
+                              shadow_tmin=shadow_tmin)
 
 
 def make_packet_intersectors(pack):

@@ -2,8 +2,9 @@
 and the engine's intersector factory.
 
 Replaces ``raytpu/kernels/strand_persistent.py:strand_query_persistent``
-with its factory ``raytpu/kernels/strand.py:make_strand_intersectors``
-(closest-hit and any-hit forms). The contract, per ray:
+with its factories ``raytpu/kernels/strand.py:make_strand_intersectors``
+(closest-hit and any-hit forms) and ``make_strand_mixed_query`` (the
+mixed form, below). The contract, per ray:
 
 * walk the octant-threaded tree (accel/strandtree.py) along the ray's own
   direction octant ``(dx<0) + 2(dy<0) + 4(dz<0)``; hit boxes descend,
@@ -57,6 +58,15 @@ built by hand gets them from ``first_slots(leaf_tris)``.
 torch ops, the same arithmetic in the same order). ``strand_query``
 dispatches on the tensors' device alone: CUDA tensors go to the kernel,
 CPU tensors to the plain version.
+
+The mixed form (raytpu's ``mixed=True``, ``strand_mixed_query_cuda`` /
+``_torch`` / ``strand_mixed_query``) walks a bounce's continuation rays
+and the previous bounce's deferred shadow rays in one launch: ``smask ==
+1`` flags a shadow lane, any-hit over [shadow_tmin, tmax] with LIMIT =
+tmax; every other lane is closest-hit over [tmin, tmax) as above; every
+lane's slab test uses ``min(tmin, shadow_tmin)``. A closest lane's
+result equals the closest-hit form's and a shadow lane's blocked bit the
+any-hit form's: a lower slab tmin only adds box tests.
 
 The block-scheduled walk replaces ``raytpu/kernels/strand.py:
 _strand_kernel`` (entry ``strand_query``), which raytpu runs with
@@ -150,24 +160,56 @@ def strand_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
     A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
     ("tris") and the table bytes it reads, each distinct 32-byte node
     record and 320-byte leaf row once ("bytes")."""
+    shad = torch.full((ro.shape[0],), any_hit, dtype=torch.bool,
+                      device=ro.device)
+    return _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
+                       tmin, tmin, counts)
+
+
+def strand_mixed_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
+                             smask, tmin: float, shadow_tmin: float,
+                             counts: dict | None = None):
+    """Plain torch version of the strand walk's mixed form (raytpu's
+    ``strand_query_persistent(..., mixed=True)``): ``smask`` [R] == 1.0
+    flags a shadow lane, any-hit over [shadow_tmin, tmax] (its t returns
+    tmax); every other lane is closest-hit over [tmin, tmax) with the tie
+    keys ``first``. Every lane's slab test uses min(tmin, shadow_tmin).
+    Returns (t [R] f32, tri [R] i32); ``counts`` as in
+    ``strand_query_torch``."""
+    return _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
+                       smask == 1.0, tmin, shadow_tmin, counts)
+
+
+def _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
+                tmin: float, shadow_tmin: float, counts: dict | None):
+    """The per-ray walk of every form, per lane: ``shad`` [R] bool lanes
+    are any-hit from ``shadow_tmin`` (LIMIT = tmax), the others
+    closest-hit from ``tmin`` (LIMIT = best t from min(F32_MAX, tmax));
+    the slab test uses min(tmin, shadow_tmin). The closest-hit and any-hit
+    forms pass shadow_tmin = tmin. The kernel's arithmetic in its order
+    (csrc/strand_common.cuh:walk_kernel)."""
     dev = ro.device
     r = ro.shape[0]
     recs = strand_rows.reshape(-1, 8)  # node c, octant o at record 8c + o
     tris = leaf_tris.reshape(-1, 8, 10)
     n_nodes = strand_rows.shape[0] * 2
     tmax = tmax.to(torch.float32)
+    slab_tmin = min(tmin, shadow_tmin)
     t_out = torch.empty(r, dtype=torch.float32, device=dev)
     tri_out = torch.empty(r, dtype=torch.int32, device=dev)
     inv = _safe_inv(rd)
     octant = ((rd[:, 0] < 0).long() + 2 * (rd[:, 1] < 0).long()
               + 4 * (rd[:, 2] < 0).long())
-    best_t = tmax.clone() if any_hit else torch.minimum(
-        torch.full_like(tmax, F32_MAX), tmax
-    )
+    # an any-hit lane's best t is its LIMIT, tmax, and never changes
+    best_t = torch.where(shad, tmax,
+                         torch.minimum(torch.full_like(tmax, F32_MAX), tmax))
+    tcut = torch.where(shad, shadow_tmin, tmin).to(torch.float32)
+    any_lanes = bool(shad.any())
+    closest_lanes = not bool(shad.all())
     # the working set: one entry per unfinished ray
     s = dict(
         idx=torch.arange(r, device=dev), o=ro, d=rd, inv=inv, neg=inv < 0.0,
-        oct=octant, tm=tmax, bt=best_t,
+        oct=octant, shad=shad, tcut=tcut, bt=best_t,
         btri=torch.full((r,), -1, dtype=torch.int32, device=dev),
         bkey=torch.full((r,), -1, dtype=torch.int32, device=dev),
         cur=torch.zeros(r, dtype=torch.long, device=dev),
@@ -186,13 +228,13 @@ def strand_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
         rec = recs[ri]
         lo = (torch.where(s["neg"], rec[:, 3:6], rec[:, 0:3]) - s["o"]) * s["inv"]
         hi = (torch.where(s["neg"], rec[:, 0:3], rec[:, 3:6]) - s["o"]) * s["inv"]
-        limit = s["tm"] if any_hit else s["bt"]
         near = torch.maximum(
             torch.maximum(lo[:, 0], lo[:, 1]),
-            torch.maximum(lo[:, 2], torch.full_like(lo[:, 2], tmin)),
+            torch.maximum(lo[:, 2], torch.full_like(lo[:, 2], slab_tmin)),
         )
         far = torch.minimum(
-            torch.minimum(hi[:, 0], hi[:, 1]), torch.minimum(hi[:, 2], limit)
+            torch.minimum(hi[:, 0], hi[:, 1]),
+            torch.minimum(hi[:, 2], s["bt"]),
         )
         box = near <= far * FAR_SCALE
         hit_link = rec[:, 6].long()
@@ -205,28 +247,31 @@ def strand_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
                 counts["tris"] = counts.get("tris", 0) + 8 * li.numel()
                 seen_leaf[lr.long()] = True
             tri = tris[lr.long()]  # [L, 8, 10]
-            lim = (s["tm"] if any_hit else s["bt"])[li][:, None]
+            bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
             t, _, _, ok = moller_trumbore(
                 s["o"][li][:, None, :], s["d"][li][:, None, :],
-                tri[:, :, 0:3], tri[:, :, 3:6], tri[:, :, 6:9], tmin, lim,
+                tri[:, :, 0:3], tri[:, :, 3:6], tri[:, :, 6:9],
+                s["tcut"][li][:, None], bt[:, None],
             )
             slot = lr[:, None] * 8 + k8  # [L, 8]
-            if any_hit:
-                # the first accepted triangle blocks and ends the walk
-                found = ok.any(dim=1)
-                k = ok.to(torch.int32).argmax(dim=1)
-                s["btri"][li] = torch.where(
-                    found, slot.gather(1, k[:, None])[:, 0], s["btri"][li]
-                )
-                nxt[li] = torch.where(found, -1, nxt[li])
-            else:
+            sh = s["shad"][li]
+            ti, tk = bi, bk
+            if closest_lanes:
                 found, mt, ms, mk = _leaf_closest(ok, t, slot,
                                                   first[slot.long()])
-                bt, bi, bk = s["bt"][li], s["btri"][li], s["bkey"][li]
-                acc = found & ((mt < bt) | ((mt == bt) & (mk < bk)))
+                acc = ~sh & found & ((mt < bt) | ((mt == bt) & (mk < bk)))
                 s["bt"][li] = torch.where(acc, mt, bt)
-                s["btri"][li] = torch.where(acc, ms, bi)
-                s["bkey"][li] = torch.where(acc, mk, bk)
+                ti = torch.where(acc, ms, bi)
+                tk = torch.where(acc, mk, bk)
+            if any_lanes:
+                # the first accepted triangle blocks and ends the walk
+                blocked = sh & ok.any(dim=1)
+                k = ok.to(torch.int32).argmax(dim=1)
+                ti = torch.where(blocked, slot.gather(1, k[:, None])[:, 0],
+                                 ti)
+                nxt[li] = torch.where(blocked, -1, nxt[li])
+            s["btri"][li] = ti
+            s["bkey"][li] = tk
         s["cur"] = nxt
         done = nxt < 0
         if bool(done.any()):
@@ -277,7 +322,9 @@ _LIBS: dict = {}
 def _library(name: str) -> ctypes.CDLL:
     """The built ``csrc/<name>.cu`` with its launch signature declared:
     (rows, leaves, first, ro, rd, tmax, t, tri, [stats,] n_rays, n_nodes,
-    n_leaf_rows, tmin, any_hit, stream)."""
+    n_leaf_rows, tmin, any_hit, stream), and strand_walk's mixed launch
+    (rows, leaves, first, ro, rd, tmax, smask, t, tri, n_rays, n_nodes,
+    n_leaf_rows, tmin, shadow_tmin, stream)."""
     from ._build import LOCK, load_library
 
     with LOCK:
@@ -289,6 +336,11 @@ def _library(name: str) -> ctypes.CDLL:
             launch.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
                                + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p])
+            if name == "strand_walk":
+                lib.strand_walk_mixed_launch.restype = ctypes.c_int
+                lib.strand_walk_mixed_launch.argtypes = (
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
             err = getattr(lib, name + "_error_string")
             err.restype = ctypes.c_char_p
             err.argtypes = [ctypes.c_int]
@@ -349,6 +401,52 @@ def strand_query(strand_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = strand_query_cuda if ro.device.type == "cuda" else strand_query_torch
     return fn(strand_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit)
+
+
+def strand_mixed_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
+                            smask, tmin: float, shadow_tmin: float):
+    """Launch the mixed form of ``csrc/strand_walk.cu`` on the current
+    stream. Same signature and results as ``strand_mixed_query_torch``;
+    raises on bad inputs or a failed launch.
+    ``strand_mixed_query_cuda.launches`` counts the launches."""
+    if ro.device.type != "cuda":
+        raise ValueError(f"strand_walk needs CUDA tensors, got {ro.device}")
+    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax, first)
+    if (smask.dtype != torch.float32 or smask.device != ro.device
+            or smask.shape != tmax.shape or not smask.is_contiguous()):
+        raise ValueError(f"smask: want a contiguous float32 [{ro.shape[0]}] "
+                         f"tensor on {ro.device}")
+    lib = _library("strand_walk")
+    r = ro.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=ro.device)
+    tri = torch.empty(r, dtype=torch.int32, device=ro.device)
+    if r == 0:
+        return t, tri
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.strand_walk_mixed_launch(
+            strand_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), smask.data_ptr(),
+            t.data_ptr(), tri.data_ptr(), r, strand_rows.shape[0] * 2,
+            leaf_tris.shape[0], float(tmin), float(shadow_tmin), stream)
+    if rc != 0:
+        raise RuntimeError("strand_walk mixed launch failed: "
+                           + lib.strand_walk_error_string(rc).decode())
+    strand_mixed_query_cuda.launches += 1
+    return t, tri
+
+
+strand_mixed_query_cuda.launches = 0
+
+
+def strand_mixed_query(strand_rows, leaf_tris, first, ro, rd, tmax, smask,
+                       tmin: float, shadow_tmin: float):
+    """The mixed kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    fn = (strand_mixed_query_cuda if ro.device.type == "cuda"
+          else strand_mixed_query_torch)
+    return fn(strand_rows, leaf_tris, first, ro, rd, tmax, smask, tmin,
+              shadow_tmin)
 
 
 def strand_block_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
@@ -555,3 +653,38 @@ def make_strand_intersectors(pack):
         return tri >= 0
 
     return closest, any_fn
+
+
+def make_strand_mixed_query(pack):
+    """The deferred-NEE mixed query over ``pack.bvh.strand_rows``,
+    ``leaf_tris`` and ``first_slots``, with raytpu's contract (the port's
+    ``make_binned_query``'s too): (ro [R,3], rd [R,3], tmax [R], smask
+    [R], *, tmin, shadow_tmin) -> (t [R], tri [R]). One walk serves a
+    bounce's continuation rays (closest lanes) and the previous bounce's
+    deferred shadow rays (``smask == 1``: only ``tri >= 0``, blocked, is
+    contract). It always takes the per-ray walk, as raytpu's factory
+    always takes its persistent kernel: ``RAYTPU_STRAND_PERSISTENT=0`` does
+    not move it to the block walk. raytpu's schedule knobs
+    (``RAYTPU_STRAND_WALKERS``, ``_SERVICE_K``, ``_FLUSH``, ``_PIPE``,
+    ``_UNROLL``, ``_CTL``, ``_POP``, ``_DUAL``, ``RAYTPU_RIBBON``) change no
+    result there and are not read here. A pack without a strand tree
+    raises ValueError. On a CUDA pack the kernel's library is built or
+    loaded here, on the caller's thread."""
+    if pack.bvh.strand_rows is None:
+        raise ValueError(
+            "bounce_backend='mixed' needs a strand tree; pack "
+            "the scene with the default packed tables"
+        )
+    tree = pack.bvh.strand_rows.contiguous()
+    leaves = pack.bvh.leaf_tris.contiguous()
+    first = pack.bvh.first_slots.contiguous()
+    if tree.device.type == "cuda":  # build or load here, not at a launch
+        _library("strand_walk")
+
+    def query(ro, rd, tmax, smask, *, tmin: float, shadow_tmin: float):
+        return strand_mixed_query(
+            tree, leaves, first, ro.contiguous(), rd.contiguous(),
+            _per_ray(tmax, ro), smask.to(torch.float32).contiguous(), tmin,
+            shadow_tmin)
+
+    return query

@@ -27,6 +27,8 @@ numpy and then placed on the requested device:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -39,11 +41,16 @@ from ..types import BvhPack, CameraPack, ScenePack
 from .camera import CameraData
 from .gltf import SceneData
 
-# slots above which a scene gets a strand tree and its non-primary queries
-# are coherence-sorted (raytpu's RAYTPU_SORT_MIN_TRIS default)
-SORT_MIN_TRIS = 256
 # slots above which treelets="auto" builds the binned route's treelets
 TREELET_MIN_SLOTS = 4096
+
+
+def _sort_min_tris() -> int:
+    """Triangle-slot threshold above which bounce waves are coherence-
+    sorted and the strand tree is built (engine/render.py's
+    ``sort_bounced``): RAYTPU_SORT_MIN_TRIS, default 256, raytpu's knob.
+    pack_scene and the engine both read it, so they always agree."""
+    return int(os.environ.get("RAYTPU_SORT_MIN_TRIS", "256"))
 
 
 def flatten_world_triangles(scene: SceneData):
@@ -260,8 +267,8 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
                                 and n_slots > TREELET_MIN_SLOTS):
         tl = build_treelets(bvh8, leaf_tris)
     stream = tables == "stream"
-    strand_rows = (build_strand_tree(bvh).rows if n_slots > SORT_MIN_TRIS
-                   else None)
+    strand_rows = (build_strand_tree(bvh).rows
+                   if n_slots > _sort_min_tris() else None)
 
     def conv(x):
         return None if x is None else torch.from_numpy(

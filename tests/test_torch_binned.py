@@ -587,9 +587,13 @@ def test_route_errors():
     with pytest.raises(ValueError, match="tables='stream'"):
         render.render_tile(p["stream"], p["cam"], 0,
                            RenderConfig(**cfg, intersector="packet"), 8)
-    with pytest.raises(NotImplementedError, match="Arms not to port"):
-        render.render_tile(p["full"], p["cam"], 0,
-                           RenderConfig(**cfg, bounce_backend="mixed"), 8)
+    with pytest.raises(ValueError, match="needs a strand tree"):
+        render.render_tile(small, p["cam"], 0,
+                           RenderConfig(**cfg, intersector="packet",
+                                        bounce_backend="mixed"), 8)
+    mixed_fn = render._choose_intersectors(
+        p["full"], RenderConfig(**cfg, bounce_backend="mixed"))[2]
+    assert callable(mixed_fn)
 
 
 @pytest.mark.cuda

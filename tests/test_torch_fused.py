@@ -118,13 +118,9 @@ def test_large_wave_threshold_selects_fused(monkeypatch):
     assert waves["mode"] == "query"
 
 
-@pytest.mark.parametrize("mode,err", [
-    ("resort", NotImplementedError), ("compact", NotImplementedError),
-    ("fast", ValueError)])
-def test_unported_and_unknown_wave_modes_raise(monkeypatch, mode, err):
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
-                       else "RAYTPU_WAVE_MODE"):
-        _render(monkeypatch, mode)
+def test_unknown_wave_mode_raises(monkeypatch):
+    with pytest.raises(ValueError, match="RAYTPU_WAVE_MODE"):
+        _render(monkeypatch, "fast")
 
 
 def test_fused_mode_needs_sorted_immediate_waves(monkeypatch):
