@@ -7,7 +7,10 @@ BVH8 walk, the binned route's treelet walk, the block-scheduled strand
 walk and the per-step probe, one nvcc each, in parallel), holds each
 walk bit for bit against its plain torch version (phases 3, 3b, 3c, 3d;
 3e and 3f the mixed-lane forms of the strand and packet walks, also
-against their separate closest-hit and any-hit launches),
+against their separate closest-hit and any-hit launches; 3g the strand
+walk over ribbon rows, also against the strand layout, and its stats
+counters; 3h the packet walk's near-first instances, also against storage
+order, and both orders' stats),
 renders small frames on the card and on the CPU (phase 4, the packet
 route in path and flat mode; phase 4b, the binned route on a stream
 pack), then drives the entry points in this process, so each kernel's
@@ -52,11 +55,19 @@ launch count can be read:
   mixed form), whose PNG must equal phase 7b's and whose mixed queries
   are sampled against the brute sweep; (b) ``RAYTPU_WAVE_MODE=resort``
   and ``compact``; (c) ``RAYTPU_SORT_MODE=gather``, ``seg`` and
-  ``RAYTPU_COMPACT=1``, each PNG equal to phase 5's.
+  ``RAYTPU_COMPACT=1``, each PNG equal to phase 5's;
+* phase 11, raytpu's kernel options: (a) phase 5's frame and 10a's with
+  ``RAYTPU_RIBBON=4`` (the strand walks over the pack's ribbon rows), each
+  PNG equal to its phase's, and the ribbon forms timed beside the strand
+  layout on the 1080p primary wave and 10a's largest mixed query; (b) 6c
+  with ``RAYTPU_ORDER_MODE=all`` (packet_walk's near-first instance), the
+  PNG equal to 6c's, near-first timed beside storage order; each with and
+  without stats.
 
 Every phase prints its result; a failed phase exits non-zero. The last
-two lines are the per-kernel JSON record and ``{"ok": true, "device":
-{...}}``. Each kernel's bound is the larger of the bytes it must move
+two lines are the per-kernel JSON record (each kernel, and each form:
+mixed, ribbon, near-first) and ``{"ok": true, "device": {...}}``. Each
+kernel's bound is the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 TFLOP/s f32 (one H100 SXM's
 peaks). A walk's bytes are the distinct node and leaf rows that the
 per-ray plain walk reads on the measured rays, each once, plus the rays
@@ -122,6 +133,30 @@ KERNELS = {
     ),
     "packet_mixed": dict(
         name="packet_walk (mixed)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/packet_walk.cu",
+        replaces="raytpu/kernels/intersect_pallas.py:71",
+    ),
+    "strand_ribbon": dict(
+        name="strand_walk (ribbon)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/strand_walk.cu",
+        replaces="raytpu/kernels/strand_persistent.py:52",
+    ),
+    "strand_mixed_ribbon": dict(
+        name="strand_walk (mixed, ribbon)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/strand_walk.cu",
+        replaces="raytpu/kernels/strand_persistent.py:52",
+    ),
+    "packet_near": dict(
+        name="packet_walk (near-first)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/packet_walk.cu",
+        replaces="raytpu/kernels/intersect_pallas.py:71",
+    ),
+    "packet_mixed_near": dict(
+        name="packet_walk (mixed, near-first)",
         route="cuda",
         source="raytpu_torch/kernels/csrc/packet_walk.cu",
         replaces="raytpu/kernels/intersect_pallas.py:71",
@@ -254,7 +289,8 @@ def kernel_fns(which: str):
 
 def _counters() -> dict:
     """Each kernel's launch count as (wrapper, attribute): packet_walk's
-    wrapper counts its mixed form apart."""
+    wrapper counts its mixed form and its near-first instances apart, the
+    strand walks' wrappers their launches over ribbon rows."""
     from raytpu_torch.kernels.binned import binned_walk_cuda
     from raytpu_torch.kernels.packet import packet_query_cuda
     from raytpu_torch.kernels.strand import (
@@ -270,7 +306,13 @@ def _counters() -> dict:
                 block=(strand_block_query_cuda, "launches"),
                 step=(step_bench_cuda, "launches"),
                 strand_mixed=(strand_mixed_query_cuda, "launches"),
-                packet_mixed=(packet_query_cuda, "mixed_launches"))
+                packet_mixed=(packet_query_cuda, "mixed_launches"),
+                strand_ribbon=(strand_query_cuda, "ribbon_launches"),
+                strand_mixed_ribbon=(strand_mixed_query_cuda,
+                                     "ribbon_launches"),
+                packet_near=(packet_query_cuda, "ordered_launches"),
+                packet_mixed_near=(packet_query_cuda,
+                                   "mixed_ordered_launches"))
 
 
 def reset_launches() -> None:
@@ -661,11 +703,7 @@ def phase_kernel(errs: list, which: str, label: str) -> None:
         ro_np, rd_np = soup_rays(65536, seed=ntri)
         ro = torch.from_numpy(ro_np).to(dev)
         rd = torch.from_numpy(rd_np).to(dev)
-        tmax_c = torch.full((65536,), F32_MAX, device=dev)
-        tmax_c[3::10] = 5.0  # finite closest-hit bound (open)
-        tmax_c[::7] = float("-inf")  # dead lanes
-        tmax_s = torch.full((65536,), 6.0, device=dev)  # shadow rays
-        tmax_s[::5] = float("-inf")
+        tmax_c, tmax_s = phase3_lanes()
         args = (*tables, ro, rd)
         tk, trk = kernel(*args, tmax_c, 0.001, False)
         tp, trp = plain(*args, tmax_c, 0.001, False)
@@ -879,13 +917,185 @@ def phase_mixed_kernel(errs: list, which: str, label: str) -> int:
     return launches
 
 
+def to_card(a):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+
+def phase3_lanes(n: int = 65536):
+    """Phase 3's closest-hit bounds (every tenth 5.0, an open bound; every
+    seventh lane dead) and shadow bounds (6.0; every fifth lane dead)."""
+    import torch
+
+    tmax_c = torch.full((n,), F32_MAX, device="cuda")
+    tmax_c[3::10] = 5.0
+    tmax_c[::7] = float("-inf")
+    tmax_s = torch.full((n,), 6.0, device="cuda")
+    tmax_s[::5] = float("-inf")
+    return tmax_c, tmax_s
+
+
+def tie_key(first, tri):
+    import torch
+
+    return torch.where(tri >= 0, first[tri.clamp(min=0).long()], -1)
+
+
+def phase_ribbon_kernel(errs: dict) -> None:
+    """Phase 3g: strand_walk over ribbon rows (rpo = rows per octant,
+    ribbon_k 4) on phase 3's 3 soups x 65536 rays, closest-hit, any-hit and
+    mixed: bit for bit (t and tri of every lane) against its plain version
+    and against the strand layout's launch; and the stats counters
+    (stats=True, int32 [8]) of both layouts against the plain versions',
+    bit for bit."""
+    import torch
+
+    from raytpu_torch.accel.strandtree import (
+        build_ribbon_tree,
+        build_strand_tree,
+    )
+    from raytpu_torch.kernels.strand import (
+        first_slots,
+        strand_mixed_query_cuda,
+        strand_mixed_query_torch,
+        strand_query_cuda,
+        strand_query_torch,
+    )
+
+    notes = []
+    for ntri in (5, 300, 3000):
+        bvh, _, per, _ = slot_rows(*soup(ntri))
+        leaf = to_card(per.reshape(-1, 80))
+        first = first_slots(leaf)
+        rib = build_ribbon_tree(bvh)
+        rows = {0: to_card(build_strand_tree(bvh).rows),
+                rib.rows_per_oct: to_card(rib.rows)}
+        ro, rd = (to_card(a) for a in soup_rays(65536, seed=ntri))
+        tmax_c, tmax_s = phase3_lanes()
+        tmax_m, smask = mixed_lanes(65536, "cuda")
+        forms = (("closest", strand_query_cuda, strand_query_torch,
+                  (tmax_c, 0.001, False)),
+                 ("any-hit", strand_query_cuda, strand_query_torch,
+                  (tmax_s, 0.0, True)),
+                 ("mixed", strand_mixed_query_cuda, strand_mixed_query_torch,
+                  (tmax_m, smask, 0.001, 0.0)))
+        stats = []
+        for form, kernel, plain, tail in forms:
+            out = {}
+            for rpo, tree in rows.items():
+                args = (tree, leaf, first, ro, rd, *tail)
+                out[rpo] = (kernel(*args, rpo=rpo, stats=True),
+                            plain(*args, rpo=rpo, stats=True))
+            torch.cuda.synchronize()
+            (k0, p0), (k1, p1) = out[0], out[rib.rows_per_oct]
+            for what, (a, b) in (("ribbon kernel vs plain", (k1, p1)),
+                                 ("strand kernel vs plain", (k0, p0)),
+                                 ("ribbon vs strand kernel", (k1, k0))):
+                if not (same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
+                        and torch.equal(a[2], b[2])):
+                    fail(f"phase 3g {ntri} tris {form}: {what} differ on "
+                         f"{int((a[1] != b[1]).sum())} tri, stats "
+                         f"{a[2].tolist()} vs {b[2].tolist()}")
+            key = "strand_mixed_ribbon" if form == "mixed" else "strand_ribbon"
+            errs[key].append(t_err(k1[0], p1[0]))
+            stats.append(f"{form} {k1[2].tolist()}")
+        notes.append(f"{ntri} tris (rpo {rib.rows_per_oct}): "
+                     + ", ".join(stats))
+    print("phase 3g strand_walk over ribbon rows: bit-equal (t, tri, stats) "
+          "to its plain version and to the strand layout's launch on 3 soups "
+          "x 65536 rays, closest, any-hit and mixed; stats [loads, 0, 0, "
+          "installs, leaf tests, leaf rows reached, 0, 0]: "
+          + "; ".join(notes))
+
+
+def phase_near_kernel(errs: dict) -> int:
+    """Phase 3h: packet_walk's near-first instances (ordered=True) on phase
+    3's 3 soups x 65536 rays, closest-hit, any-hit and mixed, with stats
+    (default packet, and 384 rays a packet, which does not divide R): bit
+    for bit (t, tri, stats) against their plain versions, the storage-order
+    instances' stats against theirs, and near-first against storage order on
+    t bits and the tie key (closest lanes) and the blocked bit (shadow
+    lanes). The mixed near-first queries go through ``packet_query``, as
+    3f's do: their launches, counted from 0, are the kernel form's."""
+    import torch
+
+    from raytpu_torch.kernels.packet import (
+        packet_query,
+        packet_query_cuda,
+        packet_query_torch,
+    )
+    from raytpu_torch.kernels.strand import first_slots
+
+    notes, launches = [], 0
+    for ntri in (5, 300, 3000):
+        _, bvh8, per, _ = slot_rows(*soup(ntri))
+        leaf = to_card(per.reshape(-1, 80))
+        first = first_slots(leaf)
+        rows8 = to_card(bvh8.node_rows)
+        ro, rd = (to_card(a) for a in soup_rays(65536, seed=ntri))
+        tmax_c, tmax_s = phase3_lanes()
+        tmax_m, smask = mixed_lanes(65536, "cuda")
+        shad = smask == 1.0
+        pops = {}
+        for form, tail, kw in (
+                ("closest", (tmax_c, 0.001, False), {}),
+                ("closest/384", (tmax_c, 0.001, False), dict(packet=384)),
+                ("any-hit", (tmax_s, 0.0, True), {}),
+                ("mixed", (tmax_m, 0.001, False),
+                 dict(smask=smask, shadow_tmin=0.0))):
+            args = (rows8, leaf, first, ro, rd, *tail)
+            out = {}
+            for ordered in (False, True):
+                if form == "mixed" and ordered:
+                    reset_launches()
+                    k = packet_query(*args, ordered=True, with_stats=True,
+                                     **kw)
+                    torch.cuda.synchronize()
+                    launches += read_launches()["packet_mixed_near"]
+                else:
+                    k = packet_query_cuda(*args, ordered=ordered,
+                                          with_stats=True, **kw)
+                out[ordered] = (k, packet_query_torch(
+                    *args, ordered=ordered, with_stats=True, **kw))
+            torch.cuda.synchronize()
+            for ordered, (k, p) in out.items():
+                if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                        and torch.equal(k[2], p[2])):
+                    fail(f"phase 3h {ntri} tris {form} ordered={ordered}: "
+                         f"kernel != plain on {int((k[1] != p[1]).sum())} "
+                         f"tri, {int((k[2] != p[2]).sum())} stats lanes")
+            near, store = out[True][0], out[False][0]
+            if form == "any-hit":
+                bad = int(((near[1] >= 0) != (store[1] >= 0)).sum())
+            else:
+                closest = ~shad if form == "mixed" else torch.ones_like(shad)
+                bad = int((closest & (
+                    (near[0].view(torch.int32) != store[0].view(torch.int32))
+                    | (tie_key(first, near[1]) != tie_key(first, store[1])))
+                ).sum() + (~closest & ((near[1] >= 0)
+                                       != (store[1] >= 0))).sum())
+            if bad:
+                fail(f"phase 3h {ntri} tris {form}: near-first differs from "
+                     f"storage order on {bad} lanes")
+            key = "packet_mixed_near" if form == "mixed" else "packet_near"
+            errs[key].append(t_err(out[True][0][0], out[True][1][0]))
+            pops[form] = (int(store[2][:, 0].sum()), int(near[2][:, 0].sum()))
+        notes.append(f"{ntri} tris: node pops storage/near-first " + ", ".join(
+            f"{f} {a}/{b}" for f, (a, b) in pops.items()))
+    print("phase 3h packet_walk near-first: bit-equal (t, tri, stats) to its "
+          "plain version, storage order's stats to theirs, equal to storage "
+          "order on t bits and the tie key (closest lanes) and the blocked "
+          "bit, on 3 soups x 65536 rays, closest, any-hit and mixed; "
+          f"{launches} mixed near-first launches through packet_query; "
+          + "; ".join(notes))
+    return launches
+
+
 def tie_mismatches(first, tri, brute_tri) -> int:
     """Rays of the tie scene whose triangle is not the sweep's: the sweep
     keeps the lowest slot of 12 copies, which is every copy's tie key."""
-    import torch
-
-    key = torch.where(tri >= 0, first[tri.clamp(min=0).long()], -1)
-    return int((key != brute_tri).sum())
+    return int((tie_key(first, tri) != brute_tri).sum())
 
 
 def treelet_soup(ntri: int, budget: int):
@@ -1248,6 +1458,15 @@ def phase_card_vs_cpu(tmp: str):
           + "; ".join(notes))
 
 
+def png_pixels_differ(a, b) -> int:
+    """PNG pixels that differ between two f32 frames (png_diff's first
+    number, without its SSIM)."""
+    from raytpu_torch.io.png import quantize_rgba32f
+
+    return int(np.any(quantize_rgba32f(a) != quantize_rgba32f(b),
+                      axis=-1).sum())
+
+
 def png_diff(a, b) -> tuple:
     """(PNG pixels that differ, their share, SSIM) of two f32 frames as the
     PNGs the user gets (tests/imgdiff.py's bar: share <= 0.02, SSIM >=
@@ -1473,7 +1692,8 @@ def phase_main(tmp: str, errs: list) -> dict:
 
     t0 = time.perf_counter()
     scene = load_scene(glb)
-    with timed_treelets() as tl_s:
+    with timed_treelets() as tl_s, \
+            timed_treelets("build_ribbon_tree") as rib_s:
         pack = pack_scene(scene, "cuda")
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
@@ -1494,7 +1714,7 @@ def phase_main(tmp: str, errs: list) -> dict:
     frame, frame_s, waves = frames()
     with env(RAYTPU_WAVE_MODE="query"):
         frame_q, query_s, waves_q = frames()
-    n_diff, frac, _ = png_diff(frame, frame_q)
+    n_diff = png_pixels_differ(frame, frame_q)
     print(f"phase 5 wave modes: default '{waves['mode']}', work width per "
           f"bounce {waves['widths']}, frames {frame_s[0]:.3f} / "
           f"{frame_s[1]:.3f} s; '{waves_q['mode']}' widths "
@@ -1515,7 +1735,8 @@ def phase_main(tmp: str, errs: list) -> dict:
         "strand", (pack.bvh.strand_rows, pack.bvh.leaf_tris,
                    pack.bvh.first_slots), pack, ro, rd, errs)
     print(f"phase 5 main path: {n_tris} triangles ({pack.n_triangles} slots), "
-          f"pack {pack_s:.2f} s (treelets {sum(tl_s):.2f} s of it), frame 1 "
+          f"pack {pack_s:.2f} s (treelets {sum(tl_s):.2f} s, ribbon rows "
+          f"{sum(rib_s):.2f} s of it), frame 1 "
           f"{frame_s[0]:.3f} s, frame 2 {frame_s[1]:.3f} s at {w}x{h} 1spp 4 "
           f"bounces; primary wave {ro.shape[0]} rays: strand_walk {ms:.3f} "
           f"ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on {SAMPLE} "
@@ -1548,9 +1769,11 @@ def phase_main(tmp: str, errs: list) -> dict:
         fail("main-path PNG is wrong or mostly black")
     if counts["strand"] == 0 or counts["packet"] or counts["block"]:
         fail("the path waves of a >256-slot scene did not all take strand_walk")
+    if pack.bvh.ribbon_rows is None:
+        fail("phase 5: the pack has no ribbon rows")
     return dict(launches=counts["strand"], ms=ms, plain_ms=plain_ms, **bnd,
                 glb=glb, cam_json=cam_json, png=png, pack=pack, cam=cam,
-                frame=frame, frame_s=frame_s)
+                frame=frame, frame_s=frame_s, ro=ro, rd=rd)
 
 
 class recorded_queries:
@@ -1573,10 +1796,10 @@ class recorded_queries:
         self.real = getattr(self.mod, self.name)
         self.calls = []
 
-        def record(*args):
+        def record(*args, **kwargs):
             self.calls.append(args[:3] + tuple(a.clone() for a in args[3:6])
                               + args[6:])
-            return self.real(*args)
+            return self.real(*args, **kwargs)
 
         setattr(self.mod, self.name, record)
         return self.calls
@@ -1717,13 +1940,18 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
 
 
 class timed_treelets:
-    """Context manager: the seconds of every treelet build that
-    ``pack_scene`` runs inside it, as a list."""
+    """Context manager: the seconds of every call of the function ``name``
+    that ``pack_scene`` calls (the treelet build by default, or
+    ``build_ribbon_tree``) inside it, as a list."""
+
+    def __init__(self, name: str = "build_treelets"):
+        self.name = name
 
     def __enter__(self):
         from raytpu_torch.scene import pack as pack_mod
 
-        self.mod, self.real, self.secs = pack_mod, pack_mod.build_treelets, []
+        self.mod, self.real, self.secs = (pack_mod,
+                                          getattr(pack_mod, self.name), [])
 
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
@@ -1731,11 +1959,11 @@ class timed_treelets:
             self.secs.append(time.perf_counter() - t0)
             return out
 
-        pack_mod.build_treelets = timed
+        setattr(pack_mod, self.name, timed)
         return self.secs
 
     def __exit__(self, *exc):
-        self.mod.build_treelets = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 def write_pbr_nee(path: str):
@@ -1807,7 +2035,7 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
     frame_s = []
     for _ in range(2):
         t0 = time.perf_counter()
-        render_frame(pack, cam, cfg)
+        frame = render_frame(pack, cam, cfg)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
     rays = count_rays(pack, cam, cfg)
@@ -1886,7 +2114,8 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
                  f"{packet_wrong} rays of the wave, not the pinned "
                  f"{PACKET_WAVE_LOST_HITS}: update the pin and ROADMAP fault "
                  "3.5")
-        rec.update(ms=ms, plain_ms=plain_ms, **bnd)
+        rec.update(ms=ms, plain_ms=plain_ms, **bnd, pack=pack, cam=cam,
+                   cfg=cfg, frame=frame, frame_s=frame_s, ro=ro, rd=rd)
     if line is not None:
         print(line)
     if img.shape != (h, w, 3) or lit <= min_lit:
@@ -2250,7 +2479,7 @@ def phase_mixed_route(main_rec: dict, deferred_rec: dict,
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
         counts = read_launches()
-    n7, _, _ = png_diff(frame, deferred_rec["frame"])
+    n7 = png_pixels_differ(frame, deferred_rec["frame"])
     n5, frac, s = png_diff(frame, main_rec["frame"])
     lit = float((frame.max(-1) > 0).mean())
     print(f"phase 10a mixed backend: {MAIN_ARGS['width']}x"
@@ -2305,7 +2534,8 @@ def phase_mixed_route(main_rec: dict, deferred_rec: dict,
           f"{int((smask == 1.0).sum())} shadow): both mixed kernels "
           "bit-equal to their plain versions and to the engine's result; "
           + "; ".join(notes))
-    recs["strand"]["launches"] = counts["strand_mixed"]
+    recs["strand"].update(launches=counts["strand_mixed"], frame=frame,
+                          query=(ro, rd, tmax, smask, tmin, shadow_tmin))
     return recs["strand"], recs["packet"]
 
 
@@ -2335,7 +2565,7 @@ def phase_sorted_arms(main_rec: dict) -> None:
             frame = render_frame(pack, cam, cfg)
             torch.cuda.synchronize()
             waves = dict(WAVE_STATS)
-        n_diff, _, _ = png_diff(frame, main_rec["frame"])
+        n_diff = png_pixels_differ(frame, main_rec["frame"])
         n_f32 = int(np.any(frame != main_rec["frame"], -1).sum())
         name = " ".join(f"{k}={v}" for k, v in knobs.items())
         print(f"phase {label} {name}: mode '{waves['mode']}', work width per "
@@ -2345,6 +2575,221 @@ def phase_sorted_arms(main_rec: dict) -> None:
               "pixels); " + launched(label, counts, ("strand",)))
         if n_diff:
             fail(f"phase {label} {name}: the PNG is not phase 5's")
+
+
+def in_turns(calls: dict, reps: int = 5) -> dict:
+    """CUDA-event ms per launch of each call, timed in turns (a b ... b a):
+    each call's mean of its two runs."""
+    names = list(calls)
+    order = names + names[::-1]
+    times = {name: [] for name in names}
+    for name in order:
+        times[name].append(cuda_ms(calls[name], reps=reps))
+    return {name: sum(v) / len(v) for name, v in times.items()}
+
+
+def plain_run(fn) -> tuple:
+    """One run of a plain walk with counts, timed by the host around it
+    (it ends in a synchronise): (ms, its outputs, its counts)."""
+    import torch
+
+    work = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(work)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out, work
+
+
+def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> tuple:
+    """Phase 11a: phase 5's pack and configuration with RAYTPU_RIBBON=4 (set
+    just before, restored just after), the counts set to 0 before the
+    frames and read after: every strand query on strand_walk over the
+    pack's ribbon rows, the PNG equal to phase 5's; then phase 10a's
+    configuration (deferred NEE through the strand walk's mixed form) with
+    the same knob, its PNG equal to 10a's. On phase 5's 1080p primary wave,
+    strand_walk over ribbon rows beside the strand layout (CUDA events, in
+    turns) and with stats=True (the counters' cost), its plain version
+    (bit-equal) and its bound; on 10a's largest mixed query the mixed form
+    over ribbon rows the same way. Returns the two forms' records."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.kernels.strand import (
+        strand_mixed_query_cuda,
+        strand_mixed_query_torch,
+        strand_query_cuda,
+        strand_query_torch,
+    )
+    from raytpu_torch.types import RenderConfig
+
+    pack, cam = main_rec["pack"], main_rec["cam"]
+    cfg = RenderConfig(**MAIN_ARGS)
+    mcfg = RenderConfig(**MAIN_ARGS, intersector="packet",
+                        bounce_backend="mixed")
+    with env(RAYTPU_RIBBON="4"):
+        reset_launches()
+        secs = warm_s(lambda: render_frame(pack, cam, cfg))
+        counts = read_launches()
+        frame = render_frame(pack, cam, cfg)
+        reset_launches()
+        msecs = warm_s(lambda: render_frame(pack, cam, mcfg))
+        mcounts = read_launches()
+        mframe = render_frame(pack, cam, mcfg)
+    n5 = png_pixels_differ(frame, main_rec["frame"])
+    n10 = png_pixels_differ(mframe, mixed_rec["frame"])
+    print(f"phase 11a RAYTPU_RIBBON=4: frames {secs[0]:.3f} / {secs[1]:.3f} "
+          f"s (phase 5 {main_rec['frame_s'][1]:.3f} s), "
+          + launched("11a", counts, ("strand_ribbon",))
+          + f"; vs phase 5's frame: {n5} PNG pixels differ "
+          f"({int(np.any(frame != main_rec['frame'], -1).sum())} f32 "
+          f"pixels); with bounce_backend='mixed': frames {msecs[0]:.3f} / "
+          f"{msecs[1]:.3f} s, "
+          + launched("11a mixed", mcounts, ("strand_ribbon",
+                                            "strand_mixed_ribbon"))
+          + f"; vs phase 10a's frame: {n10} PNG pixels differ")
+    if n5 or n10:
+        fail("phase 11a: the ribbon layout's PNG is not the strand layout's")
+    rib = pack.bvh.ribbon_rows
+    rpo = rib.shape[0] // 8
+    leaf, first = pack.bvh.leaf_tris, pack.bvh.first_slots
+    ro, rd = main_rec["ro"], main_rec["rd"]
+    n = ro.shape[0]
+    tmax = torch.full((n,), F32_MAX, device="cuda")
+    wave = (leaf, first, ro, rd, tmax, 0.001, False)
+    ms = in_turns({
+        "strand": lambda: strand_query_cuda(pack.bvh.strand_rows, *wave),
+        "ribbon": lambda: strand_query_cuda(rib, *wave, rpo=rpo,
+                                            ribbon_k=4),
+        "strand+stats": lambda: strand_query_cuda(pack.bvh.strand_rows,
+                                                  *wave, stats=True),
+        "ribbon+stats": lambda: strand_query_cuda(rib, *wave, rpo=rpo,
+                                                  stats=True)})
+    k = strand_query_cuda(rib, *wave, rpo=rpo, stats=True)
+    k0 = strand_query_cuda(pack.bvh.strand_rows, *wave, stats=True)
+    plain_ms, p, work = plain_run(lambda c: strand_query_torch(
+        rib, *wave, c, rpo=rpo, stats=True))
+    if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+            and torch.equal(k[2], p[2]) and same_bits(k[0], k0[0])
+            and torch.equal(k[1], k0[1]) and torch.equal(k[2], k0[2])):
+        fail("phase 11a: the ribbon kernel != its plain version or the "
+             "strand layout on the primary wave")
+    rec = dict(launches=counts["strand_ribbon"], ms=ms["ribbon"],
+               plain_ms=plain_ms, **walk_bound(work, n, 28))
+    q = mixed_rec["query"]
+    margs = (leaf, first, *q)
+    mms = in_turns({
+        "strand": lambda: strand_mixed_query_cuda(pack.bvh.strand_rows,
+                                                  *margs),
+        "ribbon": lambda: strand_mixed_query_cuda(rib, *margs, rpo=rpo)})
+    mk = strand_mixed_query_cuda(rib, *margs, rpo=rpo)
+    mk0 = strand_mixed_query_cuda(pack.bvh.strand_rows, *margs)
+    mplain_ms, mp, mwork = plain_run(lambda c: strand_mixed_query_torch(
+        rib, *margs, c, rpo=rpo))
+    if not (mixed_same(*mk, *mp, q[3]) and same_bits(mk[0], mk0[0])
+            and torch.equal(mk[1], mk0[1])):
+        fail("phase 11a: the mixed ribbon kernel != its plain version or the "
+             "strand layout on 10a's largest mixed query")
+    mrec = dict(launches=mcounts["strand_mixed_ribbon"], ms=mms["ribbon"],
+                plain_ms=mplain_ms, **walk_bound(mwork, q[0].shape[0], 32))
+    print(f"phase 11a primary wave ({n} rays): strand_walk over ribbon rows "
+          f"{ms['ribbon']:.4f} ms, strand layout {ms['strand']:.4f} ms; with "
+          f"stats {ms['ribbon+stats']:.4f} / {ms['strand+stats']:.4f} ms "
+          f"(stats {k[2].tolist()}); plain {plain_ms:.1f} ms, bit-equal "
+          f"(t, tri, stats) to it and to the strand layout; bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); 10a's largest "
+          f"mixed query ({q[0].shape[0]} lanes): ribbon {mms['ribbon']:.4f} "
+          f"ms, strand layout {mms['strand']:.4f} ms, plain "
+          f"{mplain_ms:.1f} ms, bound {mrec['bound_ms']:.4f} ms "
+          f"({mrec['bound_by']})")
+    return rec, mrec
+
+
+def phase_near_route(flat_rec: dict, mixed_rec: dict,
+                     mixed_launches: int) -> tuple:
+    """Phase 11b: phase 6c's pack and configuration (flat mode, 1080p)
+    with RAYTPU_ORDER_MODE=all, set just before and restored just after,
+    the counts set to 0 before the frames and read after: every query on
+    packet_walk's near-first instance, the PNG equal to 6c's. On 6c's
+    primary wave, near-first beside storage order (CUDA events, in turns)
+    and each with stats (the counters' cost), the plain near-first walk
+    (bit-equal, with stats) and its bound; on 10a's largest mixed query
+    the mixed near-first form the same way (its launches are 3h's, through
+    packet_query). Returns the two forms' records."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.kernels.packet import (
+        packet_query_cuda,
+        packet_query_torch,
+    )
+
+    pack, cam, cfg = flat_rec["pack"], flat_rec["cam"], flat_rec["cfg"]
+    with env(RAYTPU_ORDER_MODE="all"):
+        reset_launches()
+        secs = warm_s(lambda: render_frame(pack, cam, cfg))
+        counts = read_launches()
+        frame = render_frame(pack, cam, cfg)
+    n6 = png_pixels_differ(frame, flat_rec["frame"])
+    print(f"phase 11b RAYTPU_ORDER_MODE=all on 6c: frames {secs[0]:.4f} / "
+          f"{secs[1]:.4f} s (6c {flat_rec['frame_s'][1]:.4f} s), "
+          + launched("11b", counts, ("packet_near",))
+          + f"; vs 6c's frame: {n6} PNG pixels differ "
+          f"({int(np.any(frame != flat_rec['frame'], -1).sum())} f32 pixels)")
+    if n6:
+        fail("phase 11b: near-first order's PNG is not storage order's")
+    rows8, leaf, first = (pack.bvh.node8_rows, pack.bvh.leaf_tris,
+                          pack.bvh.first_slots)
+    ro, rd = flat_rec["ro"], flat_rec["rd"]
+    n = ro.shape[0]
+    tmax = torch.full((n,), F32_MAX, device="cuda")
+    wave = (rows8, leaf, first, ro, rd, tmax, 0.001, False)
+    ms = in_turns({
+        "storage": lambda: packet_query_cuda(*wave, ordered=False),
+        "near": lambda: packet_query_cuda(*wave, ordered=True),
+        "storage+stats": lambda: packet_query_cuda(*wave, ordered=False,
+                                                   with_stats=True),
+        "near+stats": lambda: packet_query_cuda(*wave, ordered=True,
+                                                with_stats=True)})
+    k = packet_query_cuda(*wave, ordered=True, with_stats=True)
+    k0 = packet_query_cuda(*wave, ordered=False, with_stats=True)
+    plain_ms, p, work = plain_run(lambda c: packet_query_torch(
+        *wave, c, ordered=True, with_stats=True))
+    if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+            and torch.equal(k[2], p[2]) and same_bits(k[0], k0[0])
+            and torch.equal(tie_key(first, k[1]), tie_key(first, k0[1]))):
+        fail("phase 11b: near-first != its plain version, or off storage "
+             "order on t and the tie key, on 6c's primary wave")
+    rec = dict(launches=counts["packet_near"], ms=ms["near"],
+               plain_ms=plain_ms, **walk_bound(work, n, 28))
+    q = mixed_rec["query"]
+    margs = (rows8, leaf, first, *q[:3], q[4], False)
+    mkw = dict(smask=q[3], shadow_tmin=q[5])
+    mms = in_turns({
+        "storage": lambda: packet_query_cuda(*margs, **mkw, ordered=False),
+        "near": lambda: packet_query_cuda(*margs, **mkw, ordered=True)})
+    mk = packet_query_cuda(*margs, **mkw, ordered=True)
+    mk0 = packet_query_cuda(*margs, **mkw, ordered=False)
+    mplain_ms, mp, mwork = plain_run(lambda c: packet_query_torch(
+        *margs, c, **mkw, ordered=True))
+    if not (mixed_same(*mk, *mp, q[3])
+            and mixed_same(*mk, *mk0, q[3], first)):
+        fail("phase 11b: the mixed near-first kernel != its plain version or "
+             "storage order on 10a's largest mixed query")
+    mrec = dict(launches=mixed_launches, ms=mms["near"], plain_ms=mplain_ms,
+                **walk_bound(mwork, q[0].shape[0], 32))
+    pops = (int(k0[2][:, 0].sum()), int(k[2][:, 0].sum()))
+    tests = (int(k0[2][:, 1].sum()), int(k[2][:, 1].sum()))
+    print(f"phase 11b 6c primary wave ({n} rays): packet_walk near-first "
+          f"{ms['near']:.4f} ms, storage order {ms['storage']:.4f} ms; with "
+          f"stats {ms['near+stats']:.4f} / {ms['storage+stats']:.4f} ms; "
+          f"node pops storage/near-first {pops[0]}/{pops[1]}, leaf-row tests "
+          f"{tests[0]}/{tests[1]}; plain {plain_ms:.1f} ms, bit-equal (t, "
+          f"tri, stats); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+          f"10a's largest mixed query: near-first {mms['near']:.4f} ms, "
+          f"storage order {mms['storage']:.4f} ms, plain {mplain_ms:.1f} ms, "
+          f"bound {mrec['bound_ms']:.4f} ms ({mrec['bound_by']})")
+    return rec, mrec
 
 
 def phase_step_bench(errs: list) -> dict:
@@ -2751,6 +3196,9 @@ def main() -> int:
         phase_mixed_kernel(errs["strand_mixed"], "strand", "3e")
         packet_mixed_launches = phase_mixed_kernel(errs["packet_mixed"],
                                                    "packet", "3f")
+    with timed(secs, "3g-3h"):
+        phase_ribbon_kernel(errs)
+        packet_mixed_near = phase_near_kernel(errs)
     with tempfile.TemporaryDirectory() as tmp:
         with timed(secs, "4-4b"):
             phase_card_vs_cpu(tmp)
@@ -2780,6 +3228,12 @@ def main() -> int:
         recs["packet_mixed"]["launches"] = packet_mixed_launches
         with timed(secs, "10b-10c"):
             phase_sorted_arms(recs["strand"])
+        with timed(secs, "11a"):
+            recs["strand_ribbon"], recs["strand_mixed_ribbon"] = (
+                phase_ribbon_route(recs["strand"], recs["strand_mixed"]))
+        with timed(secs, "11b"):
+            recs["packet_near"], recs["packet_mixed_near"] = phase_near_route(
+                recs["packet"], recs["strand_mixed"], packet_mixed_near)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in secs.items()))
     print("bounds: " + "; ".join(

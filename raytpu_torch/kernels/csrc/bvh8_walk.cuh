@@ -22,6 +22,15 @@
 // and the warp tests leaves once no lane is still stepping, so triangle
 // tests run at the warp's width. A lane holding leaves waits (no
 // speculative steps), so each lane walks as it would alone.
+//
+// kNearFirst (raytpu's `ordered`, the packet walk only) visits a node's
+// hit children by the ray's own entry distance: each child gets the key
+// (bits(near + 0) & ~7) | k (near >= tmin >= 0 for a hit, and + 0 turns
+// -0 into +0, so the bits order as the floats do; a missed child gets
+// 0x7ffffff8 | k, after every hit one), the 8 keys are sorted, interior
+// children are pushed far-first (so the nearest is popped next) and
+// leaves are tested near-first. The plain version sorts the same integer
+// keys, so it keeps the kernel's bits.
 
 #pragma once
 
@@ -33,23 +42,49 @@ using namespace walk;
 
 constexpr int kNodeFloats = 128;  // 8 children x 16 floats
 
+__device__ __forceinline__ void order(unsigned& x, unsigned& y) {
+  const unsigned lo = min(x, y);
+  y = max(x, y);
+  x = lo;
+}
+
+// Batcher's odd-even merge sort of 8 keys, ascending
+__device__ __forceinline__ void sort8(unsigned* c) {
+  order(c[0], c[1]); order(c[2], c[3]); order(c[4], c[5]); order(c[6], c[7]);
+  order(c[0], c[2]); order(c[1], c[3]); order(c[4], c[6]); order(c[5], c[7]);
+  order(c[1], c[2]); order(c[5], c[6]); order(c[0], c[4]); order(c[3], c[7]);
+  order(c[1], c[5]); order(c[2], c[6]); order(c[1], c[4]); order(c[3], c[6]);
+  order(c[2], c[4]); order(c[3], c[5]); order(c[3], c[4]);
+}
+
+// link[k] for a k known only at run time, without indexing the array (which
+// would put it in local memory)
+__device__ __forceinline__ int link_of(const int* link, unsigned k) {
+  int l = link[0];
+#pragma unroll
+  for (unsigned q = 1; q < 8; ++q) l = (k == q) ? link[q] : l;
+  return l;
+}
+
 // One lane's walk from the root of `nodes` (n_nodes rows, n_leaf_rows leaf
 // rows). `limit` points at the LIMIT, read once per popped node; leaf(row)
 // tests a leaf row and returns true when the lane is blocked, which ends
 // its walk. Every lane of the warp must call this (a lane with no walk
-// passes live = false).
-template <int kDepth, class Leaf>
-__device__ __forceinline__ void walk(const float* __restrict__ nodes,
-                                     int n_nodes, int n_leaf_rows,
-                                     const Ray& r, float slab_tmin,
-                                     const float* limit, bool live,
-                                     Leaf&& leaf) {
+// passes live = false). Returns the number of nodes the lane popped.
+template <int kDepth, bool kNearFirst = false, class Leaf>
+__device__ __forceinline__ int walk(const float* __restrict__ nodes,
+                                    int n_nodes, int n_leaf_rows,
+                                    const Ray& r, float slab_tmin,
+                                    const float* limit, bool live,
+                                    Leaf&& leaf) {
   int stack[kDepth];
   int sp = 0;
   if (live) stack[sp++] = 0;
   int pops = 0;
   bool done = false;
-  unsigned pend = 0;  // the hit leaves of pend_nd, a bit per child
+  // the hit leaves of pend_nd still to test: in storage order a bit per
+  // child; near-first, child index + 1 in 4 bits each, the next lowest
+  unsigned pend = 0;
   const float* pend_nd = nodes;
   for (;;) {
     for (;;) {
@@ -62,22 +97,52 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes,
         const float lim = *limit;
         int link[8];
         unsigned inner = 0;
+        if constexpr (kNearFirst) {
+          unsigned key[8];
+          unsigned leaves = 0;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const Box x = load_box(nd + 16 * k);
-          link[k] = __float_as_int(x.b.z);
-          if (!box_hit(r, x, slab_tmin, lim)) continue;
-          if (link[k] >= 0) {
-            if (link[k] < n_nodes) inner |= 1u << k;
-          } else if (~link[k] < n_leaf_rows) {
-            pend |= 1u << k;
+          for (int k = 0; k < 8; ++k) {
+            const Box x = load_box(nd + 16 * k);
+            link[k] = __float_as_int(x.b.z);
+            float near;
+            const bool hit = slab(r, x, slab_tmin, lim, &near);
+            key[k] = hit ? (__float_as_uint(near + 0.0f) & ~7u) | k
+                         : 0x7ffffff8u | k;
+            if (!hit) continue;
+            if (link[k] >= 0) {
+              if (link[k] < n_nodes) inner |= 1u << k;
+            } else if (~link[k] < n_leaf_rows) {
+              leaves |= 1u << k;
+            }
           }
-        }
+          sort8(key);
 #pragma unroll
-        for (int k = 7; k >= 0; --k) {
-          if ((inner >> k) & 1) {
-            stack[min(sp, kDepth - 1)] = link[k];
-            sp = min(sp + 1, kDepth - 1);
+          for (int j = 7; j >= 0; --j) {
+            const unsigned k = key[j] & 7u;
+            if ((inner >> k) & 1) {
+              stack[min(sp, kDepth - 1)] = link_of(link, k);
+              sp = min(sp + 1, kDepth - 1);
+            }
+            if ((leaves >> k) & 1) pend = (pend << 4) | (k + 1);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const Box x = load_box(nd + 16 * k);
+            link[k] = __float_as_int(x.b.z);
+            if (!box_hit(r, x, slab_tmin, lim)) continue;
+            if (link[k] >= 0) {
+              if (link[k] < n_nodes) inner |= 1u << k;
+            } else if (~link[k] < n_leaf_rows) {
+              pend |= 1u << k;
+            }
+          }
+#pragma unroll
+          for (int k = 7; k >= 0; --k) {
+            if ((inner >> k) & 1) {
+              stack[min(sp, kDepth - 1)] = link[k];
+              sp = min(sp + 1, kDepth - 1);
+            }
           }
         }
         pend_nd = nd;
@@ -86,8 +151,14 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes,
     if (!__any_sync(kFull, pend != 0)) break;
     while (__any_sync(kFull, pend != 0)) {
       if (pend != 0) {
-        const int k = __ffs(pend) - 1;
-        pend &= pend - 1;
+        int k;
+        if constexpr (kNearFirst) {
+          k = static_cast<int>(pend & 15u) - 1;
+          pend >>= 4;
+        } else {
+          k = __ffs(pend) - 1;
+          pend &= pend - 1;
+        }
         if (leaf(~__float_as_int(__ldg(pend_nd + 16 * k + 6)))) {
           done = true;
           pend = 0;
@@ -95,6 +166,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes,
       }
     }
   }
+  return pops;
 }
 
 }  // namespace bvh8

@@ -27,10 +27,23 @@
 // its lanes' walks part. The design has two steps over the first port,
 // each of which gained on phase 6c's 1080p flat wave and phase 6a's waves
 // (PERF.md): 16-byte loads of children and triangle pairs, and while-while
-// traversal with postponed leaves (bvh8_walk.cuh). Near-first child order
-// (by the ray's entry distance, as raytpu's kernel orders by a packet
-// representative) and a shared-memory short stack measured slower and were
-// reverted; the stack stays in local memory (2 KB a thread).
+// traversal with postponed leaves (bvh8_walk.cuh). A shared-memory short
+// stack measured slower and was reverted; the stack stays in local memory
+// (2 KB a thread).
+//
+// Options of raytpu's kernel, none of which changes t or the tie key:
+// * near-first child order (raytpu's `ordered`, RAYTPU_ORDER_MODE): an
+//   instance of each form, kNearFirst, which orders each node's hit
+//   children by the ray's own entry distance (raytpu's kernel orders by a
+//   packet representative); it measured slower than storage order on the
+//   card (PERF.md), and the port's default keeps storage order;
+// * stats (raytpu's with_stats), an instance of each form and order,
+//   kStats: with stats non-null, int32 [ceil(R /
+//   packet), 128], each warp adds its lanes' node pops to lane 0 and their
+//   leaf-row tests to lane 1 of its packet's row (one atomic each; packet
+//   is a multiple of 128, so a warp lies in one packet), and the wrapper
+//   copies lane 0 to lanes 2..127. These are sums of each ray's own walk,
+//   not raytpu's one shared walk per packet.
 
 #include "bvh8_walk.cuh"
 
@@ -52,30 +65,37 @@ struct Args {
   const float* smask;  // the mixed form's shadow flags, or null
   float* t_out;
   int* tri_out;
-  int n_rays, n_nodes, n_leaf_rows;
+  int* stats;  // int32 [ceil(n_rays / packet), 128], zeroed, or null
+  int n_rays, n_nodes, n_leaf_rows, packet;
   float tmin, shadow_tmin;
 };
 
-template <bool kAny, bool kMixed = false>
+template <bool kAny, bool kMixed, bool kNearFirst, bool kStats>
 __global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i - (threadIdx.x & 31) >= a.n_rays) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  if (i - lane >= a.n_rays) return;  // warp-uniform
   const bool real = i < a.n_rays;
   const Ray r = real ? load_ray(a.ro, a.rd, i)
                      : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
   // closest: LIMIT = best t from min(F32_MAX, tmax), an open bound (a dead
-  // lane with tmax = -inf returns t = -inf, tri = -1); any-hit: LIMIT =
-  // tmax, a closed bound; mixed: LIMIT = best t for both kinds of lane
+  // lane with tmax = -inf returns t = -inf, tri = -1, and walks no node);
+  // any-hit: LIMIT = tmax, a closed bound; mixed: LIMIT = best t for both
+  // kinds of lane
   const float tm = real ? __ldg(a.tmax + i) : -kF32Max;
+  const bool live =
+      real && tm != __int_as_float(static_cast<int>(0xff800000u));
   const bool shad = kMixed && real && __ldg(a.smask + i) == 1.0f;
   Best b;
   b.t = (kAny && !kMixed) ? tm : nan_min(kF32Max, tm);
   b.tri = -1;
   b.key = -1;
   const float slab_tmin = kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin;
-  bvh8::walk<kStackDepth>(
+  int tests = 0;
+  const int pops = bvh8::walk<kStackDepth, kNearFirst>(
       a.nodes, a.n_nodes, a.n_leaf_rows, r, slab_tmin,
-      (kAny && !kMixed) ? &tm : &b.t, real, [&](int lr) {
+      (kAny && !kMixed) ? &tm : &b.t, live, [&](int lr) {
+        if (kStats) ++tests;
         const float* lf = a.leaves + static_cast<size_t>(lr) * kLeafFloats;
         if (kMixed) {
           return shad ? test_row<true, false>(r, lf, lr * kLeafSize, a.first,
@@ -86,53 +106,78 @@ __global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
         return test_row<kAny, false>(r, lf, lr * kLeafSize, a.first, a.tmin,
                                      tm, &b);
       });
+  if (kStats) {
+    const int n_pops = __reduce_add_sync(kFull, pops);
+    const int n_tests = __reduce_add_sync(kFull, tests);
+    if (lane == 0) {
+      int* row = a.stats + static_cast<size_t>((i - lane) / a.packet) * 128;
+      atomicAdd(row, n_pops);
+      atomicAdd(row + 1, n_tests);
+    }
+  }
   if (real) {
     a.t_out[i] = b.t;
     a.tri_out[i] = b.tri;
   }
 }
 
-}  // namespace
-
-// Launch on `stream` (a cudaStream_t passed as a pointer); returns the
-// cudaGetLastError() code after the launch, 0 on success.
-extern "C" int packet_walk_launch(const float* nodes, const float* leaves,
-                                  const int* first, const float* ro,
-                                  const float* rd, const float* tmax,
-                                  float* t_out, int* tri_out, int n_rays,
-                                  int n_nodes, int n_leaf_rows, float tmin,
-                                  int any_hit, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Args a{nodes,  leaves,  first,       ro,   rd,  tmax, nullptr,
-               t_out,  tri_out, n_rays, n_nodes, n_leaf_rows, tmin, tmin};
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    packet_kernel<true><<<grid, kBlock, 0, s>>>(a);
-  } else {
-    packet_kernel<false><<<grid, kBlock, 0, s>>>(a);
-  }
+template <bool kAny, bool kMixed, bool kNearFirst, bool kStats>
+int launch(const Args& a, cudaStream_t s) {
+  const int grid = (a.n_rays + kBlock - 1) / kBlock;
+  packet_kernel<kAny, kMixed, kNearFirst, kStats><<<grid, kBlock, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The mixed form: smask [n_rays] flags shadow lanes with 1.0. Same stream
-// and return convention as packet_walk_launch.
-extern "C" int packet_walk_mixed_launch(const float* nodes,
-                                        const float* leaves, const int* first,
-                                        const float* ro, const float* rd,
-                                        const float* tmax, const float* smask,
-                                        float* t_out, int* tri_out,
-                                        int n_rays, int n_nodes,
-                                        int n_leaf_rows, float tmin,
-                                        float shadow_tmin, void* stream) {
+// the instance for the order and the counters (a.stats)
+template <bool kAny, bool kMixed>
+int launch(const Args& a, bool ordered, cudaStream_t s) {
+  if (ordered) {
+    return a.stats ? launch<kAny, kMixed, true, true>(a, s)
+                   : launch<kAny, kMixed, true, false>(a, s);
+  }
+  return a.stats ? launch<kAny, kMixed, false, true>(a, s)
+                 : launch<kAny, kMixed, false, false>(a, s);
+}
+
+}  // namespace
+
+// Launch on `stream` (a cudaStream_t passed as a pointer); returns the
+// cudaGetLastError() code after the launch, 0 on success, or
+// cudaErrorInvalidValue for a packet that is not a positive multiple of
+// 128 (nothing is launched). ordered != 0 takes the near-first instance;
+// stats is null or int32 [ceil(n_rays / packet), 128], zeroed.
+extern "C" int packet_walk_launch(const float* nodes, const float* leaves,
+                                  const int* first, const float* ro,
+                                  const float* rd, const float* tmax,
+                                  float* t_out, int* tri_out, int* stats,
+                                  int n_rays, int n_nodes, int n_leaf_rows,
+                                  int packet, int ordered, float tmin,
+                                  int any_hit, void* stream) {
+  if (packet <= 0 || packet % 128 != 0) return cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  const Args a{nodes,  leaves,  first,  ro,      rd,          tmax, smask,
-               t_out,  tri_out, n_rays, n_nodes, n_leaf_rows, tmin,
-               shadow_tmin};
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  packet_kernel<false, true>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{nodes,   leaves, first,  ro,      rd,          tmax,
+               nullptr, t_out,  tri_out, stats,  n_rays,      n_nodes,
+               n_leaf_rows, packet, tmin, tmin};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return any_hit ? launch<true, false>(a, ordered != 0, s)
+                 : launch<false, false>(a, ordered != 0, s);
+}
+
+// The mixed form: smask [n_rays] flags shadow lanes with 1.0. Same
+// ordering, stats, stream and return conventions as packet_walk_launch.
+extern "C" int packet_walk_mixed_launch(
+    const float* nodes, const float* leaves, const int* first,
+    const float* ro, const float* rd, const float* tmax, const float* smask,
+    float* t_out, int* tri_out, int* stats, int n_rays, int n_nodes,
+    int n_leaf_rows, int packet, int ordered, float tmin, float shadow_tmin,
+    void* stream) {
+  if (packet <= 0 || packet % 128 != 0) return cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  const Args a{nodes,  leaves, first,   ro,     rd,     tmax,
+               smask,  t_out,  tri_out, stats,  n_rays, n_nodes,
+               n_leaf_rows, packet, tmin, shadow_tmin};
+  return launch<false, true>(a, ordered != 0,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* packet_walk_error_string(int code) {

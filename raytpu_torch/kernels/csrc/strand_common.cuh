@@ -7,7 +7,9 @@
 // 32 bytes, 32-byte aligned, so two float4 loads (a walk::Box). Links are
 // value-cast floats. hit < 0 marks a leaf whose triangles sit in leaf row
 // ~hit (8 triangles x p0, e1, e2, pad = 80 floats, 320 bytes); after a
-// leaf the walk follows miss; -1 terminates.
+// leaf the walk follows miss; -1 terminates. The ribbon layout (RibbonTree,
+// the per-ray walk only) holds the same records renumbered per octant:
+// octant o's node j at rows + (o*rpo*16 + j)*8, rpo rows per octant.
 
 #pragma once
 
@@ -26,6 +28,13 @@ __device__ __forceinline__ Rec load_rec(const float* __restrict__ rows,
                                         int c, int oct) {
   return load_box(rows + static_cast<size_t>(c) * kNodeFloats + oct * 8);
 }
+
+constexpr int kRibbonNodes = 16;  // nodes per ribbon row
+
+// raytpu's stats counters (strand_persistent.py:935-943) that the per-ray
+// walk fills: [0] node records loaded, [4] leaf rows tested, [5] leaf rows
+// reached, each summed over rays; the wrapper sets [3], the rest stay 0
+enum Stat { kLoads = 0, kLeafTests = 4, kLeafReached = 5 };
 
 __device__ __forceinline__ int hit_link(const Rec& q) {
   return static_cast<int>(q.b.z);
@@ -57,10 +66,17 @@ struct Args {
   const float* tmax;
   float* t_out;
   int* tri_out;
-  int* stats;  // block walk: per-strand steps and leaf visits, or null
+  // block walk: per-strand steps and leaf visits; per-ray walk: the [8]
+  // counters of Stat; or null
+  int* stats;
   const float* smask;  // mixed walk: 1.0 flags a shadow lane, or null
   int n_rays, n_nodes, n_leaf_rows;
   float tmin, shadow_tmin;
+  // per-ray walk: 0 for strand rows, else ribbon rows per octant;
+  // ribbon_k (1..8) is raytpu's sub-steps per fetched row: checked by the
+  // launcher, no effect on the walk (one record per step). The block walk
+  // leaves both 0.
+  int rpo, ribbon_k;
 };
 
 // ---------------------------------------------------------------------
@@ -78,8 +94,16 @@ struct Args {
 // which stops at its first blocker; every other lane is closest-hit over
 // [tmin, best) from min(F32_MAX, tmax). Every lane's slab test uses
 // min(tmin, shadow_tmin) and LIMIT = the lane's best t. kAny is unused.
+//
+// kRibbon walks the ribbon layout (a.rpo rows per octant): octant oct's
+// node c at (oct*rpo*16 + c)*8, where the strand layout has node c's
+// record at c*64 + oct*8. kStats counts: each warp adds its lanes' sums
+// of records loaded and leaf rows tested to a.stats's Stat counters, one
+// atomic each. Both are template cases, so the strand layout's instances
+// without stats compile to the walk without either option.
 // ---------------------------------------------------------------------
-template <int kBlock, bool kAny, bool kMixed = false>
+template <int kBlock, bool kAny, bool kMixed = false, bool kRibbon = false,
+          bool kStats = false>
 __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   const int lane = threadIdx.x & 31;
   const int base = (blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5)) * 32;
@@ -94,6 +118,12 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
     tm = __ldg(a.tmax + i);
     if (kMixed) shad = __ldg(a.smask + i) == 1.0f;
   }
+  // this lane's octant's first record; records are kStride floats apart
+  const float* rec0 =
+      kRibbon ? a.rows + static_cast<size_t>(r.oct) * a.rpo *
+                             kRibbonNodes * 8
+              : a.rows + r.oct * 8;
+  constexpr int kStride = kRibbon ? 8 : kNodeFloats;
   // closest: LIMIT = best t from min(F32_MAX, tmax) (a dead lane with
   // tmax = -inf returns t = -inf, tri = -1); any-hit: LIMIT = tmax
   Best b;
@@ -103,6 +133,7 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   const float slab_tmin = kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin;
   int c = real ? 0 : -1;
   int steps = 0;
+  int leaves = 0;
   int leaf = -1;
   for (;;) {
     for (;;) {
@@ -110,7 +141,7 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
           leaf < 0 && c >= 0 && c < a.n_nodes && steps < a.n_nodes;
       if (!__any_sync(kFull, stepping)) break;
       if (stepping) {
-        const Rec q = load_rec(a.rows, c, r.oct);
+        const Rec q = load_box(rec0 + static_cast<size_t>(c) * kStride);
         ++steps;
         const int hl = hit_link(q);
         c = miss_link(q);
@@ -125,6 +156,7 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
     }
     if (!__any_sync(kFull, leaf >= 0)) break;
     if (leaf >= 0) {
+      if (kStats) ++leaves;
       bool blocked;
       if (kMixed) {
         blocked = shad ? test_leaf<true>(r, a.leaves, a.first, leaf,
@@ -137,6 +169,15 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
       }
       if (blocked) c = -1;  // blocked: stop
       leaf = -1;
+    }
+  }
+  if (kStats) {
+    const int loads = __reduce_add_sync(kFull, steps);
+    const int tests = __reduce_add_sync(kFull, leaves);
+    if (lane == 0) {
+      atomicAdd(a.stats + kLoads, loads);
+      atomicAdd(a.stats + kLeafTests, tests);
+      atomicAdd(a.stats + kLeafReached, tests);
     }
   }
   if (real) {

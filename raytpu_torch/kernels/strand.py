@@ -68,6 +68,34 @@ lane's slab test uses ``min(tmin, shadow_tmin)``. A closest lane's
 result equals the closest-hit form's and a shadow lane's blocked bit the
 any-hit form's: a lower slab tmin only adds box tests.
 
+Every per-ray form takes two options of raytpu's persistent kernel,
+neither of which changes a result:
+
+* ``rpo`` (raytpu's ``ribbon_rpo``): 0 walks the strand layout
+  (``BvhPack.strand_rows``); ``rpo > 0`` walks the ribbon layout
+  (``BvhPack.ribbon_rows``, ``accel/strandtree.py:RibbonTree``) with that
+  many 16-node rows per octant: octant o's node j is record ``o * rpo *
+  16 + j`` of the rows cut into 8-float records. The ribbon is the same
+  threading with renumbered nodes, so every lane visits the same boxes
+  and leaves in the same order and ``t`` and ``tri`` are bit-equal to the
+  strand layout's. ``ribbon_k`` (1..8, raytpu's sub-steps per fetched
+  row) is checked and passed to the kernel, which loads one 32-byte record
+  per step whatever its value: it changes no result and, so far, no code
+  path on the card. The factories read ``RAYTPU_RIBBON`` = K once, as
+  raytpu's do.
+* ``stats=True`` also returns int32 [8] counters in raytpu's order
+  (``strand_query_persistent(stats=True)``: iterations, flushes, services,
+  installs, leaf pops, enqueues, 0, 0), with the per-ray walk's meanings:
+  [0] node records loaded, summed over rays; [1] 0 (no leaf queue: a lane
+  tests a leaf when it reaches it); [2] 0 (no walker pool to refill: the
+  launch grid schedules the warps); [3] ``ceil(R / 128)``, raytpu's count
+  of 128-ray strands, each installed once; [4] leaf rows tested and [5]
+  leaf rows reached, each summed over rays (equal here). A dead lane (tmax
+  = -inf) loads the root record and stops. Each counter is an int32 sum
+  that wraps past 2^31 - 1 (a 1080p wave loads about 10^8 records); the
+  kernel adds one warp's sum with one atomic, and integer sums do not
+  depend on order, so the plain version reproduces them bit for bit.
+
 The block-scheduled walk replaces ``raytpu/kernels/strand.py:
 _strand_kernel`` (entry ``strand_query``), which raytpu runs with
 ``RAYTPU_STRAND_PERSISTENT=0``: a whole strand of consecutive
@@ -104,6 +132,41 @@ STRAND = 32  # rays per strand of the block walk: one warp
 # the persistent walk (_hbm_tables), and the port routes the same way
 STRAND_TABLE_BUDGET = 100 * 1024 * 1024
 I32_MAX = 2**31 - 1
+RIBBON_NODES = 16  # nodes per ribbon row (accel/strandtree.py)
+STRAND_RAYS = 128  # rays of one of raytpu's strands (stats[3], installs)
+
+
+def wrap_i32(x):
+    """An integer sum (an int or an int64 tensor) as int32 arithmetic
+    leaves it (two's complement)."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _check_layout(rows, rpo: int, ribbon_k: int) -> None:
+    """Raise ValueError unless ``rpo`` is 0 (strand rows) or ``rows`` holds
+    8 * rpo ribbon rows, with ``1 <= ribbon_k <= 8`` (raytpu's bound)."""
+    if rpo < 0:
+        raise ValueError(f"rpo={rpo}: want 0 (strand layout) or > 0")
+    if rpo and not 1 <= ribbon_k <= 8:
+        raise ValueError(f"ribbon_k={ribbon_k}: want 1..8")
+    if rpo and rows.shape[0] != 8 * rpo:
+        raise ValueError(f"ribbon rows: want 8 * rpo = {8 * rpo} rows, got "
+                         f"{rows.shape[0]}")
+
+
+def _n_nodes(rows, rpo: int) -> int:
+    """The walk's node bound: 16 per ribbon row of an octant, else 2 per
+    strand row."""
+    return rpo * RIBBON_NODES if rpo else rows.shape[0] * 2
+
+
+def _strand_stats(counts: dict, n_rays: int, device) -> torch.Tensor:
+    """The per-ray walk's int32 [8] counters from a plain walk's counts."""
+    leaves = counts.get("tris", 0) // 8
+    return torch.tensor(
+        [wrap_i32(v) for v in (counts.get("boxes", 0), 0, 0,
+                               -(-n_rays // STRAND_RAYS), leaves, leaves,
+                               0, 0)], dtype=torch.int32, device=device)
 
 
 def _safe_inv(rd: torch.Tensor) -> torch.Tensor:
@@ -152,51 +215,62 @@ def _leaf_closest(ok, t, slot, key):
 
 def strand_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
                        tmin: float, any_hit: bool,
-                       counts: dict | None = None):
+                       counts: dict | None = None, *, rpo: int = 0,
+                       ribbon_k: int = 4, stats: bool = False):
     """Plain torch version of the strand walk. ``first`` is
     ``first_slots(leaf_tris)``, ro/rd [R,3], tmax [R]; returns (t [R] f32,
-    tri [R] i32). Each loop iteration advances
-    every unfinished ray by one node; finished rays leave the working set.
+    tri [R] i32), and with ``stats`` the int32 [8] counters (module
+    docstring). ``rpo > 0`` walks ribbon rows (``strand_rows`` is then
+    ``BvhPack.ribbon_rows``; ``ribbon_k`` is checked only). Each loop
+    iteration advances every unfinished ray by one node; finished rays
+    leave the working set (a dead lane, tmax = -inf, after the root).
     A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
     ("tris") and the table bytes it reads, each distinct 32-byte node
     record and 320-byte leaf row once ("bytes")."""
     shad = torch.full((ro.shape[0],), any_hit, dtype=torch.bool,
                       device=ro.device)
     return _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
-                       tmin, tmin, counts)
+                       tmin, tmin, counts, rpo, ribbon_k, stats)
 
 
 def strand_mixed_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
                              smask, tmin: float, shadow_tmin: float,
-                             counts: dict | None = None):
+                             counts: dict | None = None, *, rpo: int = 0,
+                             ribbon_k: int = 4, stats: bool = False):
     """Plain torch version of the strand walk's mixed form (raytpu's
     ``strand_query_persistent(..., mixed=True)``): ``smask`` [R] == 1.0
     flags a shadow lane, any-hit over [shadow_tmin, tmax] (its t returns
     tmax); every other lane is closest-hit over [tmin, tmax) with the tie
     keys ``first``. Every lane's slab test uses min(tmin, shadow_tmin).
-    Returns (t [R] f32, tri [R] i32); ``counts`` as in
-    ``strand_query_torch``."""
+    Returns (t [R] f32, tri [R] i32); ``counts``, ``rpo``, ``ribbon_k``
+    and ``stats`` as in ``strand_query_torch``."""
     return _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
-                       smask == 1.0, tmin, shadow_tmin, counts)
+                       smask == 1.0, tmin, shadow_tmin, counts, rpo,
+                       ribbon_k, stats)
 
 
-def _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
-                tmin: float, shadow_tmin: float, counts: dict | None):
+def _walk_torch(rows, leaf_tris, first, ro, rd, tmax, shad, tmin: float,
+                shadow_tmin: float, counts: dict | None, rpo: int = 0,
+                ribbon_k: int = 4, stats: bool = False):
     """The per-ray walk of every form, per lane: ``shad`` [R] bool lanes
     are any-hit from ``shadow_tmin`` (LIMIT = tmax), the others
     closest-hit from ``tmin`` (LIMIT = best t from min(F32_MAX, tmax));
     the slab test uses min(tmin, shadow_tmin). The closest-hit and any-hit
     forms pass shadow_tmin = tmin. The kernel's arithmetic in its order
-    (csrc/strand_common.cuh:walk_kernel)."""
+    (csrc/strand_common.cuh:walk_kernel), over strand rows (``rpo`` 0) or
+    ribbon rows."""
+    _check_layout(rows, rpo, ribbon_k)
+    # this walk's own counts, added to the caller's dict at the end
+    into, counts = counts, ({} if stats or counts is not None else None)
     dev = ro.device
     r = ro.shape[0]
-    recs = strand_rows.reshape(-1, 8)  # node c, octant o at record 8c + o
+    # strand layout: node c, octant o at record 8c + o; ribbon layout:
+    # octant o's node j at record o * rpo * 16 + j
+    recs = rows.reshape(-1, 8)
     tris = leaf_tris.reshape(-1, 8, 10)
-    n_nodes = strand_rows.shape[0] * 2
+    n_nodes = _n_nodes(rows, rpo)
     tmax = tmax.to(torch.float32)
     slab_tmin = min(tmin, shadow_tmin)
-    t_out = torch.empty(r, dtype=torch.float32, device=dev)
-    tri_out = torch.empty(r, dtype=torch.int32, device=dev)
     inv = _safe_inv(rd)
     octant = ((rd[:, 0] < 0).long() + 2 * (rd[:, 1] < 0).long()
               + 4 * (rd[:, 2] < 0).long())
@@ -206,10 +280,13 @@ def _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
     tcut = torch.where(shad, shadow_tmin, tmin).to(torch.float32)
     any_lanes = bool(shad.any())
     closest_lanes = not bool(shad.all())
+    t_out = torch.empty(r, dtype=torch.float32, device=dev)
+    tri_out = torch.empty(r, dtype=torch.int32, device=dev)
     # the working set: one entry per unfinished ray
     s = dict(
         idx=torch.arange(r, device=dev), o=ro, d=rd, inv=inv, neg=inv < 0.0,
-        oct=octant, shad=shad, tcut=tcut, bt=best_t,
+        oct=octant * (rpo * RIBBON_NODES) if rpo else octant, shad=shad,
+        tcut=tcut, bt=best_t,
         btri=torch.full((r,), -1, dtype=torch.int32, device=dev),
         bkey=torch.full((r,), -1, dtype=torch.int32, device=dev),
         cur=torch.zeros(r, dtype=torch.long, device=dev),
@@ -221,7 +298,7 @@ def _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
     for _ in range(n_nodes):
         if s["idx"].numel() == 0:
             break
-        ri = s["cur"] * 8 + s["oct"]
+        ri = s["oct"] + s["cur"] if rpo else s["cur"] * 8 + s["oct"]
         if counts is not None:
             counts["boxes"] = counts.get("boxes", 0) + s["idx"].numel()
             seen_rec[ri] = True
@@ -283,8 +360,13 @@ def _walk_torch(strand_rows, leaf_tris, first, ro, rd, tmax, shad,
     t_out[s["idx"]] = s["bt"]
     tri_out[s["idx"]] = s["btri"]
     if counts is not None:
-        counts["bytes"] = (counts.get("bytes", 0) + 32 * int(seen_rec.sum())
+        counts["bytes"] = (32 * int(seen_rec.sum())
                            + 320 * int(seen_leaf.sum()))
+    if into is not None:
+        for key, val in counts.items():
+            into[key] = into.get(key, 0) + val
+    if stats:
+        return t_out, tri_out, _strand_stats(counts, r, dev)
     return t_out, tri_out
 
 
@@ -320,27 +402,29 @@ _LIBS: dict = {}
 
 
 def _library(name: str) -> ctypes.CDLL:
-    """The built ``csrc/<name>.cu`` with its launch signature declared:
-    (rows, leaves, first, ro, rd, tmax, t, tri, [stats,] n_rays, n_nodes,
-    n_leaf_rows, tmin, any_hit, stream), and strand_walk's mixed launch
-    (rows, leaves, first, ro, rd, tmax, smask, t, tri, n_rays, n_nodes,
-    n_leaf_rows, tmin, shadow_tmin, stream)."""
+    """The built ``csrc/<name>.cu`` with its launch signatures declared:
+    strand_block's (rows, leaves, first, ro, rd, tmax, t, tri, stats,
+    n_rays, n_nodes, n_leaf_rows, tmin, any_hit, stream); strand_walk's
+    (rows, leaves, first, ro, rd, tmax, t, tri, stats, n_rays, n_nodes,
+    n_leaf_rows, rpo, ribbon_k, tmin, any_hit, stream) and its mixed
+    launch (rows, leaves, first, ro, rd, tmax, smask, t, tri, stats,
+    n_rays, n_nodes, n_leaf_rows, rpo, ribbon_k, tmin, shadow_tmin,
+    stream)."""
     from ._build import LOCK, load_library
 
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     with LOCK:
         if name not in _LIBS:
             lib = load_library(name)
             launch = getattr(lib, name + "_launch")
             launch.restype = ctypes.c_int
-            n_ptr = 9 if name == "strand_block" else 8
-            launch.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
-                               + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_void_p])
-            if name == "strand_walk":
+            if name == "strand_block":
+                launch.argtypes = [ptr] * 9 + [i32] * 3 + [f32, i32, ptr]
+            else:
+                launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, ptr]
                 lib.strand_walk_mixed_launch.restype = ctypes.c_int
                 lib.strand_walk_mixed_launch.argtypes = (
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                    [ptr] * 10 + [i32] * 5 + [f32, f32, ptr])
             err = getattr(lib, name + "_error_string")
             err.restype = ctypes.c_char_p
             err.argtypes = [ctypes.c_int]
@@ -348,105 +432,150 @@ def _library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def _launch(name, strand_rows, leaf_tris, first, ro, rd, tmax, tmin,
-            any_hit, stats=None):
-    """Check the inputs, allocate the outputs and launch ``csrc/<name>.cu``
-    on the current stream: (t, tri)."""
+def _raise_failed(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, name + "_error_string")(rc)
+                           .decode())
+
+
+def _block_launch(strand_rows, leaf_tris, first, ro, rd, tmax, tmin,
+                  any_hit, stats=None):
+    """Check the inputs, allocate the outputs and launch
+    ``csrc/strand_block.cu`` on the current stream: (t, tri)."""
     if ro.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {ro.device}")
+        raise ValueError(f"strand_block needs CUDA tensors, got {ro.device}")
     _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax, first)
-    lib = _library(name)
+    lib = _library("strand_block")
     r = ro.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=ro.device)
     tri = torch.empty(r, dtype=torch.int32, device=ro.device)
     if r == 0:
         return t, tri
-    ptrs = [strand_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
-            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), t.data_ptr(),
-            tri.data_ptr()]
-    if name == "strand_block":
-        ptrs.append(None if stats is None else stats.data_ptr())
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, name + "_launch")(
-            *ptrs, r, strand_rows.shape[0] * 2,
-            leaf_tris.shape[0], float(tmin), int(any_hit), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: "
-            + getattr(lib, name + "_error_string")(rc).decode()
-        )
+        rc = lib.strand_block_launch(
+            strand_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), t.data_ptr(),
+            tri.data_ptr(), None if stats is None else stats.data_ptr(), r,
+            strand_rows.shape[0] * 2, leaf_tris.shape[0], float(tmin),
+            int(any_hit), stream)
+    _raise_failed(lib, "strand_block", rc)
     return t, tri
 
 
-def strand_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
-                      tmin: float, any_hit: bool):
-    """Launch ``csrc/strand_walk.cu`` on the current stream (one thread per
-    ray, while-while traversal). Same signature and results as
-    ``strand_query_torch``; raises on bad inputs or a failed launch.
-    ``strand_query_cuda.launches`` counts the launches."""
-    out = _launch("strand_walk", strand_rows, leaf_tris, first, ro, rd, tmax,
-                  tmin, any_hit)
-    if ro.shape[0]:
-        strand_query_cuda.launches += 1
-    return out
-
-
-strand_query_cuda.launches = 0
-
-
-def strand_query(strand_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
-                 any_hit: bool):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    fn = strand_query_cuda if ro.device.type == "cuda" else strand_query_torch
-    return fn(strand_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit)
-
-
-def strand_mixed_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
-                            smask, tmin: float, shadow_tmin: float):
-    """Launch the mixed form of ``csrc/strand_walk.cu`` on the current
-    stream. Same signature and results as ``strand_mixed_query_torch``;
-    raises on bad inputs or a failed launch.
-    ``strand_mixed_query_cuda.launches`` counts the launches."""
+def _walk_launch(rows, leaf_tris, first, ro, rd, tmax, smask, tmin,
+                 second: float, rpo: int, ribbon_k: int, stats: bool):
+    """Check the inputs, allocate the outputs and launch
+    ``csrc/strand_walk.cu`` on the current stream: with ``smask`` None the
+    closest-hit (``second`` = 0) or any-hit (1) instance, else the mixed one
+    (``second`` = shadow_tmin). Returns (t, tri, stats or None, whether a
+    kernel was launched: not for no rays)."""
     if ro.device.type != "cuda":
         raise ValueError(f"strand_walk needs CUDA tensors, got {ro.device}")
-    _check_inputs("strand_rows", strand_rows, leaf_tris, ro, rd, tmax, first)
-    if (smask.dtype != torch.float32 or smask.device != ro.device
+    _check_inputs("strand_rows", rows, leaf_tris, ro, rd, tmax, first)
+    _check_layout(rows, rpo, ribbon_k)
+    if smask is not None and (
+            smask.dtype != torch.float32 or smask.device != ro.device
             or smask.shape != tmax.shape or not smask.is_contiguous()):
         raise ValueError(f"smask: want a contiguous float32 [{ro.shape[0]}] "
                          f"tensor on {ro.device}")
     lib = _library("strand_walk")
     r = ro.shape[0]
-    t = torch.empty(r, dtype=torch.float32, device=ro.device)
-    tri = torch.empty(r, dtype=torch.int32, device=ro.device)
+    dev = ro.device
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    tri = torch.empty(r, dtype=torch.int32, device=dev)
+    st = None
+    if stats:
+        st = torch.zeros(8, dtype=torch.int32, device=dev)
+        st[3] = wrap_i32(-(-r // STRAND_RAYS))
     if r == 0:
-        return t, tri
-    with torch.cuda.device(ro.device):
+        return t, tri, st, False
+    n_nodes = _n_nodes(rows, rpo)
+    head = [rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr()]
+    tail = [t.data_ptr(), tri.data_ptr(), None if st is None else
+            st.data_ptr(), r, n_nodes, leaf_tris.shape[0], int(rpo),
+            int(ribbon_k), float(tmin)]
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.strand_walk_mixed_launch(
-            strand_rows.data_ptr(), leaf_tris.data_ptr(), first.data_ptr(),
-            ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), smask.data_ptr(),
-            t.data_ptr(), tri.data_ptr(), r, strand_rows.shape[0] * 2,
-            leaf_tris.shape[0], float(tmin), float(shadow_tmin), stream)
-    if rc != 0:
-        raise RuntimeError("strand_walk mixed launch failed: "
-                           + lib.strand_walk_error_string(rc).decode())
-    strand_mixed_query_cuda.launches += 1
-    return t, tri
+        if smask is None:
+            rc = lib.strand_walk_launch(*head, *tail, int(second), stream)
+        else:
+            rc = lib.strand_walk_mixed_launch(*head, smask.data_ptr(), *tail,
+                                              float(second), stream)
+    _raise_failed(lib, "strand_walk", rc)
+    return t, tri, st, True
+
+
+def _count(fn, rpo: int) -> None:
+    """One launch of ``fn``'s kernel: ``ribbon_launches`` on ribbon rows,
+    ``launches`` on strand rows."""
+    if rpo:
+        fn.ribbon_launches += 1
+    else:
+        fn.launches += 1
+
+
+def strand_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
+                      tmin: float, any_hit: bool, *, rpo: int = 0,
+                      ribbon_k: int = 4, stats: bool = False):
+    """Launch ``csrc/strand_walk.cu`` on the current stream (one thread per
+    ray, while-while traversal). Same signature and results as
+    ``strand_query_torch``; raises on bad inputs or a failed launch.
+    ``strand_query_cuda.launches`` counts the launches over strand rows,
+    ``.ribbon_launches`` those over ribbon rows."""
+    t, tri, st, launched = _walk_launch(strand_rows, leaf_tris, first, ro,
+                                        rd, tmax, None, tmin, int(any_hit),
+                                        rpo, ribbon_k, stats)
+    if launched:
+        _count(strand_query_cuda, rpo)
+    return (t, tri, st) if stats else (t, tri)
+
+
+strand_query_cuda.launches = 0
+strand_query_cuda.ribbon_launches = 0
+
+
+def strand_query(strand_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
+                 any_hit: bool, *, rpo: int = 0, ribbon_k: int = 4,
+                 stats: bool = False):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = strand_query_cuda if ro.device.type == "cuda" else strand_query_torch
+    return fn(strand_rows, leaf_tris, first, ro, rd, tmax, tmin, any_hit,
+              rpo=rpo, ribbon_k=ribbon_k, stats=stats)
+
+
+def strand_mixed_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
+                            smask, tmin: float, shadow_tmin: float, *,
+                            rpo: int = 0, ribbon_k: int = 4,
+                            stats: bool = False):
+    """Launch the mixed form of ``csrc/strand_walk.cu`` on the current
+    stream. Same signature and results as ``strand_mixed_query_torch``;
+    raises on bad inputs or a failed launch.
+    ``strand_mixed_query_cuda.launches`` counts the launches over strand
+    rows, ``.ribbon_launches`` those over ribbon rows."""
+    t, tri, st, launched = _walk_launch(strand_rows, leaf_tris, first, ro,
+                                        rd, tmax, smask, tmin, shadow_tmin,
+                                        rpo, ribbon_k, stats)
+    if launched:
+        _count(strand_mixed_query_cuda, rpo)
+    return (t, tri, st) if stats else (t, tri)
 
 
 strand_mixed_query_cuda.launches = 0
+strand_mixed_query_cuda.ribbon_launches = 0
 
 
 def strand_mixed_query(strand_rows, leaf_tris, first, ro, rd, tmax, smask,
-                       tmin: float, shadow_tmin: float):
+                       tmin: float, shadow_tmin: float, *, rpo: int = 0,
+                       ribbon_k: int = 4, stats: bool = False):
     """The mixed kernel for CUDA tensors, its plain version for CPU
     tensors."""
     fn = (strand_mixed_query_cuda if ro.device.type == "cuda"
           else strand_mixed_query_torch)
     return fn(strand_rows, leaf_tris, first, ro, rd, tmax, smask, tmin,
-              shadow_tmin)
+              shadow_tmin, rpo=rpo, ribbon_k=ribbon_k, stats=stats)
 
 
 def strand_block_query_torch(strand_rows, leaf_tris, first, ro, rd, tmax,
@@ -576,8 +705,8 @@ def strand_block_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
     r = ro.shape[0]
     stats = torch.zeros((-(-r // STRAND), 2), dtype=torch.int32,
                         device=ro.device) if with_stats else None
-    t, tri = _launch("strand_block", strand_rows, leaf_tris, first, ro, rd,
-                     tmax, tmin, any_hit, stats)
+    t, tri = _block_launch(strand_rows, leaf_tris, first, ro, rd, tmax, tmin,
+                           any_hit, stats)
     if r:
         strand_block_query_cuda.launches += 1
     return (t, tri, stats) if with_stats else (t, tri)
@@ -609,6 +738,31 @@ def _per_ray(tmax, ro):
     return tmax.expand(ro.shape[0]).contiguous()
 
 
+def _ribbon_env() -> int:
+    """RAYTPU_RIBBON = K (sub-steps per fetched ribbon row, raytpu's
+    ``ribbon_k``): 0 or less keeps the strand layout; above 8 raises, as
+    raytpu's kernel asserts ``1 <= ribbon_k <= 8``."""
+    k = int(os.environ.get("RAYTPU_RIBBON", "0"))
+    if k > 8:
+        raise ValueError(f"RAYTPU_RIBBON={k}: want 0..8")
+    return k
+
+
+def _layout(pack, tree, leaves, per_ray: bool) -> tuple:
+    """(rows, layout keywords) of a strand factory, as raytpu's factories
+    choose: the ribbon rows with ``rpo`` and ``ribbon_k`` when
+    RAYTPU_RIBBON = K > 0, the per-ray walk is chosen, the tables are
+    within the 100 MiB budget and the pack has ribbon rows; else the
+    strand rows and no keywords."""
+    k = _ribbon_env()
+    ribbon = getattr(pack.bvh, "ribbon_rows", None)
+    if (k > 0 and per_ray and ribbon is not None
+            and (tree.numel() + leaves.numel()) * 4 <= STRAND_TABLE_BUDGET):
+        ribbon = ribbon.contiguous()
+        return ribbon, dict(rpo=ribbon.shape[0] // 8, ribbon_k=k)
+    return tree, {}
+
+
 def make_strand_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
     signature over ``pack.bvh.strand_rows`` and ``leaf_tris``, ties broken
@@ -620,7 +774,10 @@ def make_strand_intersectors(pack):
     the per-ray walk (raytpu's persistent kernel, its default), or the
     block walk when ``RAYTPU_STRAND_PERSISTENT=0`` and the strand rows and
     leaf rows fit raytpu's 100 MiB table budget (above it raytpu forces
-    the persistent kernel, and so does the port). raytpu's block-kernel
+    the persistent kernel, and so does the port). ``RAYTPU_RIBBON`` = K > 0
+    puts the per-ray walk on ``pack.bvh.ribbon_rows`` where the pack has
+    them (K > 8 raises; the block walk keeps the strand rows, as raytpu's
+    block kernel has no ribbon). raytpu's block-kernel
     scheduling knobs (``groups``, ``RAYTPU_STRAND_SKIP_DONE``,
     ``RAYTPU_STRAND_MULTIROLL``, the leaf-queue deferral) are TPU
     scheduling and have no counterpart. On a CUDA pack the chosen walk's
@@ -636,6 +793,7 @@ def make_strand_intersectors(pack):
     persistent = os.environ.get("RAYTPU_STRAND_PERSISTENT", "1") != "0"
     if (tree.numel() + leaves.numel()) * 4 > STRAND_TABLE_BUDGET:
         persistent = True
+    tree, layout = _layout(pack, tree, leaves, persistent)
     query = strand_query if persistent else strand_block_query
     if tree.device.type == "cuda":  # build or load here, not at a launch
         _library("strand_walk" if persistent else "strand_block")
@@ -643,13 +801,13 @@ def make_strand_intersectors(pack):
     def closest(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, CLOSEST_TMIN, "strand closest")
         t, tri = query(tree, leaves, first, ro.contiguous(), rd.contiguous(),
-                       _per_ray(tmax, ro), CLOSEST_TMIN, False)
+                       _per_ray(tmax, ro), CLOSEST_TMIN, False, **layout)
         return Hit(t=t, tri=tri, valid=tri >= 0)
 
     def any_fn(ro, rd, tmin, tmax):
         _check_baked_tmin(tmin, ANY_TMIN, "strand any-hit")
         _, tri = query(tree, leaves, first, ro.contiguous(), rd.contiguous(),
-                       _per_ray(tmax, ro), ANY_TMIN, True)
+                       _per_ray(tmax, ro), ANY_TMIN, True, **layout)
         return tri >= 0
 
     return closest, any_fn
@@ -664,20 +822,24 @@ def make_strand_mixed_query(pack):
     deferred shadow rays (``smask == 1``: only ``tri >= 0``, blocked, is
     contract). It always takes the per-ray walk, as raytpu's factory
     always takes its persistent kernel: ``RAYTPU_STRAND_PERSISTENT=0`` does
-    not move it to the block walk. raytpu's schedule knobs
+    not move it to the block walk. ``RAYTPU_RIBBON`` = K > 0 is read here,
+    once, as in ``make_strand_intersectors``: the walk takes
+    ``pack.bvh.ribbon_rows`` where the pack has them and the tables fit
+    100 MiB (the same bits). raytpu's schedule knobs
     (``RAYTPU_STRAND_WALKERS``, ``_SERVICE_K``, ``_FLUSH``, ``_PIPE``,
-    ``_UNROLL``, ``_CTL``, ``_POP``, ``_DUAL``, ``RAYTPU_RIBBON``) change no
-    result there and are not read here. A pack without a strand tree
-    raises ValueError. On a CUDA pack the kernel's library is built or
-    loaded here, on the caller's thread."""
+    ``_UNROLL``, ``_CTL``, ``_POP``, ``_DUAL``) change no result there and
+    are not read here. A pack without a strand tree raises ValueError. On
+    a CUDA pack the kernel's library is built or loaded here, on the
+    caller's thread."""
     if pack.bvh.strand_rows is None:
         raise ValueError(
             "bounce_backend='mixed' needs a strand tree; pack "
             "the scene with the default packed tables"
         )
-    tree = pack.bvh.strand_rows.contiguous()
     leaves = pack.bvh.leaf_tris.contiguous()
     first = pack.bvh.first_slots.contiguous()
+    tree, layout = _layout(pack, pack.bvh.strand_rows.contiguous(), leaves,
+                           True)
     if tree.device.type == "cuda":  # build or load here, not at a launch
         _library("strand_walk")
 
@@ -685,6 +847,6 @@ def make_strand_mixed_query(pack):
         return strand_mixed_query(
             tree, leaves, first, ro.contiguous(), rd.contiguous(),
             _per_ray(tmax, ro), smask.to(torch.float32).contiguous(), tmin,
-            shadow_tmin)
+            shadow_tmin, **layout)
 
     return query

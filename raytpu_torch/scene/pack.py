@@ -14,7 +14,8 @@ numpy and then placed on the requested device:
   packet route (flat mode and every wave of a scene of <= 256 slots). Its
   depth is checked against the packet walk's stack bound here, as raytpu
   does. The octant-threaded strand tree is built only above 256 slots
-  (raytpu's bounce-sort threshold), where it serves every path-mode wave.
+  (raytpu's bounce-sort threshold), where it serves every path-mode wave;
+  so is its ribbon layout (``RAYTPU_RIBBON``), where raytpu builds it.
   Every pack carries the walks' tie keys (``first_slots``, computed once
   here on ``device`` from the slots' p0/e1/e2).
   The binned route's treelet windows (accel/treelets.py) are built above
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..accel.bvh import LEAF_SIZE, build_bvh, bvh8_depth
-from ..accel.strandtree import build_strand_tree
+from ..accel.strandtree import build_ribbon_tree, build_strand_tree
 from ..accel.treelets import build_treelets
 from ..kernels.packet import STACK_DEPTH
 from ..kernels.strand import first_slots
@@ -43,6 +44,10 @@ from .gltf import SceneData
 
 # slots above which treelets="auto" builds the binned route's treelets
 TREELET_MIN_SLOTS = 4096
+# raytpu's VMEM budget for the strand tables (raytpu/scene/pack.py:297):
+# the ribbon rows are built only when the strand tree and the leaf rows,
+# each row counted at 128 floats, fit it
+RIBBON_BUDGET = 100 * 1024 * 1024
 
 
 def _sort_min_tris() -> int:
@@ -267,8 +272,15 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
                                 and n_slots > TREELET_MIN_SLOTS):
         tl = build_treelets(bvh8, leaf_tris)
     stream = tables == "stream"
-    strand_rows = (build_strand_tree(bvh).rows
-                   if n_slots > _sort_min_tris() else None)
+    strand_rows = ribbon_rows = None
+    if n_slots > _sort_min_tris():
+        strand_rows = build_strand_tree(bvh).rows
+        # raytpu's condition (raytpu/scene/pack.py:295-306): the same node
+        # budget in another numbering; stream packs walk the strand layout
+        strand_bytes = -(-bvh.n_nodes // 2) * 128 * 4
+        leaf_bytes = leaf_tris.shape[0] * 128 * 4
+        if not stream and strand_bytes + leaf_bytes <= RIBBON_BUDGET:
+            ribbon_rows = build_ribbon_tree(bvh).rows
 
     def conv(x):
         return None if x is None else torch.from_numpy(
@@ -292,6 +304,7 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
             leaf_tris=leaf_t,
             first_slots=first_slots(tri_row_t),
             strand_rows=conv(strand_rows),
+            ribbon_rows=conv(ribbon_rows),
         ),
         has_textures=len(scene.textures) > 0,
         tl_nodes=None if tl is None else conv(tl.tnodes),

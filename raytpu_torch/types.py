@@ -20,6 +20,11 @@ slice reads:
                            None in a stream pack without a strand tree
 * ``bvh.strand_rows`` [ceil(N/2), 128]  the octant-threaded strand tree,
                            or None (scenes of <= 256 slots have none)
+* ``bvh.ribbon_rows`` [8 * ceil(N/16), 128]  the same threading in the
+                           ribbon layout (16 nodes of one octant per row,
+                           accel/strandtree.py:RibbonTree), where raytpu
+                           builds it: with a strand tree, in a pack that
+                           is not a stream pack and fits 100 MiB; else None
 * ``bvh.first_slots`` [T] i32  each slot's lowest slot holding the same
                            triangle bits: the tie key of every walk
                            (kernels/strand.py:first_slots), in every pack
@@ -82,6 +87,10 @@ class BvhPack:
     first_slots: torch.Tensor
     # [ceil(N/2), 128] f32 (accel/strandtree.py); None up to 256 slots
     strand_rows: Optional[torch.Tensor] = None
+    # [8 * ceil(N/16), 128] f32 (accel/strandtree.py:RibbonTree): octant
+    # o's renumbered node j at row o * (rows // 8) + j // 16; None where
+    # there is no strand tree, in a stream pack, or past 100 MiB
+    ribbon_rows: Optional[torch.Tensor] = None
 
     def to(self, device) -> "BvhPack":
         return _to(self, device)

@@ -19,12 +19,14 @@ from PIL import Image
 
 import raytpu
 from raytpu.accel.bvh import build_bvh as rt_build_bvh
+from raytpu.accel import strandtree as rt_strandtree
 from raytpu.accel.strandtree import build_strand_tree as rt_build_strand_tree
 from raytpu.io.metrics import ssim as rt_ssim
 from raytpu.io.png import write_png as rt_write_png
 from raytpu.scene.pack import flatten_world_triangles as rt_flatten
 from raytpu.scene.pack import pack_scene as rt_pack_scene
 from raytpu_torch.accel.bvh import build_bvh
+from raytpu_torch.accel import strandtree as pt_strandtree
 from raytpu_torch.accel.strandtree import build_strand_tree, validate_strand_tree
 from raytpu_torch.io.metrics import ssim
 from raytpu_torch.io.png import write_png
@@ -160,6 +162,38 @@ def test_bvh_and_strand_tree_copies_match_raytpu(which):
     tree = build_strand_tree(got)
     validate_strand_tree(tree, got)
     _assert_same(rt_build_strand_tree(want).rows, tree.rows, "strand rows")
+
+
+@pytest.mark.parametrize("which", ["soup", "gallery"])
+def test_ribbon_copies_match_raytpu(which):
+    """The ribbon layout's host copies (build_ribbon_tree,
+    validate_ribbon_tree, strand_tree_from_packed) give raytpu's rows: the
+    ribbon from the same BVH, and the strand tree rebuilt from a pack's
+    fused node rows; each package's validator accepts the other's tree."""
+    p0, e1, e2 = _geometry(which)
+    want, _ = rt_build_bvh(p0, e1, e2)
+    got, _ = build_bvh(p0, e1, e2)
+    rt_rib = rt_strandtree.build_ribbon_tree(want)
+    rib = pt_strandtree.build_ribbon_tree(got)
+    assert pt_strandtree.RIBBON_NODES_PER_ROW == 16
+    assert (rib.n_nodes, rib.rows_per_oct) == (rt_rib.n_nodes,
+                                               rt_rib.rows_per_oct)
+    assert rib.rows.shape == (8 * -(-got.n_nodes // 16), 128)
+    _assert_same(rt_rib.rows, rib.rows, "ribbon rows")
+    tree = build_strand_tree(got)
+    pt_strandtree.validate_ribbon_tree(rib, tree, got)
+    rt_strandtree.validate_ribbon_tree(rib, rt_build_strand_tree(want), want)
+    # a pack's fused rows [N, 8]: bmin, bmax, bitcast miss and leaf row
+    fused = np.zeros((got.n_nodes, 8), np.float32)
+    fused[:, 0:3], fused[:, 3:6] = got.bmin, got.bmax
+    fused[:, 6] = got.miss.astype(np.int32).view(np.float32)
+    fused[:, 7] = np.where(got.leaf_first >= 0, got.leaf_first // 8,
+                           -1).astype(np.int32).view(np.float32)
+    _assert_same(rt_strandtree.strand_tree_from_packed(fused).rows,
+                 pt_strandtree.strand_tree_from_packed(fused).rows,
+                 "strand rows from the packed nodes")
+    _assert_same(tree.rows, pt_strandtree.strand_tree_from_packed(fused).rows,
+                 "strand rows from the BVH")
 
 
 _BVH_TABLES = ("nodes", "node8_rows", "leaf_tris", "strand_rows")
