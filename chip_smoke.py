@@ -8,9 +8,11 @@ walk and the per-step probe, one nvcc each, in parallel), holds each
 walk bit for bit against its plain torch version (phases 3, 3b, 3c, 3d;
 3e and 3f the mixed-lane forms of the strand and packet walks, also
 against their separate closest-hit and any-hit launches; 3g the strand
-walk over ribbon rows, also against the strand layout, and its stats
-counters; 3h the packet walk's near-first instances, also against storage
-order, and both orders' stats),
+walk over ribbon rows, one record a step and with the K-wide fetch, also
+against the strand layout, and its stats counters; 3h the packet walk's near-first instances, also against storage
+order, and both orders' stats; 3i the strand walk's schedule form in each
+fetch form and the block walk's deferral form, also against the default
+instances, with every counter),
 renders small frames on the card and on the CPU (phase 4, the packet
 route in path and flat mode; phase 4b, the binned route on a stream
 pack), then drives the entry points in this process, so each kernel's
@@ -35,7 +37,10 @@ launch count can be read:
   ``pack_scene(tables="stream")`` and ``render_frame``: the gallery scaled
   to 2.9M triangles at 640x360, 1 spp, 4 bounces; every launch of a frame
   against the plain version, the primary wave against the brute sweep
-  and strand_walk, and fault 3.5's lost rays, as in 6c;
+  and strand_walk, and fault 3.5's lost rays, as in 6c; its strand tables
+  exceed raytpu's 100 MiB budget, and strand_walk's default instance is
+  timed there in turns with the pipelined schedule form (raytpu's
+  tree_any), at 128 walkers and at the card's resident cap;
 * phase 7b, deferred NEE beside the strand route: phase 5's scene and
   configuration with ``bounce_backend="binned"``, held to phase 5's frame,
   its binned mixed queries sampled against the brute sweep;
@@ -57,23 +62,34 @@ launch count can be read:
   and ``compact``; (c) ``RAYTPU_SORT_MODE=gather``, ``seg`` and
   ``RAYTPU_COMPACT=1``, each PNG equal to phase 5's;
 * phase 11, raytpu's kernel options: (a) phase 5's frame and 10a's with
-  ``RAYTPU_RIBBON=4`` (the strand walks over the pack's ribbon rows), each
-  PNG equal to its phase's, and the ribbon forms timed beside the strand
-  layout on the 1080p primary wave and 10a's largest mixed query; (b) 6c
+  ``RAYTPU_RIBBON=1`` and ``=4`` (the strand walks over the pack's ribbon
+  rows, one record a step and with the K-wide fetch), each PNG equal to
+  its phase's, and the ribbon forms timed beside the strand layout on the
+  1080p primary wave and 10a's largest mixed query; (b) 6c
   with ``RAYTPU_ORDER_MODE=all`` (packet_walk's near-first instance), the
   PNG equal to 6c's, near-first timed beside storage order; each with and
-  without stats.
+  without stats;
+* phase 12, raytpu's schedule flags on phase 5's frame: raytpu's schedule
+  defaults set in the environment (the strand walk's pipelined schedule
+  form), ``RAYTPU_STRAND_PIPE=0``, ``PIPE=1 DUAL=1`` and ``RAYTPU_RIBBON=4
+  RAYTPU_STRAND_WALKERS=128``, each also with ``bounce_backend="mixed"``,
+  each PNG equal to phase 5's or 10a's, and the block route with
+  ``RAYTPU_STRAND_GROUPS=16 RAYTPU_STRAND_SKIP_DONE=1`` (the deferral
+  form), its PNG equal to 5b's; every form timed in turns with the default
+  instance on the primary wave, bounce 1's wave and 10a's largest mixed
+  query, and held to its plain version there.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record (each kernel, and each form:
-mixed, ribbon, near-first) and ``{"ok": true, "device": {...}}``. Each
-kernel's bound is the larger of the bytes it must move
+mixed, ribbon, K-wide fetch, near-first, the schedule and deferral forms)
+and ``{"ok": true, "device": {...}}``. Each kernel's bound is the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 TFLOP/s f32 (one H100 SXM's
 peaks). A walk's bytes are the distinct node and leaf rows that the
 per-ray plain walk reads on the measured rays, each once, plus the rays
 in and the results out; its operations are that walk's box and triangle
-tests. The block walk is held to the per-ray walk's work on its own wave:
-what its warps test beyond that is its own cost, not the function's.
+tests. The block walk, the ribbon forms and the schedule and deferral
+forms are held to the default per-ray walk's work on their wave: what
+they load or test beyond that is their own cost, not the function's.
 
 Needs a CUDA device, nvcc and the repo checkout; imports nothing of JAX.
 """
@@ -149,6 +165,18 @@ KERNELS = {
         source="raytpu_torch/kernels/csrc/strand_walk.cu",
         replaces="raytpu/kernels/strand_persistent.py:52",
     ),
+    "strand_ribbon_wide": dict(
+        name="strand_walk (ribbon, K-wide fetch)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/strand_walk.cu",
+        replaces="raytpu/kernels/strand_persistent.py:52",
+    ),
+    "strand_mixed_ribbon_wide": dict(
+        name="strand_walk (mixed, ribbon, K-wide fetch)",
+        route="cuda",
+        source="raytpu_torch/kernels/csrc/strand_walk.cu",
+        replaces="raytpu/kernels/strand_persistent.py:52",
+    ),
     "packet_near": dict(
         name="packet_walk (near-first)",
         route="cuda",
@@ -162,6 +190,45 @@ KERNELS = {
         replaces="raytpu/kernels/intersect_pallas.py:71",
     ),
 }
+# strand_walk's schedule form (strand_common.cuh:sched_kernel), one entry
+# per fetch form and mode ("strand_<form>", "strand_mixed_<form>"), and
+# strand_block's deferral form
+SCHED_FORMS = ("load", "pipe", "dual", "smem", "wide")
+for _form in SCHED_FORMS:
+    for _key, _mode in (("strand", ""), ("strand_mixed", "mixed, ")):
+        KERNELS[f"{_key}_{_form}"] = dict(
+            name=f"strand_walk ({_mode}schedule, {_form})",
+            route="cuda",
+            source="raytpu_torch/kernels/csrc/strand_walk.cu",
+            replaces="raytpu/kernels/strand_persistent.py:52",
+        )
+KERNELS["block_defer"] = dict(
+    name="strand_block (deferral)",
+    route="cuda",
+    source="raytpu_torch/kernels/csrc/strand_block.cu",
+    replaces="raytpu/kernels/strand.py:55",
+)
+# phase 3i's schedule sets (raytpu's keywords): raytpu's factory defaults
+# (strand.py:507-546 at >= 4096 triangles), tests/test_strand.py:150-159's
+# small pool with many refills, and one set per fetch form; the ribbon sets
+# walk the ribbon rows
+RAYTPU_SCHED = dict(walkers=128, service_k=16, flush_occ=0.5, pipe=True,
+                    unroll=4)
+SCHED_SETS = {
+    "raytpu defaults": RAYTPU_SCHED,
+    "small pool": dict(walkers=8, service_k=2, pipe=True, unroll=4,
+                       ctl_every=4, flush_pop=2),
+    "no pipe": dict(walkers=128, service_k=16, flush_occ=0.5),
+    "dual": dict(RAYTPU_SCHED, dual=True),
+    "fetch_smem": dict(RAYTPU_SCHED, fetch_smem=True),
+    "ribbon K=4": dict(walkers=128, service_k=16, flush_occ=0.5,
+                       ribbon_k=4),
+    "ribbon K=8": dict(walkers=128, service_k=16, flush_occ=0.5,
+                       ribbon_k=8),
+}
+# and the block walk's deferral sets (raytpu's groups and skip_done)
+DEFER_SETS = {"G=16 skip_done": dict(defer=True, groups=16, skip_done=True),
+              "G=4": dict(defer=True, groups=4)}
 # one H100 SXM's peaks (NVIDIA's data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -300,7 +367,14 @@ def _counters() -> dict:
     )
     from raytpu_torch.tools.step_bench import step_bench_cuda
 
-    return dict(strand=(strand_query_cuda, "launches"),
+    forms = {}
+    for form in SCHED_FORMS:
+        forms[f"strand_{form}"] = (strand_query_cuda, f"{form}_launches")
+        forms[f"strand_mixed_{form}"] = (strand_mixed_query_cuda,
+                                         f"{form}_launches")
+    return dict(**forms, block_defer=(strand_block_query_cuda,
+                                      "defer_launches"),
+                strand=(strand_query_cuda, "launches"),
                 packet=(packet_query_cuda, "launches"),
                 binned=(binned_walk_cuda, "launches"),
                 block=(strand_block_query_cuda, "launches"),
@@ -310,6 +384,10 @@ def _counters() -> dict:
                 strand_ribbon=(strand_query_cuda, "ribbon_launches"),
                 strand_mixed_ribbon=(strand_mixed_query_cuda,
                                      "ribbon_launches"),
+                strand_ribbon_wide=(strand_query_cuda,
+                                    "ribbon_wide_launches"),
+                strand_mixed_ribbon_wide=(strand_mixed_query_cuda,
+                                          "ribbon_wide_launches"),
                 packet_near=(packet_query_cuda, "ordered_launches"),
                 packet_mixed_near=(packet_query_cuda,
                                    "mixed_ordered_launches"))
@@ -943,12 +1021,13 @@ def tie_key(first, tri):
 
 
 def phase_ribbon_kernel(errs: dict) -> None:
-    """Phase 3g: strand_walk over ribbon rows (rpo = rows per octant,
-    ribbon_k 4) on phase 3's 3 soups x 65536 rays, closest-hit, any-hit and
-    mixed: bit for bit (t and tri of every lane) against its plain version
-    and against the strand layout's launch; and the stats counters
-    (stats=True, int32 [8]) of both layouts against the plain versions',
-    bit for bit."""
+    """Phase 3g: strand_walk over ribbon rows (rpo = rows per octant) on
+    phase 3's 3 soups x 65536 rays, closest-hit, any-hit and mixed, one
+    record a step (ribbon_k 1) and with the K-wide fetch (ribbon_k 4 and
+    8): bit for bit (t and tri of every lane, and the stats counters,
+    stats=True, int32 [8]) against its plain version and against the
+    strand layout's launch (the K-wide fetch: t, tri and every counter but
+    [0], which counts its windows)."""
     import torch
 
     from raytpu_torch.accel.strandtree import (
@@ -969,8 +1048,8 @@ def phase_ribbon_kernel(errs: dict) -> None:
         leaf = to_card(per.reshape(-1, 80))
         first = first_slots(leaf)
         rib = build_ribbon_tree(bvh)
-        rows = {0: to_card(build_strand_tree(bvh).rows),
-                rib.rows_per_oct: to_card(rib.rows)}
+        strand_rows = to_card(build_strand_tree(bvh).rows)
+        rpo = rib.rows_per_oct
         ro, rd = (to_card(a) for a in soup_rays(65536, seed=ntri))
         tmax_c, tmax_s = phase3_lanes()
         tmax_m, smask = mixed_lanes(65536, "cuda")
@@ -982,31 +1061,42 @@ def phase_ribbon_kernel(errs: dict) -> None:
                   (tmax_m, smask, 0.001, 0.0)))
         stats = []
         for form, kernel, plain, tail in forms:
-            out = {}
-            for rpo, tree in rows.items():
-                args = (tree, leaf, first, ro, rd, *tail)
-                out[rpo] = (kernel(*args, rpo=rpo, stats=True),
-                            plain(*args, rpo=rpo, stats=True))
+            head = (leaf, first, ro, rd, *tail)
+            k0 = kernel(strand_rows, *head, stats=True)
+            p0 = plain(strand_rows, *head, stats=True)
+            out = {k: (kernel(to_card(rib.rows), *head, rpo=rpo, ribbon_k=k,
+                              stats=True),
+                       plain(to_card(rib.rows), *head, rpo=rpo, ribbon_k=k,
+                             stats=True)) for k in (1, 4, 8)}
             torch.cuda.synchronize()
-            (k0, p0), (k1, p1) = out[0], out[rib.rows_per_oct]
-            for what, (a, b) in (("ribbon kernel vs plain", (k1, p1)),
-                                 ("strand kernel vs plain", (k0, p0)),
-                                 ("ribbon vs strand kernel", (k1, k0))):
+            checks = [("strand kernel vs plain", k0, p0, 0)]
+            for k, (k1, p1) in out.items():
+                # the K-wide fetch's stats[0] counts its windows
+                checks += [(f"ribbon K={k} kernel vs plain", k1, p1, 0),
+                           (f"ribbon K={k} vs strand kernel", k1, k0,
+                            0 if k == 1 else 1)]
+            for what, a, b, skip in checks:
                 if not (same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
-                        and torch.equal(a[2], b[2])):
+                        and torch.equal(a[2][skip:], b[2][skip:])):
                     fail(f"phase 3g {ntri} tris {form}: {what} differ on "
                          f"{int((a[1] != b[1]).sum())} tri, stats "
                          f"{a[2].tolist()} vs {b[2].tolist()}")
-            key = "strand_mixed_ribbon" if form == "mixed" else "strand_ribbon"
-            errs[key].append(t_err(k1[0], p1[0]))
-            stats.append(f"{form} {k1[2].tolist()}")
+            mixed = "mixed_" if form == "mixed" else ""
+            errs[f"strand_{mixed}ribbon"].append(t_err(out[1][0][0],
+                                                       out[1][1][0]))
+            for k in (4, 8):
+                errs[f"strand_{mixed}ribbon_wide"].append(
+                    t_err(out[k][0][0], out[k][1][0]))
+            stats.append(f"{form} {out[1][0][2].tolist()}, fetches K=4 "
+                         f"{int(out[4][0][2][0])}, K=8 {int(out[8][0][2][0])}")
         notes.append(f"{ntri} tris (rpo {rib.rows_per_oct}): "
                      + ", ".join(stats))
-    print("phase 3g strand_walk over ribbon rows: bit-equal (t, tri, stats) "
-          "to its plain version and to the strand layout's launch on 3 soups "
-          "x 65536 rays, closest, any-hit and mixed; stats [loads, 0, 0, "
-          "installs, leaf tests, leaf rows reached, 0, 0]: "
-          + "; ".join(notes))
+    print("phase 3g strand_walk over ribbon rows, one record a step and the "
+          "K-wide fetch (K 4, 8): bit-equal (t, tri, stats) to its plain "
+          "version and to the strand layout's launch (the K-wide fetch's "
+          "stats[0] apart: its windows) on 3 soups x 65536 rays, closest, "
+          "any-hit and mixed; stats [loads, 0, 0, installs, leaf tests, leaf "
+          "rows reached, 0, 0]: " + "; ".join(notes))
 
 
 def phase_near_kernel(errs: dict) -> int:
@@ -1089,6 +1179,141 @@ def phase_near_kernel(errs: dict) -> int:
           "bit, on 3 soups x 65536 rays, closest, any-hit and mixed; "
           f"{launches} mixed near-first launches through packet_query; "
           + "; ".join(notes))
+    return launches
+
+
+def sched_rows(kw: dict, rows: dict) -> tuple:
+    """(rows, keywords) of a schedule set: a set with ``ribbon_k`` walks
+    the ribbon rows (``rows``' nonzero rpo) with that rpo."""
+    if "ribbon_k" not in kw:
+        return rows[0], kw
+    rpo = max(rows)
+    return rows[rpo], dict(kw, rpo=rpo)
+
+
+def form_key(kind: str, kw: dict) -> str:
+    """The KERNELS key of a schedule set's form (``sched_rows``' keywords):
+    kind is "strand" or "strand_mixed"."""
+    from raytpu_torch.kernels.strand import TOP_NODES, _schedule, sched_form
+
+    sched = _schedule(kw.get("rpo", 0), TOP_NODES,
+                      **{k: v for k, v in kw.items()
+                         if k not in ("ribbon_k", "rpo")})
+    return f"{kind}_{sched_form(sched)}"
+
+
+def agree(form: str, a, b, first, smask=None) -> int:
+    """Lanes where two walks of one scene disagree on the contract: closest
+    lanes on t bits and the tie key, any-hit lanes on the blocked bit."""
+    import torch
+
+    if form == "any-hit":
+        return int(((a[1] >= 0) != (b[1] >= 0)).sum())
+    closest = (smask != 1.0) if smask is not None else torch.ones_like(
+        a[1], dtype=torch.bool)
+    return int((closest & ((a[0].view(torch.int32) != b[0].view(torch.int32))
+                           | (tie_key(first, a[1]) != tie_key(first, b[1])))
+                ).sum() + (~closest & ((a[1] >= 0) != (b[1] >= 0))).sum())
+
+
+def phase_sched_kernel(errs: dict) -> dict:
+    """Phase 3i: strand_walk's schedule form on phase 3's 3 soups x 65536
+    rays, closest-hit, any-hit and mixed, at each of SCHED_SETS (every
+    fetch form: load, pipe, dual, smem, K-wide ribbon), and strand_block's
+    deferral form, closest-hit and any-hit, at each of DEFER_SETS: each bit
+    for bit (t, tri, every counter) against its plain version, and against
+    the default instance on t bits and the tie key (closest lanes) and the
+    blocked bit. The launches go through ``strand_query``,
+    ``strand_mixed_query`` and ``strand_block_query``; their counts, from 0,
+    are returned (the fetch_smem forms' main-path count: no factory passes
+    raytpu's fetch_smem)."""
+    import torch
+
+    from raytpu_torch.accel.strandtree import (
+        build_ribbon_tree,
+        build_strand_tree,
+    )
+    from raytpu_torch.kernels import strand as S
+
+    notes = []
+    reset_launches()
+    for ntri in (5, 300, 3000):
+        bvh, _, per, _ = slot_rows(*soup(ntri))
+        leaf = to_card(per.reshape(-1, 80))
+        first = S.first_slots(leaf)
+        rib = build_ribbon_tree(bvh)
+        rows = {0: to_card(build_strand_tree(bvh).rows),
+                rib.rows_per_oct: to_card(rib.rows)}
+        ro, rd = (to_card(a) for a in soup_rays(65536, seed=ntri))
+        tmax_c, tmax_s = phase3_lanes()
+        tmax_m, smask = mixed_lanes(65536, "cuda")
+        modes = (("closest", S.strand_query, S.strand_query_torch,
+                  (tmax_c, 0.001, False)),
+                 ("any-hit", S.strand_query, S.strand_query_torch,
+                  (tmax_s, 0.0, True)),
+                 ("mixed", S.strand_mixed_query, S.strand_mixed_query_torch,
+                  (tmax_m, smask, 0.001, 0.0)))
+        rounds = []
+        for form, kernel, plain, tail in modes:
+            base = kernel(rows[0], leaf, first, ro, rd, *tail)
+            for name, kw in SCHED_SETS.items():
+                tree, kw = sched_rows(kw, rows)
+                args = (tree, leaf, first, ro, rd, *tail)
+                k = kernel(*args, stats=True, **kw)
+                p = plain(*args, stats=True, **kw)
+                torch.cuda.synchronize()
+                if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                        and torch.equal(k[2], p[2])):
+                    fail(f"phase 3i {ntri} tris {form} {name}: kernel != "
+                         f"plain on {int((k[1] != p[1]).sum())} tri, stats "
+                         f"{k[2].tolist()} vs {p[2].tolist()}")
+                bad = agree(form, k, base, first,
+                            smask if form == "mixed" else None)
+                if bad:
+                    fail(f"phase 3i {ntri} tris {form} {name}: differs from "
+                         f"the default instance on {bad} lanes")
+                key = form_key("strand_mixed" if form == "mixed"
+                               else "strand", kw)
+                errs[key].append(t_err(k[0], p[0]))
+                if form == "closest":
+                    rounds.append(f"{name} {k[2].tolist()}")
+        for form, tail in (("closest", (tmax_c, 0.001, False)),
+                           ("any-hit", (tmax_s, 0.0, True))):
+            args = (rows[0], leaf, first, ro, rd, *tail)
+            base = S.strand_block_query(*args)
+            for name, kw in DEFER_SETS.items():
+                k = S.strand_block_query(*args, True, **kw)
+                p = S.strand_block_query_torch(*args, True, **kw)
+                torch.cuda.synchronize()
+                if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                        and torch.equal(k[2], p[2])):
+                    fail(f"phase 3i {ntri} tris block {form} {name}: kernel "
+                         f"!= plain on {int((k[1] != p[1]).sum())} tri, "
+                         f"{int((k[2] != p[2]).any(1).sum())} stats rows")
+                bad = agree(form, k, base, first)
+                if bad:
+                    fail(f"phase 3i {ntri} tris block {form} {name}: "
+                         f"differs from the default instance on {bad} lanes")
+                errs["block_defer"].append(t_err(k[0], p[0]))
+                if form == "closest":
+                    mean = float(k[2][:, 2].double().mean())
+                    rounds.append(f"block {name}: leaf rounds per block "
+                                  f"mean {mean:.1f}")
+        notes.append(f"{ntri} tris: " + "; ".join(rounds))
+    launches = read_launches()
+    print("phase 3i schedule forms: bit-equal (t, tri, every counter) to "
+          "their plain versions and equal to the default instances on t "
+          "bits and the tie key (closest lanes) and the blocked bit, on 3 "
+          "soups x 65536 rays, closest, any-hit and mixed, sets "
+          f"{list(SCHED_SETS)}, block {list(DEFER_SETS)}; closest counters "
+          "[loads, leaf rounds, claims, installs, leaf tests, enqueues, 0, "
+          "0]: " + " | ".join(notes) + "; launches through the dispatchers: "
+          + ", ".join(f"{k} {launches[k]}" for k in KERNELS
+                      if k.startswith(("strand_load", "strand_pipe",
+                                       "strand_dual", "strand_smem",
+                                       "strand_wide", "strand_mixed_",
+                                       "block_defer"))
+                      and launches[k]))
     return launches
 
 
@@ -1936,7 +2161,7 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
     strand_query_torch(tree, leaf, first, ro[live], rd[live], tmax[live],
                        tmin, any_hit, counts=work)
     return dict(launches=counts["block"], ms=ms, plain_ms=plain_ms,
-                **walk_bound(work, ro.shape[0], 28))
+                **walk_bound(work, ro.shape[0], 28), png=png, wave=wave)
 
 
 class timed_treelets:
@@ -2181,7 +2406,13 @@ def phase_stream(tmp: str, errs: list) -> dict:
     launch of a frame is replayed through the kernel and its plain
     version; the primary wave's binned and strand closest hits on the same
     pack are held to the brute sweep on a sample and wherever they
-    differ."""
+    differ. The pack's strand tables are over raytpu's 100 MiB budget
+    (raytpu's tree_any), where the strand factory keeps the per-ray walk's
+    default instance unless RAYTPU_STRAND_HBM is set: on the primary wave
+    that instance is timed in turns with the pipelined schedule form
+    tree_any selects, at raytpu's 128 walkers and at the card's resident
+    cap (with service_k 16, and 1), each held to it on t bits and the tie
+    key."""
     import torch
 
     from raytpu_torch.engine.render import count_rays, render_frame
@@ -2190,7 +2421,14 @@ def phase_stream(tmp: str, errs: list) -> dict:
         binned_walk_torch,
         make_binned_intersectors,
     )
-    from raytpu_torch.kernels.strand import make_strand_intersectors
+    from raytpu_torch.kernels.strand import (
+        STRAND_TABLE_BUDGET,
+        _n_nodes,
+        _schedule,
+        make_strand_intersectors,
+        sched_grid,
+        strand_query_cuda,
+    )
     from raytpu_torch.scene.camera import camera_from_lookat
     from raytpu_torch.scene.gltf import load_scene
     from raytpu_torch.scene.pack import pack_camera, pack_scene
@@ -2302,6 +2540,36 @@ def phase_stream(tmp: str, errs: list) -> dict:
             binned_mod.binned_walk = kernel
         return hit.t, hit.tri
 
+    tree, leaf, first = (pack.bvh.strand_rows, pack.bvh.leaf_tris,
+                         pack.bvh.first_slots)
+    table_mb = (tree.numel() + leaf.numel()) * 4 / 2**20
+    if table_mb * 2**20 <= STRAND_TABLE_BUDGET:
+        fail("phase 7a: the stream pack's strand tables fit the budget")
+    pipe = dict(RAYTPU_SCHED, tree_any=True)
+    cap = sched_grid(_schedule(0, _n_nodes(tree, 0),
+                               **dict(pipe, walkers=1 << 20)), 0)
+    wave = (leaf, first, ro, rd, tmax, 0.001, False)
+    # at the cap, service_k 16 leaves most warps without a claim on a wave
+    # this small (7,680 batches), so the cap also runs with service_k 1
+    forms = {"default": {}, "pipe, 128 walkers": pipe,
+             f"pipe, {cap} walkers (resident cap)": dict(pipe, walkers=cap),
+             f"pipe, {cap} walkers, service_k 1": dict(pipe, walkers=cap,
+                                                       service_k=1)}
+    pipe_ms = in_turns({k: (lambda kw=kw: strand_query_cuda(tree, *wave,
+                                                           **kw))
+                        for k, kw in forms.items()})
+    base = strand_query_cuda(tree, *wave)
+    for k, kw in forms.items():
+        if agree("closest", strand_query_cuda(tree, *wave, **kw), base,
+                 first):
+            fail(f"phase 7a: strand_walk's {k} form differs from the "
+                 "default instance on the primary wave")
+    torch.cuda.synchronize()
+    print(f"phase 7a strand tables {table_mb:.1f} MiB (over the "
+          f"{STRAND_TABLE_BUDGET / 2**20:.0f} MiB budget): primary wave "
+          f"({ro.shape[0]} rays) in turns, ms a launch: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in pipe_ms.items())
+          + "; each equal to the default on t bits and the tie key")
     lost_hits("7a", pack, ro, rd, (hb.t, hb.tri), run)
     n_diff, binned_wrong, strand_wrong = differ_vs_brute(
         pack, (hb.t, hb.tri), (hs.t, hs.tri), ro, rd, tmax, 0.001)
@@ -2601,17 +2869,20 @@ def plain_run(fn) -> tuple:
     return (time.perf_counter() - t0) * 1e3, out, work
 
 
-def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> tuple:
-    """Phase 11a: phase 5's pack and configuration with RAYTPU_RIBBON=4 (set
-    just before, restored just after), the counts set to 0 before the
-    frames and read after: every strand query on strand_walk over the
-    pack's ribbon rows, the PNG equal to phase 5's; then phase 10a's
+def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> dict:
+    """Phase 11a: phase 5's pack and configuration with RAYTPU_RIBBON=1 and
+    then =4 (each set just before, restored just after), the counts set to
+    0 before the frames and read after: every strand query on strand_walk
+    over the pack's ribbon rows, one record a step (K 1) or with the K-wide
+    fetch (K 4), each PNG equal to phase 5's; then phase 10a's
     configuration (deferred NEE through the strand walk's mixed form) with
-    the same knob, its PNG equal to 10a's. On phase 5's 1080p primary wave,
-    strand_walk over ribbon rows beside the strand layout (CUDA events, in
-    turns) and with stats=True (the counters' cost), its plain version
-    (bit-equal) and its bound; on 10a's largest mixed query the mixed form
-    over ribbon rows the same way. Returns the two forms' records."""
+    the same knobs, each PNG equal to 10a's. On phase 5's 1080p primary
+    wave, strand_walk over ribbon rows at K 1, 4 and 8 beside the strand
+    layout (CUDA events, in turns) and with stats=True (the counters'
+    cost), the plain versions (bit-equal with stats); on 10a's largest
+    mixed query the mixed forms the same way. Every form is bound by the
+    strand layout's plain walk on the same rays (the same visits). Returns
+    the four forms' records."""
     import torch
 
     from raytpu_torch.engine.render import render_frame
@@ -2627,82 +2898,105 @@ def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> tuple:
     cfg = RenderConfig(**MAIN_ARGS)
     mcfg = RenderConfig(**MAIN_ARGS, intersector="packet",
                         bounce_backend="mixed")
-    with env(RAYTPU_RIBBON="4"):
-        reset_launches()
-        secs = warm_s(lambda: render_frame(pack, cam, cfg))
-        counts = read_launches()
-        frame = render_frame(pack, cam, cfg)
-        reset_launches()
-        msecs = warm_s(lambda: render_frame(pack, cam, mcfg))
-        mcounts = read_launches()
-        mframe = render_frame(pack, cam, mcfg)
-    n5 = png_pixels_differ(frame, main_rec["frame"])
-    n10 = png_pixels_differ(mframe, mixed_rec["frame"])
-    print(f"phase 11a RAYTPU_RIBBON=4: frames {secs[0]:.3f} / {secs[1]:.3f} "
-          f"s (phase 5 {main_rec['frame_s'][1]:.3f} s), "
-          + launched("11a", counts, ("strand_ribbon",))
-          + f"; vs phase 5's frame: {n5} PNG pixels differ "
-          f"({int(np.any(frame != main_rec['frame'], -1).sum())} f32 "
-          f"pixels); with bounce_backend='mixed': frames {msecs[0]:.3f} / "
-          f"{msecs[1]:.3f} s, "
-          + launched("11a mixed", mcounts, ("strand_ribbon",
-                                            "strand_mixed_ribbon"))
-          + f"; vs phase 10a's frame: {n10} PNG pixels differ")
-    if n5 or n10:
-        fail("phase 11a: the ribbon layout's PNG is not the strand layout's")
-    rib = pack.bvh.ribbon_rows
+    launches = {}
+    for k, key in (("1", "ribbon"), ("4", "ribbon_wide")):
+        with env(RAYTPU_RIBBON=k):
+            reset_launches()
+            secs = warm_s(lambda: render_frame(pack, cam, cfg))
+            counts = read_launches()
+            frame = render_frame(pack, cam, cfg)
+            reset_launches()
+            msecs = warm_s(lambda: render_frame(pack, cam, mcfg))
+            mcounts = read_launches()
+            mframe = render_frame(pack, cam, mcfg)
+        n5 = png_pixels_differ(frame, main_rec["frame"])
+        n10 = png_pixels_differ(mframe, mixed_rec["frame"])
+        print(f"phase 11a RAYTPU_RIBBON={k}: frames {secs[0]:.3f} / "
+              f"{secs[1]:.3f} s (phase 5 {main_rec['frame_s'][1]:.3f} s), "
+              + launched(f"11a K={k}", counts, (f"strand_{key}",))
+              + f"; vs phase 5's frame: {n5} PNG pixels differ "
+              f"({int(np.any(frame != main_rec['frame'], -1).sum())} f32 "
+              f"pixels); with bounce_backend='mixed': frames {msecs[0]:.3f} "
+              f"/ {msecs[1]:.3f} s, "
+              + launched(f"11a K={k} mixed", mcounts,
+                         (f"strand_{key}", f"strand_mixed_{key}"))
+              + f"; vs phase 10a's frame: {n10} PNG pixels differ")
+        if n5 or n10:
+            fail(f"phase 11a: the ribbon layout's PNG (K {k}) is not the "
+                 "strand layout's")
+        launches[f"strand_{key}"] = counts[f"strand_{key}"]
+        launches[f"strand_mixed_{key}"] = mcounts[f"strand_mixed_{key}"]
+    rib, strand_rows = pack.bvh.ribbon_rows, pack.bvh.strand_rows
     rpo = rib.shape[0] // 8
     leaf, first = pack.bvh.leaf_tris, pack.bvh.first_slots
     ro, rd = main_rec["ro"], main_rec["rd"]
     n = ro.shape[0]
     tmax = torch.full((n,), F32_MAX, device="cuda")
     wave = (leaf, first, ro, rd, tmax, 0.001, False)
-    ms = in_turns({
-        "strand": lambda: strand_query_cuda(pack.bvh.strand_rows, *wave),
-        "ribbon": lambda: strand_query_cuda(rib, *wave, rpo=rpo,
-                                            ribbon_k=4),
-        "strand+stats": lambda: strand_query_cuda(pack.bvh.strand_rows,
-                                                  *wave, stats=True),
-        "ribbon+stats": lambda: strand_query_cuda(rib, *wave, rpo=rpo,
-                                                  stats=True)})
-    k = strand_query_cuda(rib, *wave, rpo=rpo, stats=True)
-    k0 = strand_query_cuda(pack.bvh.strand_rows, *wave, stats=True)
-    plain_ms, p, work = plain_run(lambda c: strand_query_torch(
-        rib, *wave, c, rpo=rpo, stats=True))
-    if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
-            and torch.equal(k[2], p[2]) and same_bits(k[0], k0[0])
-            and torch.equal(k[1], k0[1]) and torch.equal(k[2], k0[2])):
-        fail("phase 11a: the ribbon kernel != its plain version or the "
-             "strand layout on the primary wave")
-    rec = dict(launches=counts["strand_ribbon"], ms=ms["ribbon"],
-               plain_ms=plain_ms, **walk_bound(work, n, 28))
+    calls = {"strand": lambda: strand_query_cuda(strand_rows, *wave)}
+    for k in (1, 4, 8):
+        calls[f"ribbon K={k}"] = (lambda k=k: strand_query_cuda(
+            rib, *wave, rpo=rpo, ribbon_k=k))
+    calls["strand+stats"] = lambda: strand_query_cuda(strand_rows, *wave,
+                                                      stats=True)
+    for k in (1, 4):
+        calls[f"ribbon K={k}+stats"] = (lambda k=k: strand_query_cuda(
+            rib, *wave, rpo=rpo, ribbon_k=k, stats=True))
+    ms = in_turns(calls)
+    k0 = strand_query_cuda(strand_rows, *wave, stats=True)
+    _, _, work = plain_run(lambda c: strand_query_torch(strand_rows, *wave,
+                                                        c))
+    recs, fetched = {}, {}
+    for k, key in ((1, "strand_ribbon"), (4, "strand_ribbon_wide")):
+        got = strand_query_cuda(rib, *wave, rpo=rpo, ribbon_k=k, stats=True)
+        plain_ms, p, _ = plain_run(lambda c: strand_query_torch(
+            rib, *wave, c, rpo=rpo, ribbon_k=k, stats=True))
+        skip = 0 if k == 1 else 1  # the K-wide fetch's [0]: its windows
+        if not (same_bits(got[0], p[0]) and torch.equal(got[1], p[1])
+                and torch.equal(got[2], p[2]) and same_bits(got[0], k0[0])
+                and torch.equal(got[1], k0[1])
+                and torch.equal(got[2][skip:], k0[2][skip:])):
+            fail(f"phase 11a: the ribbon kernel (K {k}) != its plain version "
+                 "or the strand layout on the primary wave")
+        fetched[k] = got[2].tolist()
+        recs[key] = dict(launches=launches[key], ms=ms[f"ribbon K={k}"],
+                         plain_ms=plain_ms, **walk_bound(work, n, 28))
     q = mixed_rec["query"]
     margs = (leaf, first, *q)
-    mms = in_turns({
-        "strand": lambda: strand_mixed_query_cuda(pack.bvh.strand_rows,
-                                                  *margs),
-        "ribbon": lambda: strand_mixed_query_cuda(rib, *margs, rpo=rpo)})
-    mk = strand_mixed_query_cuda(rib, *margs, rpo=rpo)
-    mk0 = strand_mixed_query_cuda(pack.bvh.strand_rows, *margs)
-    mplain_ms, mp, mwork = plain_run(lambda c: strand_mixed_query_torch(
-        rib, *margs, c, rpo=rpo))
-    if not (mixed_same(*mk, *mp, q[3]) and same_bits(mk[0], mk0[0])
-            and torch.equal(mk[1], mk0[1])):
-        fail("phase 11a: the mixed ribbon kernel != its plain version or the "
-             "strand layout on 10a's largest mixed query")
-    mrec = dict(launches=mcounts["strand_mixed_ribbon"], ms=mms["ribbon"],
-                plain_ms=mplain_ms, **walk_bound(mwork, q[0].shape[0], 32))
-    print(f"phase 11a primary wave ({n} rays): strand_walk over ribbon rows "
-          f"{ms['ribbon']:.4f} ms, strand layout {ms['strand']:.4f} ms; with "
-          f"stats {ms['ribbon+stats']:.4f} / {ms['strand+stats']:.4f} ms "
-          f"(stats {k[2].tolist()}); plain {plain_ms:.1f} ms, bit-equal "
-          f"(t, tri, stats) to it and to the strand layout; bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); 10a's largest "
-          f"mixed query ({q[0].shape[0]} lanes): ribbon {mms['ribbon']:.4f} "
-          f"ms, strand layout {mms['strand']:.4f} ms, plain "
-          f"{mplain_ms:.1f} ms, bound {mrec['bound_ms']:.4f} ms "
-          f"({mrec['bound_by']})")
-    return rec, mrec
+    mcalls = {"strand": lambda: strand_mixed_query_cuda(strand_rows, *margs)}
+    for k in (1, 4, 8):
+        mcalls[f"ribbon K={k}"] = (lambda k=k: strand_mixed_query_cuda(
+            rib, *margs, rpo=rpo, ribbon_k=k))
+    mms = in_turns(mcalls)
+    mk0 = strand_mixed_query_cuda(strand_rows, *margs)
+    _, _, mwork = plain_run(lambda c: strand_mixed_query_torch(
+        strand_rows, *margs, c))
+    for k, key in ((1, "strand_mixed_ribbon"),
+                   (4, "strand_mixed_ribbon_wide")):
+        mk = strand_mixed_query_cuda(rib, *margs, rpo=rpo, ribbon_k=k)
+        mplain_ms, mp, _ = plain_run(lambda c: strand_mixed_query_torch(
+            rib, *margs, c, rpo=rpo, ribbon_k=k))
+        if not (mixed_same(*mk, *mp, q[3]) and same_bits(mk[0], mk0[0])
+                and torch.equal(mk[1], mk0[1])):
+            fail(f"phase 11a: the mixed ribbon kernel (K {k}) != its plain "
+                 "version or the strand layout on 10a's largest mixed query")
+        recs[key] = dict(launches=launches[key], ms=mms[f"ribbon K={k}"],
+                         plain_ms=mplain_ms,
+                         **walk_bound(mwork, q[0].shape[0], 32))
+    print(f"phase 11a primary wave ({n} rays), in turns, ms a launch: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; stats K=1 {fetched[1]}, K=4 {fetched[4]}; each bit-equal to "
+          f"its plain version (t, tri, stats) and to the strand layout (t, "
+          f"tri, stats but K=4's [0]); plain K=1 "
+          f"{recs['strand_ribbon']['plain_ms']:.1f} ms, K=4 "
+          f"{recs['strand_ribbon_wide']['plain_ms']:.1f} ms; bound "
+          f"{recs['strand_ribbon']['bound_ms']:.4f} ms "
+          f"({recs['strand_ribbon']['bound_by']}); 10a's largest mixed query "
+          f"({q[0].shape[0]} lanes): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in mms.items())
+          + f", bound {recs['strand_mixed_ribbon']['bound_ms']:.4f} ms "
+          f"({recs['strand_mixed_ribbon']['bound_by']})")
+    return recs
 
 
 def phase_near_route(flat_rec: dict, mixed_rec: dict,
@@ -2790,6 +3084,186 @@ def phase_near_route(flat_rec: dict, mixed_rec: dict,
           f"storage order {mms['storage']:.4f} ms, plain {mplain_ms:.1f} ms, "
           f"bound {mrec['bound_ms']:.4f} ms ({mrec['bound_by']})")
     return rec, mrec
+
+
+# phase 12's forms: each one's keywords (phase 3i's sets) and the
+# variables that reach it from a frame (none reach fetch_smem: raytpu's
+# factories never pass it)
+FORM_KW = {"load": SCHED_SETS["no pipe"], "pipe": RAYTPU_SCHED,
+           "dual": SCHED_SETS["dual"], "smem": SCHED_SETS["fetch_smem"],
+           "wide": SCHED_SETS["ribbon K=4"]}
+RAYTPU_ENV = dict(RAYTPU_STRAND_WALKERS="128", RAYTPU_STRAND_SERVICE_K="16",
+                  RAYTPU_STRAND_FLUSH="0.5", RAYTPU_STRAND_PIPE="1",
+                  RAYTPU_STRAND_UNROLL="4", RAYTPU_STRAND_CTL="1",
+                  RAYTPU_STRAND_POP="1", RAYTPU_STRAND_DUAL="0")
+FORM_ENV = {"pipe": RAYTPU_ENV, "load": dict(RAYTPU_STRAND_PIPE="0"),
+            "dual": dict(RAYTPU_STRAND_PIPE="1", RAYTPU_STRAND_DUAL="1"),
+            "wide": dict(RAYTPU_RIBBON="4", RAYTPU_STRAND_WALKERS="128")}
+BLOCK_ENV = dict(RAYTPU_STRAND_PERSISTENT="0", RAYTPU_STRAND_GROUPS="16",
+                 RAYTPU_STRAND_SKIP_DONE="1")
+
+
+def phase_schedule_route(main_rec: dict, block_rec: dict, mixed_rec: dict,
+                         sched_launches: dict, errs: dict) -> dict:
+    """Phase 12: cell 5's pack and 1080p configuration through the schedule
+    forms, each variable set just before its frames and restored just
+    after, the counts set to 0 before each frame and read after: (a)
+    raytpu's defaults set explicitly (RAYTPU_ENV: the pipe form), its PNG
+    equal to phase 5's; (b) the block route with RAYTPU_STRAND_GROUPS=16
+    RAYTPU_STRAND_SKIP_DONE=1 (the deferral form), its PNG equal to phase
+    5b's; (c) RAYTPU_STRAND_PIPE=0 (load), PIPE=1 DUAL=1 (dual) and
+    RAYTPU_RIBBON=4 RAYTPU_STRAND_WALKERS=128 (the pool over ribbon rows,
+    the K-wide fetch), each PNG equal to phase 5's;
+    and (a) and (c) again with bounce_backend="mixed", each PNG equal to
+    10a's. Then every form in turns with the default instance (CUDA
+    events): the strand forms on phase 5's primary wave and on bounce 1's
+    wave (5b's largest sorted closest-hit wave), the mixed forms on 10a's
+    largest mixed query, the deferral form on bounce 1's wave; each
+    against its plain version there (bit-equal, with its counters). Every
+    form is bound by the default instance's plain walk on the same wave:
+    the work the function needs, not the extra box tests, prefetches and
+    windows its schedule spends. Returns each form's record; the smem
+    forms' launches are phase 3i's through the dispatchers."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.io.png import quantize_rgba32f
+    from raytpu_torch.kernels import strand as S
+    from raytpu_torch.types import RenderConfig
+
+    pack, cam = main_rec["pack"], main_rec["cam"]
+    cfg = RenderConfig(**MAIN_ARGS)
+    mcfg = RenderConfig(**MAIN_ARGS, intersector="packet",
+                        bounce_backend="mixed")
+    block_png = read_png_rgb(block_rec["png"])
+    launches, notes = {}, []
+
+    def frame_of(label, values, config, want, ref):
+        with env(**values):
+            reset_launches()
+            secs = warm_s(lambda: render_frame(pack, cam, config), reps=1)
+            counts = read_launches()
+            frame = render_frame(pack, cam, config)
+        if ref.dtype == np.uint8:  # a decoded PNG
+            n = int(np.any(quantize_rgba32f(frame) != ref, axis=-1).sum())
+        else:
+            n = png_pixels_differ(frame, ref)
+        notes.append(f"{label} {secs[0]:.3f} s, "
+                     + launched(f"12 {label}", counts, want)
+                     + f", {n} PNG pixels differ")
+        if n:
+            fail(f"phase 12 {label}: the PNG is not its phase's")
+        for k in want:
+            launches[k] = launches.get(k, 0) + counts[k]
+
+    frame_of("a raytpu defaults", RAYTPU_ENV, cfg, ("strand_pipe",),
+             main_rec["frame"])
+    frame_of("b block G=16 skip_done", BLOCK_ENV, cfg, ("block_defer",),
+             block_png)
+    for form in ("load", "dual", "wide"):
+        frame_of(f"c {form}", FORM_ENV[form], cfg, (f"strand_{form}",),
+                 main_rec["frame"])
+    for form in ("pipe", "load", "dual", "wide"):
+        frame_of(f"mixed {form}", FORM_ENV[form], mcfg,
+                 (f"strand_{form}", f"strand_mixed_{form}"),
+                 mixed_rec["frame"])
+    launches["strand_smem"] = sched_launches["strand_smem"]
+    launches["strand_mixed_smem"] = sched_launches["strand_mixed_smem"]
+    print("phase 12 schedule frames (1080p, PNG against phase 5's, 5b's "
+          "or 10a's): " + "; ".join(notes))
+
+    leaf, first = pack.bvh.leaf_tris, pack.bvh.first_slots
+    rows = {0: pack.bvh.strand_rows,
+            pack.bvh.ribbon_rows.shape[0] // 8: pack.bvh.ribbon_rows}
+    ro, rd = main_rec["ro"], main_rec["rd"]
+    primary = (ro, rd, torch.full((ro.shape[0],), F32_MAX, device="cuda"),
+               0.001, False)
+    bounce = block_rec["wave"][3:]
+    q = mixed_rec["query"]
+    recs, lines = {}, []
+    for label, kind, wave in (("primary", "strand", primary),
+                              ("bounce 1", "strand", bounce),
+                              ("mixed", "strand_mixed", q)):
+        kernel = (S.strand_query_cuda if kind == "strand"
+                  else S.strand_mixed_query_cuda)
+        plain = (S.strand_query_torch if kind == "strand"
+                 else S.strand_mixed_query_torch)
+        calls = {"default": lambda: kernel(rows[0], leaf, first, *wave)}
+        for form, kw in FORM_KW.items():
+            tree, k = sched_rows(kw, rows)
+            calls[form] = (lambda tree=tree, k=k:
+                           kernel(tree, leaf, first, *wave, **k))
+        if label == "primary":  # the pool at the card's resident cap
+            cap = S.sched_grid(S._schedule(0, S._n_nodes(rows[0], 0),
+                                           **dict(RAYTPU_SCHED,
+                                                  walkers=1 << 20)), 0)
+            calls[f"pipe, {cap} walkers (resident cap)"] = lambda: kernel(
+                rows[0], leaf, first, *wave, **dict(RAYTPU_SCHED,
+                                                    walkers=cap))
+        if label == "bounce 1":
+            calls["block"] = lambda: S.strand_block_query_cuda(
+                rows[0], leaf, first, *wave)
+            calls["defer"] = lambda: S.strand_block_query_cuda(
+                rows[0], leaf, first, *wave,
+                **DEFER_SETS["G=16 skip_done"])
+        ms = in_turns(calls)
+        lines.append(f"{label} ({wave[0].shape[0]} rays): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in ms.items()))
+        recs[label] = ms
+        if label == "bounce 1":
+            continue
+        base = calls["default"]()
+        _, _, work = plain_run(lambda c: plain(rows[0], leaf, first, *wave,
+                                               c))
+        for form, kw in FORM_KW.items():
+            tree, k = sched_rows(kw, rows)
+            key = f"{kind}_{form}"
+            got = kernel(tree, leaf, first, *wave, stats=True, **k)
+            plain_ms, p, _ = plain_run(lambda c: plain(
+                tree, leaf, first, *wave, c, stats=True, **k))
+            if not (same_bits(got[0], p[0]) and torch.equal(got[1], p[1])
+                    and torch.equal(got[2], p[2])):
+                fail(f"phase 12 {label} {form}: kernel != plain")
+            bad = agree("mixed" if kind == "strand_mixed" else "closest",
+                        got, base, first, q[3] if kind == "strand_mixed"
+                        else None)
+            if bad:
+                fail(f"phase 12 {label} {form}: {bad} lanes differ from "
+                     "the default instance")
+            errs[key].append(t_err(got[0], p[0]))
+            recs[key] = dict(launches=launches[key], ms=ms[form],
+                             plain_ms=plain_ms, stats=got[2].tolist(),
+                             **walk_bound(work, wave[0].shape[0],
+                                          32 if kind == "strand_mixed"
+                                          else 28))
+    # the deferral form on bounce 1's wave, held as phase 5b holds the
+    # block walk: to its plain version, bound by the per-ray walk's work
+    tree, leaf_b, first_b, bro, brd, btmax, btmin, bany = block_rec["wave"]
+    kw = DEFER_SETS["G=16 skip_done"]
+    got = S.strand_block_query_cuda(*block_rec["wave"], True, **kw)
+    plain_ms, p, _ = plain_run(lambda c: S.strand_block_query_torch(
+        *block_rec["wave"], True, **kw))
+    torch.cuda.synchronize()
+    if not (same_bits(got[0], p[0]) and torch.equal(got[1], p[1])
+            and torch.equal(got[2], p[2])):
+        fail("phase 12: strand_block's deferral form != its plain version "
+             "on bounce 1's wave")
+    errs["block_defer"].append(t_err(got[0], p[0]))
+    recs["block_defer"] = dict(
+        launches=launches["block_defer"], ms=recs["bounce 1"]["defer"],
+        plain_ms=plain_ms, **{k: block_rec[k] for k in (
+            "bound_ms", "bound_by", "n_bytes", "n_ops", "bytes_ms",
+            "ops_ms")})
+    print("phase 12 in turns with the default instances (ms a launch, CUDA "
+          "events): " + " | ".join(lines))
+    print("phase 12 forms vs plain (bit-equal with counters): " + "; ".join(
+        f"{KERNELS[k]['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} "
+        f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+        + (f", counters {r['stats']}" if "stats" in r else "")
+        for k, r in recs.items() if k in KERNELS)
+        + f"; block deferral leaf rounds per block mean "
+        f"{float(got[2][:, 2].double().mean()):.1f}")
+    return recs
 
 
 def phase_step_bench(errs: list) -> dict:
@@ -3199,6 +3673,8 @@ def main() -> int:
     with timed(secs, "3g-3h"):
         phase_ribbon_kernel(errs)
         packet_mixed_near = phase_near_kernel(errs)
+    with timed(secs, "3i"):
+        sched_launches = phase_sched_kernel(errs)
     with tempfile.TemporaryDirectory() as tmp:
         with timed(secs, "4-4b"):
             phase_card_vs_cpu(tmp)
@@ -3229,11 +3705,16 @@ def main() -> int:
         with timed(secs, "10b-10c"):
             phase_sorted_arms(recs["strand"])
         with timed(secs, "11a"):
-            recs["strand_ribbon"], recs["strand_mixed_ribbon"] = (
-                phase_ribbon_route(recs["strand"], recs["strand_mixed"]))
+            recs.update(phase_ribbon_route(recs["strand"],
+                                           recs["strand_mixed"]))
         with timed(secs, "11b"):
             recs["packet_near"], recs["packet_mixed_near"] = phase_near_route(
                 recs["packet"], recs["strand_mixed"], packet_mixed_near)
+        with timed(secs, "12"):
+            forms = phase_schedule_route(recs["strand"], recs["block"],
+                                         recs["strand_mixed"],
+                                         sched_launches, errs)
+            recs.update({k: v for k, v in forms.items() if k in KERNELS})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in secs.items()))
     print("bounds: " + "; ".join(

@@ -57,6 +57,7 @@ import torch
 from ..kernels import rng as rngk
 from ..kernels.intersect import F32_MAX, Hit, barycentrics, make_intersectors
 from ..kernels.binned import make_binned_intersectors, make_binned_query
+from ..kernels import packet as packetk
 from ..kernels.packet import make_packet_intersectors
 from ..kernels.strand import make_strand_intersectors, make_strand_mixed_query
 from ..kernels.texture import sample_bilinear
@@ -799,16 +800,19 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     """Resolve config.intersector to ((closest, any), packet_mode,
     mixed_fn, prefer_mixed, bounce_pair), as raytpu's TPU branch does.
 
-    "auto" is "packet" on a pack with the BVH8 rows; on a stream pack it
-    is "strand" when the pack has a strand tree, else "binned" when it has
-    treelets. "packet" gives the packet route's pair; ``bounce_pair`` is
-    the strand pair when the pack has a strand tree (> 256 slots), else
+    "auto" applies raytpu's budget rule (``packet_tables_fit``: the BVH8
+    rows and leaf rows at 128-lane padding within 100 MiB; a stream pack
+    has no BVH8 rows): "packet" when they fit; otherwise "strand" when the
+    pack has a strand tree, else "binned" when it has treelets, else
+    "brute" at most ``bruteforce_max_tris`` slots and "bvh" above, as
+    raytpu's branch ends. "packet" gives the packet route's pair;
+    ``bounce_pair`` is the strand pair when the pack has a strand tree
+    (> 256 slots), else
     None, and ``_trace_paths`` then sends every path-mode wave through it.
     With ``bounce_backend="binned"`` ``mixed_fn`` is the binned query,
     with ``"mixed"`` the strand walk's mixed query
     (``make_strand_mixed_query``; a pack without a strand tree raises);
-    either carries the deferred-NEE bounces. raytpu's VMEM budget check has
-    no counterpart: on the card every table lives in global memory.
+    either carries the deferred-NEE bounces.
     "strand" uses the strand pair everywhere, with the strand mixed query
     for ``bounce_backend="mixed"``, and raises on a pack without a tree.
     "binned" runs every query through the treelets, with
@@ -817,22 +821,24 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     all walk rays in 32x32-block order. "brute" and "bvh" go through
     ``make_intersectors`` in row order, with ``packet_mode`` False, as
     raytpu's last branch does: the torch sweep, and the threaded-BVH walk
-    with raytpu's visit-order ties. "auto" never picks them (raytpu's CPU
-    "auto" does, at 2048 slots; the port follows its TPU branch on both
-    devices)."""
+    with raytpu's visit-order ties. "auto" picks them only for a pack
+    with no BVH8 rows, strand tree or treelets, at the end of raytpu's TPU
+    branch (raytpu's CPU "auto" picks them at 2048 slots; the port follows
+    its TPU branch on both devices)."""
     which = config.intersector
     if config.bounce_backend not in ("sorted", "binned", "mixed"):
         raise ValueError(f"unknown bounce_backend {config.bounce_backend!r}")
     if which == "auto":
-        if pack.bvh.node8_rows is not None:
+        if packetk.packet_tables_fit(pack):
             which = "packet"
         elif pack.bvh.strand_rows is not None:
             which = "strand"
         elif pack.tl_nodes is not None:
             which = "binned"
+        elif pack.n_triangles <= config.bruteforce_max_tris:
+            which = "brute"
         else:
-            raise ValueError("the pack has neither BVH8 rows, a strand tree "
-                             "nor treelets: nothing to route through")
+            which = "bvh"
     if which == "binned":
         if pack.tl_nodes is None:
             raise ValueError(

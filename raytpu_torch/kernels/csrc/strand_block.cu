@@ -19,7 +19,8 @@
 //   is blocked) and __any_sync gives the walker's hit bit;
 // * at a leaf every lane tests the 8 slots in order, including lanes whose
 //   own box missed (raytpu's behaviour); leaves are tested at once: raytpu
-//   queues them only for TPU occupancy, which changes no committed result;
+//   queues them only for TPU occupancy, which changes no committed result
+//   (its queue is the deferral form, strand_block_defer_launch below);
 // * any-hit: the warp stops once every lane is blocked or dead
 //   (__all_sync, raytpu's all_done);
 // * tail lanes of a partial strand stay in the loop as dead lanes (ro 0,
@@ -73,6 +74,35 @@ extern "C" int strand_block_launch(const float* rows, const float* leaves,
                        n_rays, n_nodes, n_leaf_rows, tmin, tmin};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return any_hit ? launch<true>(a, s) : launch<false>(a, s);
+}
+
+// The deferral form (strand_common.cuh:defer_kernel): `groups` (1..32)
+// warps a block walking in lock-step with per-warp leaf queues; with
+// skip_done, idle walkers skip their loads. stats is null or int32
+// [ceil(n_rays / 32), 3]. Same stream and return conventions;
+// cudaErrorInvalidValue for a bad `groups` (nothing is launched).
+extern "C" int strand_block_defer_launch(
+    const float* rows, const float* leaves, const int* first,
+    const float* ro, const float* rd, const float* tmax, float* t_out,
+    int* tri_out, int* stats, int n_rays, int n_nodes, int n_leaf_rows,
+    float tmin, int any_hit, int groups, int skip_done, void* stream) {
+  if (groups < 1 || groups > 32) return cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  const strand::Args a{rows,  leaves, first,   ro,      rd,
+                       tmax,  t_out,  tri_out, stats,   nullptr,
+                       n_rays, n_nodes, n_leaf_rows, tmin, tmin};
+  const int strands = (n_rays + 31) / 32;
+  const int grid = (strands + groups - 1) / groups;
+  const size_t smem = static_cast<size_t>(groups) *
+                      (strand::kLeafFloats * sizeof(float) +
+                       strand::kBlockQcap * sizeof(int));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit) {
+    strand::defer_kernel<true><<<grid, 32 * groups, smem, s>>>(a, skip_done);
+  } else {
+    strand::defer_kernel<false><<<grid, 32 * groups, smem, s>>>(a, skip_done);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* strand_block_error_string(int code) {

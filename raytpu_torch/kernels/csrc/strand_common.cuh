@@ -33,8 +33,18 @@ constexpr int kRibbonNodes = 16;  // nodes per ribbon row
 
 // raytpu's stats counters (strand_persistent.py:935-943) that the per-ray
 // walk fills: [0] node records loaded, [4] leaf rows tested, [5] leaf rows
-// reached, each summed over rays; the wrapper sets [3], the rest stay 0
-enum Stat { kLoads = 0, kLeafTests = 4, kLeafReached = 5 };
+// reached, each summed over rays; the wrapper sets [3], the rest stay 0.
+// The schedule form (sched_kernel, below) fills every slot but [6], [7]:
+// [0] records loaded (fetches over ribbon rows), [1] leaf rounds, [2] pool
+// claims, [3] batches installed, [4] leaf rows tested, [5] enqueues.
+enum Stat {
+  kLoads = 0,
+  kRounds = 1,
+  kClaims = 2,
+  kInstalls = 3,
+  kLeafTests = 4,
+  kLeafReached = 5
+};
 
 __device__ __forceinline__ int hit_link(const Rec& q) {
   return static_cast<int>(q.b.z);
@@ -73,9 +83,9 @@ struct Args {
   int n_rays, n_nodes, n_leaf_rows;
   float tmin, shadow_tmin;
   // per-ray walk: 0 for strand rows, else ribbon rows per octant;
-  // ribbon_k (1..8) is raytpu's sub-steps per fetched row: checked by the
-  // launcher, no effect on the walk (one record per step). The block walk
-  // leaves both 0.
+  // ribbon_k (1..8) is raytpu's sub-steps per fetched row: the records a
+  // fetch holds (walk_kernel's kRibbon >= 2 and sched_kernel's kWide; 1
+  // loads a record a step). The block walk leaves both 0.
   int rpo, ribbon_k;
 };
 
@@ -95,16 +105,26 @@ struct Args {
 // [tmin, best) from min(F32_MAX, tmax). Every lane's slab test uses
 // min(tmin, shadow_tmin) and LIMIT = the lane's best t. kAny is unused.
 //
-// kRibbon walks the ribbon layout (a.rpo rows per octant): octant oct's
-// node c at (oct*rpo*16 + c)*8, where the strand layout has node c's
-// record at c*64 + oct*8. kStats counts: each warp adds its lanes' sums
-// of records loaded and leaf rows tested to a.stats's Stat counters, one
-// atomic each. Both are template cases, so the strand layout's instances
-// without stats compile to the walk without either option.
+// kRibbon > 0 walks the ribbon layout (a.rpo rows per octant): octant
+// oct's node c at (oct*rpo*16 + c)*8, where the strand layout (kRibbon 0)
+// has node c's record at c*64 + oct*8. kRibbon 1 loads one record a step.
+// kRibbon = W >= 2 is raytpu's ribbon sub-steps as a K-wide fetch: a lane
+// holds a window of up to K = a.ribbon_k <= W consecutive records of its
+// row in registers ([wb, wb + wn), cut at the end of the cursor's 16-node
+// row and at n_nodes) and steps from it while its cursor stays inside;
+// a cursor outside the window fetches the window at the cursor. The
+// window lives across leaf tests, so a lane's fetches follow its own walk
+// alone. kStats counts: each warp adds its lanes' sums of records loaded
+// (fetches under the K-wide fetch) and leaf rows tested to a.stats's Stat
+// counters, one atomic each. Both are template cases, so the strand
+// layout's instances without stats compile to the walk without either
+// option.
 // ---------------------------------------------------------------------
-template <int kBlock, bool kAny, bool kMixed = false, bool kRibbon = false,
+template <int kBlock, bool kAny, bool kMixed = false, int kRibbon = 0,
           bool kStats = false>
 __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
+  constexpr bool kWindow = kRibbon >= 2;
+  constexpr int kWin = kWindow ? kRibbon : 1;
   const int lane = threadIdx.x & 31;
   const int base = (blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5)) * 32;
   if (base >= a.n_rays) return;  // warp-uniform
@@ -135,13 +155,37 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   int steps = 0;
   int leaves = 0;
   int leaf = -1;
+  Rec win[kWin];  // kWindow: records wb .. wb + wn - 1 of the lane's octant
+  int wb = 0, wn = 0, fetches = 0;
   for (;;) {
     for (;;) {
       const bool stepping =
           leaf < 0 && c >= 0 && c < a.n_nodes && steps < a.n_nodes;
       if (!__any_sync(kFull, stepping)) break;
       if (stepping) {
-        const Rec q = load_box(rec0 + static_cast<size_t>(c) * kStride);
+        Rec q;
+        if (kWindow) {
+          int j = c - wb;
+          if (j < 0 || j >= wn) {
+            wb = c;
+            wn = min(min(a.ribbon_k, kRibbonNodes - (c & (kRibbonNodes - 1))),
+                     a.n_nodes - c);
+            const float* p = rec0 + static_cast<size_t>(c) * kStride;
+#pragma unroll
+            for (int m = 0; m < kWin; ++m) {
+              if (m < wn) win[m] = load_box(p + 8 * m);
+            }
+            ++fetches;
+            j = 0;
+          }
+          q = win[0];
+#pragma unroll
+          for (int m = 1; m < kWin; ++m) {
+            if (j == m) q = win[m];
+          }
+        } else {
+          q = load_box(rec0 + static_cast<size_t>(c) * kStride);
+        }
         ++steps;
         const int hl = hit_link(q);
         c = miss_link(q);
@@ -172,7 +216,7 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
     }
   }
   if (kStats) {
-    const int loads = __reduce_add_sync(kFull, steps);
+    const int loads = __reduce_add_sync(kFull, kWindow ? fetches : steps);
     const int tests = __reduce_add_sync(kFull, leaves);
     if (lane == 0) {
       atomicAdd(a.stats + kLoads, loads);
@@ -259,6 +303,494 @@ __global__ void __launch_bounds__(kBlock) block_kernel(Args a) {
   if (a.stats != nullptr && lane == 0) {
     a.stats[2 * strand + 0] = steps;
     a.stats[2 * strand + 1] = leaf_visits;
+  }
+  if (real) {
+    a.t_out[i] = b.t;
+    a.tri_out[i] = b.tri;
+  }
+}
+
+
+// ---------------------------------------------------------------------
+// The schedule form of the per-ray walk: raytpu's persistent kernel's
+// schedule (strand_persistent.py:_persistent_kernel: the walker pool, the
+// deferred leaf queue and its rounds, the fetch forms), on the same
+// per-lane walk as walk_kernel. It is a kernel of its own, so walk_kernel's
+// instances keep their code; its knobs are runtime arguments (Sched).
+//
+// The order, step for step (kernels/strand.py:_sched_torch replays it):
+//
+// * Pool. The grid is persistent (the launcher sizes it from raytpu's
+//   `walkers`). Lane 0 of each warp claims `service_k` consecutive batches
+//   with one atomicAdd on s.work (a 64-bit counter the launcher zeroes on
+//   the launch's stream); a claim at or past n_batches ends the warp, so
+//   no warp reads past the rays. The warp walks its batches one after
+//   another: a batch is 32 rays (64 under kDual: lanes 0..31 and 32..63 of
+//   the batch are each thread's first and second ray). Batches do not
+//   share state, so the results and the counters do not depend on which
+//   warp took which batch.
+// * Iteration `it` of a batch: `unroll` sub-steps, in each of which every
+//   lane that can step takes one step (kWide: one fetch of up to
+//   ribbon_k records, then up to ribbon_k sub-steps from them). A lane can
+//   step while its cursor is a node (0 <= c < n_nodes), it has taken fewer
+//   than n_nodes steps, and its queue holds fewer than kQcap leaves (a full
+//   queue stalls the lane). A step's box test uses the lane's best t as
+//   LIMIT (its tmax on any-hit lanes); a leaf that it hits is pushed on the
+//   lane's queue and the lane goes on at the miss link.
+// * On iterations with it % ctl_every == 0, the vote: a leaf round fires
+//   when some ray slot holds a queued leaf and at least `occ` slots do, or
+//   no lane can walk on (stalls aside), or some queue is full. A round
+//   pops up to `flush_pop` leaves per slot, one pass at a time while any
+//   slot still holds one; each pass tests every popping slot's leaf at the
+//   warp's width, with the slot's best t at that moment. An any-hit slot
+//   that is blocked stops and drops its queue.
+// * The batch ends after the iteration at which no slot can walk on and
+//   every queue is empty.
+//
+// The queue is a stack: a leaf is pushed at q[0] and popped from q[0]
+// (raytpu's insert at lane 0 and pop from the head). Deferral only delays
+// the moment a best t shrinks: a lane still tests every leaf on its path
+// to the closest hit, and ties break on first[slot], so t and the tie key
+// are the default walk's. An any-hit lane's blocked bit is too; which
+// blocker it returns follows the schedule, and the plain version follows
+// the same schedule.
+//
+// Fetch forms: kLoad loads the cursor's record when it steps. kPipe holds
+// the cursor's record in registers and loads both successors (at its hit
+// and miss links) before its box test runs, keeping the one the test picks
+// (a register double buffer). kDual is kPipe with two rays per thread,
+// each sub-step prefetching for both before testing either. Under kPipe
+// and kDual, s.n_top > 0 (raytpu's fetch_smem) stages nodes
+// 0..n_top-1, all 8 octants, in shared memory per block; a lane reads a
+// record there while its cursor is below n_top. kWide walks ribbon rows
+// (a.rpo per octant; hit == v + 1 in each octant's pre-order): a fetch
+// loads the kWidth-wide window of ribbon_k records from the cursor, cut at
+// the end of its 16-node row, and the sub-steps pick records from the
+// window in registers while the cursor stays inside it.
+//
+// Counters (s.counters, int32 [8], or null): per warp, one atomicAdd each
+// after its last batch, so the sums do not depend on order.
+// ---------------------------------------------------------------------
+
+constexpr int kQcap = 4;      // leaves a lane can queue (registers)
+constexpr int kTopNodes = 64;  // fetch_smem: nodes staged (16 KB a block)
+constexpr int kRowNodes = 16;  // nodes per ribbon row
+
+enum Fetch { kLoad = 0, kPipe = 1, kDual = 2, kWide = 3 };
+
+struct Sched {
+  unsigned long long* work;  // the pool's claim counter, 0 at launch
+  int* counters;             // int32 [8] (Stat), or null
+  int n_batches;             // batches of 32 rays (64 under kDual)
+  int service_k;             // batches per claim
+  int occ;                   // queued slots that fire a round
+  int flush_pop;             // pops per slot and round
+  int ctl_mask;              // ctl_every - 1 (a power of two)
+  int unroll;                // sub-steps per iteration
+  int ribbon_k;              // kWide: records per fetch (<= kWidth)
+  int n_top;                 // kPipe/kDual: staged nodes, 0 = none
+};
+
+struct Walker {
+  Ray r;
+  float tm;
+  bool shad;
+  Best b;
+  int c, steps, qn;
+  int q[kQcap];
+  Rec cur;  // kPipe, kDual: the record of c
+  int loads, tests, enq;
+};
+
+template <bool kAny, bool kMixed, int kFetch, int kWidth>
+struct SchedWalk {
+  const Args& a;
+  const Sched& s;
+  const float4* top;  // the staged nodes (n_top * 16 float4)
+  float slab_tmin;
+
+  __device__ __forceinline__ bool walkable(const Walker& w) const {
+    return w.c >= 0 && w.c < a.n_nodes && w.steps < a.n_nodes;
+  }
+
+  __device__ __forceinline__ bool can_step(const Walker& w) const {
+    return walkable(w) && w.qn < kQcap;
+  }
+
+  __device__ __forceinline__ const float* rec_ptr(const Walker& w,
+                                                  int c) const {
+    if (kFetch == kWide) {
+      return a.rows + (static_cast<size_t>(w.r.oct) * a.rpo * kRowNodes +
+                       c) * 8;
+    }
+    return a.rows + static_cast<size_t>(c) * kNodeFloats + w.r.oct * 8;
+  }
+
+  __device__ __forceinline__ Rec fetch(Walker& w, int c) const {
+    ++w.loads;
+    if ((kFetch == kPipe || kFetch == kDual) && c < s.n_top) {
+      const float4* p = top + c * (kNodeFloats / 4) + w.r.oct * 2;
+      Rec x;
+      x.a = p[0];
+      x.b = p[1];
+      return x;
+    }
+    return load_box(rec_ptr(w, c));
+  }
+
+  __device__ __forceinline__ void init(Walker& w, int i) const {
+    const bool real = i < a.n_rays;
+    w.r = make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+    w.tm = -kF32Max;
+    w.shad = false;
+    if (real) {
+      w.r = load_ray(a.ro, a.rd, i);
+      w.tm = __ldg(a.tmax + i);
+      if (kMixed) w.shad = __ldg(a.smask + i) == 1.0f;
+    }
+    w.b.t = (kMixed ? w.shad : kAny) ? w.tm : nan_min(kF32Max, w.tm);
+    w.b.tri = -1;
+    w.b.key = -1;
+    w.c = real ? 0 : -1;
+    w.steps = 0;
+    w.qn = 0;
+#pragma unroll
+    for (int j = 0; j < kQcap; ++j) w.q[j] = -1;
+    if ((kFetch == kPipe || kFetch == kDual) && real) w.cur = fetch(w, 0);
+  }
+
+  __device__ __forceinline__ void push(Walker& w, int lr) const {
+#pragma unroll
+    for (int j = kQcap - 1; j > 0; --j) w.q[j] = w.q[j - 1];
+    w.q[0] = lr;
+    ++w.qn;
+    ++w.enq;
+  }
+
+  // one step on q, the record of w.c: the box test, then the hit link, a
+  // leaf pushed, or the miss link; returns whether the box was hit
+  __device__ __forceinline__ bool advance(Walker& w, const Rec& q) const {
+    ++w.steps;
+    const int hl = hit_link(q);
+    w.c = miss_link(q);
+    const bool hit =
+        box_hit(w.r, q, slab_tmin, (kAny && !kMixed) ? w.tm : w.b.t);
+    if (hit) {
+      if (hl >= 0) {
+        w.c = hl;
+      } else if (~hl < a.n_leaf_rows) {
+        push(w, ~hl);
+      }
+    }
+    return hit;
+  }
+
+  // kPipe/kDual: load both successors of the held record (before the box
+  // test that picks one)
+  __device__ __forceinline__ void prefetch(Walker& w, bool go, Rec* h,
+                                           Rec* m) const {
+    *h = w.cur;
+    *m = w.cur;
+    if (!go) return;
+    const int hl = hit_link(w.cur);
+    const int ml = miss_link(w.cur);
+    if (hl >= 0 && hl < a.n_nodes) *h = fetch(w, hl);
+    if (ml >= 0 && ml < a.n_nodes) *m = fetch(w, ml);
+  }
+
+  __device__ __forceinline__ void advance_held(Walker& w, bool go,
+                                               const Rec& h,
+                                               const Rec& m) const {
+    if (!go) return;
+    const bool descend = advance(w, w.cur) && hit_link(w.cur) >= 0;
+    w.cur = descend ? h : m;
+  }
+
+  __device__ __forceinline__ void load_step(Walker& w) const {
+    if (can_step(w)) advance(w, fetch(w, w.c));
+  }
+
+  // kWide: one fetch of the window [c, c + n), then its sub-steps
+  __device__ __forceinline__ void wide_iteration(Walker& w) const {
+    Rec buf[kWidth];
+    int n = 0;
+    const int base = w.c;
+    if (can_step(w)) {
+      n = min(min(s.ribbon_k, kRowNodes - (base & (kRowNodes - 1))),
+              a.n_nodes - base);
+      ++w.loads;
+      const float* p = rec_ptr(w, base);
+#pragma unroll
+      for (int j = 0; j < kWidth; ++j) {
+        if (j < n) buf[j] = load_box(p + 8 * j);
+      }
+    }
+#pragma unroll
+    for (int sub = 0; sub < kWidth; ++sub) {
+      if (sub >= s.ribbon_k) break;
+      const int j = w.c - base;
+      const bool go = can_step(w) && j >= 0 && j < n;
+      if (!__any_sync(kFull, go)) break;
+      if (go) {
+        Rec q = buf[0];
+#pragma unroll
+        for (int m = 1; m < kWidth; ++m) {
+          if (j == m) q = buf[m];
+        }
+        advance(w, q);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void pop_test(Walker& w) const {
+    if (w.qn <= 0) return;
+    const int lr = w.q[0];
+#pragma unroll
+    for (int j = 0; j < kQcap - 1; ++j) w.q[j] = w.q[j + 1];
+    --w.qn;
+    ++w.tests;
+    bool blocked;
+    if (kMixed) {
+      blocked = w.shad ? test_leaf<true>(w.r, a.leaves, a.first, lr,
+                                         a.shadow_tmin, w.tm, &w.b)
+                       : test_leaf<false>(w.r, a.leaves, a.first, lr,
+                                          a.tmin, w.tm, &w.b);
+    } else {
+      blocked =
+          test_leaf<kAny>(w.r, a.leaves, a.first, lr, a.tmin, w.tm, &w.b);
+    }
+    if (blocked) {  // blocked: stop, drop the queue
+      w.c = -1;
+      w.qn = 0;
+    }
+  }
+
+  __device__ __forceinline__ void finish(const Walker& w, int i) const {
+    if (i < a.n_rays) {
+      a.t_out[i] = w.b.t;
+      a.tri_out[i] = w.b.tri;
+    }
+  }
+
+  // walk batch `bt` to its end; returns the leaf rounds it fired
+  __device__ __forceinline__ int batch(int bt, int lane, Walker& w0,
+                                       Walker& w1) const {
+    constexpr bool kTwo = kFetch == kDual;
+    const int i0 = bt * (kTwo ? 64 : 32) + lane;
+    init(w0, i0);
+    if (kTwo) init(w1, i0 + 32);
+    int rounds = 0;
+    for (int it = 0;; ++it) {
+      if (kFetch == kWide) {
+        wide_iteration(w0);
+      } else {
+        for (int u = 0; u < s.unroll; ++u) {
+          const bool g0 = can_step(w0);
+          const bool g1 = kTwo && can_step(w1);
+          if (!__any_sync(kFull, g0 || g1)) break;
+          if (kFetch == kLoad) {
+            load_step(w0);
+          } else {
+            Rec h0, m0, h1, m1;
+            prefetch(w0, g0, &h0, &m0);
+            if (kTwo) prefetch(w1, g1, &h1, &m1);
+            advance_held(w0, g0, h0, m0);
+            if (kTwo) advance_held(w1, g1, h1, m1);
+          }
+        }
+      }
+      if ((it & s.ctl_mask) == 0) {
+        int nq = __popc(__ballot_sync(kFull, w0.qn > 0));
+        if (kTwo) nq += __popc(__ballot_sync(kFull, w1.qn > 0));
+        const bool live = __any_sync(
+            kFull, walkable(w0) || (kTwo && walkable(w1)));
+        const bool full = __any_sync(
+            kFull, w0.qn >= kQcap || (kTwo && w1.qn >= kQcap));
+        if (nq > 0 && (nq >= s.occ || !live || full)) {
+          ++rounds;
+          for (int p = 0; p < s.flush_pop; ++p) {
+            if (!__any_sync(kFull, w0.qn > 0 || (kTwo && w1.qn > 0))) break;
+            pop_test(w0);
+            if (kTwo) pop_test(w1);
+          }
+        }
+      }
+      if (!__any_sync(kFull, walkable(w0) || w0.qn > 0 ||
+                                 (kTwo && (walkable(w1) || w1.qn > 0)))) {
+        break;
+      }
+    }
+    finish(w0, i0);
+    if (kTwo) finish(w1, i0 + 32);
+    return rounds;
+  }
+};
+
+template <int kBlock, bool kAny, bool kMixed, int kFetch, int kWidth = 1>
+__global__ void __launch_bounds__(kBlock) sched_kernel(Args a, Sched s) {
+  extern __shared__ float4 top[];
+  if (kFetch == kPipe || kFetch == kDual) {
+    const float4* rows4 = reinterpret_cast<const float4*>(a.rows);
+    for (int k = threadIdx.x; k < s.n_top * (kNodeFloats / 4); k += kBlock) {
+      top[k] = __ldg(rows4 + k);
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const SchedWalk<kAny, kMixed, kFetch, kWidth> walk{
+      a, s, top, kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin};
+  Walker w0, w1;
+  w0.loads = w0.tests = w0.enq = 0;
+  w1.loads = w1.tests = w1.enq = 0;
+  int rounds = 0, claims = 0, installs = 0;
+  for (;;) {
+    unsigned long long first = 0;
+    if (lane == 0) {
+      first = atomicAdd(s.work, static_cast<unsigned long long>(s.service_k));
+    }
+    first = __shfl_sync(kFull, first, 0);
+    if (first >= static_cast<unsigned long long>(s.n_batches)) break;
+    ++claims;
+    const int end = static_cast<int>(
+        min(first + static_cast<unsigned long long>(s.service_k),
+            static_cast<unsigned long long>(s.n_batches)));
+    for (int bt = static_cast<int>(first); bt < end; ++bt) {
+      ++installs;
+      rounds += walk.batch(bt, lane, w0, w1);
+    }
+  }
+  if (s.counters != nullptr) {
+    const int loads = __reduce_add_sync(kFull, w0.loads + w1.loads);
+    const int tests = __reduce_add_sync(kFull, w0.tests + w1.tests);
+    const int enq = __reduce_add_sync(kFull, w0.enq + w1.enq);
+    if (lane == 0) {
+      atomicAdd(s.counters + kLoads, loads);
+      atomicAdd(s.counters + kRounds, rounds);
+      atomicAdd(s.counters + kClaims, claims);
+      atomicAdd(s.counters + kInstalls, installs);
+      atomicAdd(s.counters + kLeafTests, tests);
+      atomicAdd(s.counters + kLeafReached, enq);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The block walk's deferral form (raytpu's _strand_kernel with its leaf
+// queue, strand.py:258-298, and `groups`, `skip_done`): block_kernel's
+// walker, one warp per 32-ray strand, with G = blockDim.x / 32 strands a
+// block walking in lock-step, one step an iteration.
+//
+// * Step: an active walker (0 <= c < n_nodes, fewer than n_nodes steps)
+//   loads its record and votes its box test as block_kernel does; at a hit
+//   leaf it pushes the row on its queue (a stack of kBlockQcap rows in
+//   shared memory) and goes on at the miss link. An any-hit walker whose
+//   lanes are all blocked or dead stops and drops its queue first.
+// * Vote (the block's): a leaf round fires when every walker is queued or
+//   finished and one is queued, or some queue is full. In a round each
+//   queued walker pops its top row, stages it in shared memory (20 float4
+//   by lanes 0..19) and every lane tests the 8 slots, as block_kernel.
+// * skip_done off (raytpu's default): a finished walker still loads the
+//   root record each step and a walker with nothing queued still stages
+//   row 0 in a round, as raytpu's fixed-shape tiles do; on, both skip.
+// * The block ends after the iteration at which no walker is active and
+//   every queue is empty. Stats (a.stats, int32 [S, 3], or null): each
+//   strand's steps, leaves pushed, and its block's leaf rounds.
+// ---------------------------------------------------------------------
+
+constexpr int kBlockQcap = 16;  // rows a walker can queue
+
+template <bool kAny>
+__global__ void __launch_bounds__(1024) defer_kernel(Args a, int skip_done) {
+  extern __shared__ float4 dsm[];
+  const int groups = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float4* stage = dsm + warp * (kLeafFloats / 4);
+  int* queue = reinterpret_cast<int*>(dsm + groups * (kLeafFloats / 4)) +
+               warp * kBlockQcap;
+  const float neg_inf = __int_as_float(static_cast<int>(0xff800000u));
+  const int n_strands = (a.n_rays + 31) / 32;
+  const int strand = blockIdx.x * groups + warp;
+  const int i = strand * 32 + lane;
+  const bool real = i < a.n_rays;
+  Ray r = make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+  float tm = neg_inf;
+  if (real) {
+    r = load_ray(a.ro, a.rd, i);
+    tm = __ldg(a.tmax + i);
+  }
+  const int oct = __shfl_sync(kFull, r.oct, 0);
+  Best b;
+  b.t = kAny ? tm : nan_min(kF32Max, tm);
+  b.tri = -1;
+  b.key = -1;
+  int c = strand < n_strands ? 0 : -1;
+  int steps = 0, visits = 0, rounds = 0, qn = 0;
+  for (;;) {
+    if (kAny && __all_sync(kFull, b.tri >= 0 || tm < 0.0f)) {
+      c = -1;
+      qn = 0;
+    }
+    const bool act = c >= 0 && c < a.n_nodes && steps < a.n_nodes;
+    if (act || !skip_done) {
+      const Rec q = load_rec(a.rows, act ? c : 0, oct);
+      if (act) {
+        const int hl = hit_link(q);
+        const float limit = kAny ? (b.tri >= 0 ? neg_inf : tm) : b.t;
+        const bool hit_any =
+            __any_sync(kFull, box_hit(r, q, a.tmin, limit));
+        ++steps;
+        c = miss_link(q);
+        if (hit_any) {
+          if (hl >= 0) {
+            c = hl;
+          } else if (~hl < a.n_leaf_rows) {
+            ++visits;
+            if (lane == 0) queue[qn] = ~hl;
+            ++qn;
+          }
+        }
+      }
+    }
+    const bool walking = c >= 0 && c < a.n_nodes && steps < a.n_nodes;
+    const bool all_ready = __syncthreads_and(qn > 0 || !walking);
+    const bool any_queued = __syncthreads_or(qn > 0);
+    const bool any_full = __syncthreads_or(qn >= kBlockQcap);
+    if ((all_ready && any_queued) || any_full) {
+      ++rounds;
+      const bool pop = qn > 0;
+      int lr = 0;
+      if (pop) {
+        --qn;
+        lr = queue[qn];
+      }
+      if (pop || !skip_done) {
+        if (lane < 20) {
+          stage[lane] = __ldg(
+              reinterpret_cast<const float4*>(
+                  a.leaves + static_cast<size_t>(lr) * kLeafFloats) +
+              lane);
+        }
+        __syncwarp();
+        if (pop) {
+          const float* sf = reinterpret_cast<const float*>(stage);
+          for (int k = 0; k < kLeafSize; ++k) {
+            float f[9];
+#pragma unroll
+            for (int m = 0; m < 9; ++m) f[m] = sf[10 * k + m];
+            test_tri<kAny>(r, f, lr * kLeafSize + k, a.first, a.tmin, tm,
+                           &b);
+          }
+        }
+        __syncwarp();
+      }
+    }
+    if (!__syncthreads_or(walking || qn > 0)) break;
+  }
+  if (a.stats != nullptr && strand < n_strands && lane == 0) {
+    a.stats[3 * strand + 0] = steps;
+    a.stats[3 * strand + 1] = visits;
+    a.stats[3 * strand + 2] = rounds;
   }
   if (real) {
     a.t_out[i] = b.t;

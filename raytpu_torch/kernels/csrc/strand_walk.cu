@@ -10,7 +10,7 @@
 // kernel's contract, not its TPU
 // schedule: each lane walks its own ray down the threading of its own
 // direction octant (strand_common.cuh:walk_kernel), with no strands,
-// walker pools or leaf queues.
+// walker pools or leaf queues in its default instances.
 //
 // What bounds it on an H100: the dependent chain of node loads (32 bytes
 // a step, 320 a leaf) and the warp's divergence as its lanes' walks part;
@@ -19,14 +19,22 @@
 // waves (PERF.md): 16-byte loads, and Aila-Laine while-while traversal, so
 // leaves are tested at the warp's width. Persistent warps taking 32-ray
 // batches from a global counter, and __launch_bounds__(128, 8), measured
-// no faster and were reverted.
+// no faster and were reverted; the first and pipelined loads return only
+// as opt-in forms of the schedule form.
+//
+// raytpu's schedule (its walker pool, deferred leaf rounds, pipelined,
+// dual and shared-memory fetch, and its ribbon sub-steps over the pool)
+// is the schedule form, strand_walk_sched_launch below: a kernel of its
+// own (strand_common.cuh:sched_kernel), so the instances above keep the
+// while-while walk, which measured fastest on the card (PERF.md).
 //
 // Options of raytpu's kernel, none of which changes a result, each a
 // template case of every form (closest, any-hit, mixed), so the strand
 // layout without counters keeps its code: the ribbon layout (rpo > 0:
 // raytpu's ribbon_rpo; each lane reads its own octant's renumbered
-// records, the same visit sequence; ribbon_k is checked, and each step
-// still loads one 32-byte record) and the stats counters (stats non-null:
+// records, the same visit sequence; ribbon_k 1 loads one 32-byte record a
+// step, ribbon_k = K >= 2 fetches a window of K records of the row and
+// steps from registers inside it) and the stats counters (stats non-null:
 // strand_common.cuh's Stat).
 
 #include "strand_common.cuh"
@@ -35,7 +43,7 @@ namespace {
 
 constexpr int kBlock = 128;
 
-template <bool kAny, bool kMixed, bool kRibbon, bool kStats>
+template <bool kAny, bool kMixed, int kRibbon, bool kStats>
 int launch(const strand::Args& a, cudaStream_t stream) {
   const int warps = (a.n_rays + 31) / 32;
   const int grid = (warps + kBlock / 32 - 1) / (kBlock / 32);
@@ -44,15 +52,25 @@ int launch(const strand::Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance for the layout (a.rpo) and the counters (a.stats)
+template <bool kAny, bool kMixed, int kRibbon>
+int launch_stats(const strand::Args& a, cudaStream_t stream) {
+  return a.stats ? launch<kAny, kMixed, kRibbon, true>(a, stream)
+                 : launch<kAny, kMixed, kRibbon, false>(a, stream);
+}
+
+// the instance for the layout (a.rpo; over ribbon rows, a.ribbon_k: 1
+// record a step, or a window of 4 or 8 records for K 2..4 or 5..8) and
+// the counters (a.stats)
 template <bool kAny, bool kMixed = false>
 int launch(const strand::Args& a, cudaStream_t stream) {
   if (a.rpo > 0) {
-    return a.stats ? launch<kAny, kMixed, true, true>(a, stream)
-                   : launch<kAny, kMixed, true, false>(a, stream);
+    if (a.ribbon_k >= 2) {
+      return a.ribbon_k <= 4 ? launch_stats<kAny, kMixed, 4>(a, stream)
+                             : launch_stats<kAny, kMixed, 8>(a, stream);
+    }
+    return launch_stats<kAny, kMixed, 1>(a, stream);
   }
-  return a.stats ? launch<kAny, kMixed, false, true>(a, stream)
-                 : launch<kAny, kMixed, false, false>(a, stream);
+  return launch_stats<kAny, kMixed, 0>(a, stream);
 }
 
 // rpo > 0 walks ribbon rows (rpo per octant, n_nodes = 16 * rpo) and
@@ -100,6 +118,145 @@ extern "C" int strand_walk_mixed_launch(
                        n_rays, n_nodes, n_leaf_rows, tmin,  shadow_tmin,
                        rpo,    ribbon_k};
   return launch<false, true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------
+// The schedule form (strand_common.cuh:sched_kernel): raytpu's walker
+// pool, leaf rounds and fetch forms, one instance per (mode, fetch form).
+// ---------------------------------------------------------------------
+
+namespace {
+
+// The persistent grid: raytpu's `walkers` x 128 rays in flight, i.e.
+// walkers * 128 / 32 warps (/ 64 under kDual), in blocks of kBlock
+// threads, capped at the card's resident capacity for the instance: the
+// CUDA occupancy calculator's blocks per SM for its registers and shared
+// memory, times the card's SMs. With grid_out, only the grid is computed
+// and stored there.
+template <bool kAny, bool kMixed, int kFetch, int kWidth>
+int launch_sched(const strand::Args& a, const strand::Sched& s, int walkers,
+                 cudaStream_t stream, int* grid_out) {
+  auto* kernel = strand::sched_kernel<kBlock, kAny, kMixed, kFetch, kWidth>;
+  const size_t smem = static_cast<size_t>(s.n_top) * strand::kNodeFloats *
+                      sizeof(float);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                smem);
+  const int lanes = kFetch == strand::kDual ? 64 : 32;
+  const long long warps =
+      (static_cast<long long>(walkers) * 128 + lanes - 1) / lanes;
+  const long long blocks = (warps + kBlock / 32 - 1) / (kBlock / 32);
+  const int cap = per_sm * sms;
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = static_cast<int>(blocks < cap ? blocks : cap);
+  if (grid_out != nullptr) {
+    *grid_out = grid;
+    return 0;
+  }
+  const cudaError_t z = cudaMemsetAsync(s.work, 0, sizeof(*s.work), stream);
+  if (z != cudaSuccess) return static_cast<int>(z);
+  kernel<<<grid, kBlock, smem, stream>>>(a, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAny, bool kMixed>
+int launch_sched(const strand::Args& a, const strand::Sched& s, int fetch,
+                 int walkers, cudaStream_t stream, int* grid_out) {
+  switch (fetch) {
+    case strand::kLoad:
+      return launch_sched<kAny, kMixed, strand::kLoad, 1>(a, s, walkers,
+                                                          stream, grid_out);
+    case strand::kPipe:
+      return launch_sched<kAny, kMixed, strand::kPipe, 1>(a, s, walkers,
+                                                          stream, grid_out);
+    case strand::kDual:
+      return launch_sched<kAny, kMixed, strand::kDual, 1>(a, s, walkers,
+                                                          stream, grid_out);
+    default:
+      return s.ribbon_k <= 4
+                 ? launch_sched<kAny, kMixed, strand::kWide, 4>(
+                       a, s, walkers, stream, grid_out)
+                 : launch_sched<kAny, kMixed, strand::kWide, 8>(
+                       a, s, walkers, stream, grid_out);
+  }
+}
+
+int launch_sched(const strand::Args& a, const strand::Sched& s, int mode,
+                 int fetch, int walkers, cudaStream_t stream,
+                 int* grid_out) {
+  if (mode == 2) {
+    return launch_sched<false, true>(a, s, fetch, walkers, stream, grid_out);
+  }
+  return mode == 1
+             ? launch_sched<true, false>(a, s, fetch, walkers, stream,
+                                         grid_out)
+             : launch_sched<false, false>(a, s, fetch, walkers, stream,
+                                          grid_out);
+}
+
+}  // namespace
+
+// Launch the schedule form on `stream`. mode: 0 closest-hit, 1 any-hit,
+// 2 mixed (smask as strand_walk_mixed_launch; else null); fetch: 0 load,
+// 1 pipe, 2 dual, 3 ribbon (rpo > 0, 1 <= ribbon_k <= 8; the others need
+// rpo == 0); work: a device uint64 the launch zeroes on `stream`; stats:
+// null or int32 [8], zeroed, to which each warp adds its sums; walkers,
+// service_k >= 1; occ, the queued ray slots that fire a round; flush_pop
+// >= 1; ctl_every a power of two; unroll >= 1 (1 under fetch 3); n_top, the
+// nodes staged in shared memory under fetch 1 and 2 (<= 64 and <= n_nodes),
+// else 0. Returns the cudaGetLastError() code after the launch, 0 on
+// success, or cudaErrorInvalidValue for bad arguments (nothing launched).
+extern "C" int strand_walk_sched_launch(
+    const float* rows, const float* leaves, const int* first,
+    const float* ro, const float* rd, const float* tmax, const float* smask,
+    float* t_out, int* tri_out, int* stats, unsigned long long* work,
+    int n_rays, int n_nodes, int n_leaf_rows, int rpo, int ribbon_k,
+    float tmin, float shadow_tmin, int mode, int fetch, int walkers,
+    int service_k, int occ, int flush_pop, int ctl_every, int unroll,
+    int n_top, void* stream) {
+  const bool wide = fetch == strand::kWide;
+  if (bad_layout(rpo, ribbon_k) || (rpo > 0) != wide || fetch < 0 ||
+      fetch > strand::kWide || mode < 0 || mode > 2 ||
+      (mode == 2) != (smask != nullptr) || walkers < 1 || service_k < 1 ||
+      occ < 1 || flush_pop < 1 || ctl_every < 1 ||
+      (ctl_every & (ctl_every - 1)) != 0 || unroll < 1 ||
+      (wide && unroll != 1) || n_top < 0 || n_top > strand::kTopNodes ||
+      n_top > n_nodes ||
+      (n_top > 0 && fetch != strand::kPipe && fetch != strand::kDual)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n_rays <= 0) return 0;
+  const strand::Args a{rows,   leaves,  first,       ro,    rd,
+                       tmax,   t_out,   tri_out,     stats, smask,
+                       n_rays, n_nodes, n_leaf_rows, tmin,  shadow_tmin,
+                       rpo,    ribbon_k};
+  const int lanes = fetch == strand::kDual ? 64 : 32;
+  const strand::Sched s{work,      stats,         (n_rays + lanes - 1) / lanes,
+                        service_k, occ,           flush_pop,
+                        ctl_every - 1, unroll,    ribbon_k,
+                        n_top};
+  return launch_sched(a, s, mode, fetch, walkers,
+                      static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The grid (blocks of 128 threads) that strand_walk_sched_launch would
+// launch for mode, fetch (3: ribbon_k picks the window's width), walkers
+// and n_top on the current device, stored in *grid: raytpu's walkers x
+// 128 rays in flight, capped at the blocks the card holds resident.
+// Returns 0, or a CUDA error code.
+extern "C" int strand_walk_sched_grid(int mode, int fetch, int ribbon_k,
+                                      int walkers, int n_top, int* grid) {
+  if (mode < 0 || mode > 2 || fetch < 0 || fetch > strand::kWide ||
+      walkers < 1 || n_top < 0 || n_top > strand::kTopNodes) {
+    return cudaErrorInvalidValue;
+  }
+  strand::Args a{};
+  strand::Sched s{};
+  s.ribbon_k = ribbon_k;
+  s.n_top = n_top;
+  return launch_sched(a, s, mode, fetch, walkers, nullptr, grid);
 }
 
 extern "C" const char* strand_walk_error_string(int code) {

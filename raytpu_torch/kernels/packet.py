@@ -446,6 +446,22 @@ def packet_query(node8_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
                               with_stats=with_stats, packet=packet)
 
 
+# raytpu's packet-kernel VMEM budget (intersect_pallas.py:549-557): the
+# BVH8 rows and leaf rows, each padded to 128 lanes, at most 100 MiB
+PACKET_TABLE_BUDGET = 100 * 1024 * 1024
+
+
+def packet_tables_fit(pack) -> bool:
+    """raytpu's ``vmem_budget_ok``: the pack has BVH8 rows, and they and
+    the leaf rows at 128-lane padding (512 bytes a row) fit
+    ``PACKET_TABLE_BUDGET``. ``auto`` routes by it, as raytpu's TPU branch
+    does; on the card nothing else depends on it."""
+    if pack.bvh.node8_rows is None:  # stream pack (tables dropped)
+        return False
+    rows = pack.bvh.node8_rows.shape[0] + pack.bvh.leaf_tris.shape[0]
+    return rows * 128 * 4 <= PACKET_TABLE_BUDGET
+
+
 def make_packet_intersectors(pack):
     """(closest_fn, any_fn) with the engine's (ro, rd, tmin, tmax)
     signature over ``pack.bvh.node8_rows``, ties broken on

@@ -102,3 +102,44 @@ def test_lazy_initialisers_load_once(monkeypatch, module, arg):
                      [arg] * 4)
     assert len(loads) == 1
     assert all(lib is libs[0] for lib in libs)
+
+
+def test_sass_diff_compares_kernels_by_instructions(monkeypatch, capsys):
+    """tools/sass_diff with nvcc and cuobjdump stubbed: each root's cubin
+    is disassembled, addresses and comments are dropped, and a kernel
+    whose instructions changed is named (exit 1); the same instructions at
+    other addresses compare equal (exit 0), also under a new name that the
+    old checkout lacks."""
+    from raytpu_torch.tools import sass_diff
+
+    sass = {"old": {"k1": ["IADD R1, R2, R3", "EXIT"], "k2": ["EXIT"]},
+            "same": {"k1": ["IADD R1, R2, R3", "EXIT"], "k2": ["EXIT"],
+                     "k3": ["NOP"]},
+            "changed": {"k1": ["IADD R1, R2, R4", "EXIT"], "k2": ["EXIT"]},
+            "renamed": {"k1b": ["IADD R1, R2, R3", "EXIT"], "k2": ["EXIT"],
+                        "k3": ["NOP"]}}
+    built = {}
+
+    def run(cmd, **kwargs):
+        if cmd[0] == "nvcc":
+            built[cmd[cmd.index("-o") + 1]] = cmd[-1].split(os.sep)[0]
+            assert "-shared" not in cmd and "-cubin" in cmd
+            return subprocess.CompletedProcess(cmd, 0, "", "")
+        lines = []
+        for name, code in sass[built[cmd[-1]]].items():
+            lines.append(f"\t\tFunction : {name}")
+            lines += [f"        /*{16 * i + 48:04x}*/  {op} ;  /* 0x0 */"
+                      for i, op in enumerate(code)]
+        return subprocess.CompletedProcess(cmd, 0, "\n".join(lines), "")
+
+    monkeypatch.setattr(sass_diff, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(sass_diff.subprocess, "run", run)
+    assert sass_diff.main(["--old", "old", "--new", "same",
+                           "--sources", "strand_walk"]) == 0
+    assert "2 of the old checkout's 2 kernels" in capsys.readouterr().out
+    assert sass_diff.main(["--old", "old", "--new", "changed",
+                           "--sources", "strand_walk"]) == 1
+    assert "differ: ['k1']" in capsys.readouterr().out
+    assert sass_diff.main(["--old", "old", "--new", "renamed",
+                           "--sources", "strand_walk"]) == 0
+    assert "another name: {'k1': 'k1b'}" in capsys.readouterr().out

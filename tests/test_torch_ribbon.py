@@ -172,10 +172,10 @@ class _Spy:
 def test_factories_choose_the_layout_like_raytpu(monkeypatch, ribbon,
                                                  persistent):
     """RAYTPU_RIBBON = K > 0 puts the per-ray walk on the pack's ribbon
-    rows with rpo = rows / 8 and ribbon_k = K; the block walk
-    (RAYTPU_STRAND_PERSISTENT=0) keeps the strand rows, and the mixed query
-    (always the per-ray walk) follows K alone. Every choice returns the
-    same hits."""
+    rows with rpo = rows / 8 and ribbon_k = K (K >= 2: the walk's K-wide
+    fetch); the block walk (RAYTPU_STRAND_PERSISTENT=0) keeps the strand
+    rows, and the mixed query (always the per-ray walk) follows K alone.
+    Every choice returns the same hits."""
     pack = _port_pack("gallery")
     if ribbon is None:
         monkeypatch.delenv("RAYTPU_RIBBON", raising=False)
@@ -278,9 +278,10 @@ def test_ribbon_kernel_bit_equal_plain_on_cuda():
     for any_hit, tmin in ((False, 0.001), (True, 0.0)):
         args = (leaf, first, ro, rd, tmax, tmin, any_hit)
         before = strand_query_cuda.ribbon_launches
-        got = strand_query_cuda(rib, *args, rpo=rpo, stats=True)
+        got = strand_query_cuda(rib, *args, rpo=rpo, ribbon_k=1, stats=True)
         assert strand_query_cuda.ribbon_launches == before + 1
-        want = strand_query_torch(rib, *args, rpo=rpo, stats=True)
+        want = strand_query_torch(rib, *args, rpo=rpo, ribbon_k=1,
+                                  stats=True)
         strand_layout = strand_query_cuda(rows, *args)
         torch.cuda.synchronize()
         for a, b in ((got[0], want[0]), (got[0], strand_layout[0])):

@@ -158,7 +158,8 @@ def test_strand_stats_count_the_plain_walks_work(ntri):
     """strand_query*(stats=True): [0] the records loaded (the plain walk's
     box tests), [3] ceil(R/128) installs, [4] and [5] the leaf rows tested
     and reached (its triangle tests / 8), the rest 0; closest-hit, any-hit
-    and mixed, strand and ribbon rows alike (the same visits)."""
+    and mixed, strand and ribbon rows (one record a step) alike (the same
+    visits)."""
     from .test_torch_ribbon import _ribbon
 
     c = _case(ntri)
@@ -187,7 +188,7 @@ def test_strand_stats_count_the_plain_walks_work(ntri):
     assert torch.equal(t.view(torch.int32), t0.view(torch.int32))
     assert torch.equal(tri, tri0)
     _, _, st_ribbon = strand_query_torch(_t(rib), *head, *closest, rpo=rpo,
-                                         stats=True)
+                                         ribbon_k=1, stats=True)
     assert torch.equal(st_ribbon, st)
     assert strand.wrap_i32(2**31) == -2**31 and strand.wrap_i32(5) == 5
 
