@@ -34,16 +34,20 @@ launch count can be read:
   and the rays the walk's unrepaired rules lose (ROADMAP fault 3.5),
   classed;
 * phase 7a, the binned route at bench.py's config 6 shape through
-  ``pack_scene(tables="stream")`` and ``render_frame``: the gallery scaled
-  to 2.9M triangles at 640x360, 1 spp, 4 bounces; every launch of a frame
-  against the plain version, the primary wave against the brute sweep
-  and strand_walk, and fault 3.5's lost rays, as in 6c; its strand tables
-  exceed raytpu's 100 MiB budget, and strand_walk's default instance is
-  timed there in turns with the pipelined schedule form (raytpu's
-  tree_any), at 128 walkers and at the card's resident cap;
+  ``pack_scene(tables="auto")`` and ``render_frame``: the gallery scaled
+  to 2.9M triangles at 640x360, 1 spp, 4 bounces, whose BVH8 and leaf
+  rows exceed the pack budget, so the pack streams by raytpu's TPU rule
+  (bench.py config 6's check: no BVH8 rows, a strand tree); every launch
+  of a frame against the plain version, the primary wave against the
+  brute sweep and strand_walk, and fault 3.5's lost rays, as in 6c, on the
+  primary wave and on every closest-hit lane of every bounce query; its
+  strand tables exceed raytpu's 100 MiB budget, and strand_walk's default
+  instance is timed there in turns with the pipelined schedule form
+  (raytpu's tree_any), at 128 walkers and at the card's resident cap;
 * phase 7b, deferred NEE beside the strand route: phase 5's scene and
   configuration with ``bounce_backend="binned"``, held to phase 5's frame,
-  its binned mixed queries sampled against the brute sweep;
+  its binned mixed queries sampled against the brute sweep, and fault
+  3.5's lost rays counted on every closest-hit lane of each;
 * phase 8, the per-step probe (``raytpu_torch.tools.step_bench``): every
   arm on the card against its plain replay, then the full table;
 * phase 9, the rest of raytpu's surface: (a) the threaded-BVH route
@@ -55,6 +59,12 @@ launch count can be read:
   whose trace must name strand_walk's kernel; (e) the CLI with ``--gui``
   without a display, the same PNG as the plain run; (f) a card frame of
   the multi-mesh scene against the port's copy of raytpu's scalar oracle;
+  (g) the pack options on 9a's scene: the ``bvh`` route refusing a stream
+  pack and rendering a ``tables="all"`` one, an ``as_numpy`` pack pickled
+  and moved to the card rendering the direct pack's PNG, ``auto`` on a
+  ``treelets="never"`` pack over a shrunk budget taking raytpu's TPU
+  route (``bvh``), and the CLI in a child process under
+  ``RAYTPU_NO_NATIVE=1`` (the pure-Python BVH builder);
 * phase 10, raytpu's remaining engine arms on phase 5's frame: (a)
   ``bounce_backend="mixed"`` (deferred NEE through the strand walk's
   mixed form), whose PNG must equal phase 7b's and whose mixed queries
@@ -495,31 +505,57 @@ def sample_of(n: int, seed: int):
     return torch.from_numpy(np.sort(idx)).to("cuda")
 
 
-def brute_agrees(pack, t, tri, ro, rd, tmax, tmin, any_hit, idx):
-    """Per ray of ``idx``: does the walk's result (t, tri; any-hit: the
-    blocked bit) equal the brute sweep's over the pack's slots? Closest hits
-    are the same when t is equal and the triangles' rows are (spatial
-    splits store one triangle in several slots with identical rows)."""
+BRUTE_ELEMS = 1 << 25  # rays x slots of one brute-sweep chunk, at most
+
+
+def brute_chunk(n_slots: int, n_rays: int) -> int:
+    """The brute sweep's chunk for ``n_rays`` rays: the larger of
+    gcd(n_slots, 4096) and the largest divisor of ``n_slots`` whose chunk
+    holds at most BRUTE_ELEMS ray-slot pairs. A few rays sweep millions of
+    slots in a few chunks; the result does not depend on the chunk (the
+    lowest slot wins a tie either way)."""
+    cap = max(1, BRUTE_ELEMS // max(n_rays, 1))
+    best = 1
+    for d in range(1, math.isqrt(n_slots) + 1):
+        if n_slots % d == 0:
+            best = max([best] + [x for x in (d, n_slots // d) if x <= cap])
+    return max(best, math.gcd(n_slots, 4096))
+
+
+def brute_closest(pack, ro, rd, tmax, tmin, idx):
+    """The brute sweep's closest hit (a ``Hit``) for the rays ``idx``."""
+    from raytpu_torch.kernels.intersect import intersect_bruteforce
+
+    return intersect_bruteforce(
+        ro[idx], rd[idx], pack.tri_p0, pack.tri_e1, pack.tri_e2, tmin,
+        tmax[idx], chunk=brute_chunk(pack.n_triangles, idx.numel()))
+
+
+def same_as_brute(pack, t, tri, brute):
+    """Per ray: is a walk's closest hit (t, tri) the brute sweep's? The
+    same when t is equal and the triangles' rows are (spatial splits store
+    one triangle in several slots with identical rows)."""
     import torch
 
-    from raytpu_torch.kernels.intersect import (
-        intersect_any_bruteforce,
-        intersect_bruteforce,
-    )
-
-    chunk = math.gcd(pack.tri_p0.shape[0], 4096)
-    if any_hit:
-        brute = intersect_any_bruteforce(ro[idx], rd[idx], pack.tri_p0,
-                                         pack.tri_e1, pack.tri_e2, tmin,
-                                         tmax[idx], chunk=chunk)
-        return (tri[idx] >= 0) == brute
-    brute = intersect_bruteforce(ro[idx], rd[idx], pack.tri_p0, pack.tri_e1,
-                                 pack.tri_e2, tmin, tmax[idx], chunk=chunk)
-    same_row = (pack.tri_row[tri[idx].clamp(min=0).long(), :9]
+    same_row = (pack.tri_row[tri.clamp(min=0).long(), :9]
                 == pack.tri_row[brute.tri.clamp(min=0).long(), :9]).all(1)
-    return ((tri[idx] >= 0) == brute.valid) & (
-        ~brute.valid | (same_row & (t[idx].view(torch.int32)
+    return ((tri >= 0) == brute.valid) & (
+        ~brute.valid | (same_row & (t.view(torch.int32)
                                     == brute.t.view(torch.int32))))
+
+
+def brute_agrees(pack, t, tri, ro, rd, tmax, tmin, any_hit, idx):
+    """Per ray of ``idx``: does the walk's result (t, tri; any-hit: the
+    blocked bit) equal the brute sweep's over the pack's slots?"""
+    from raytpu_torch.kernels.intersect import intersect_any_bruteforce
+
+    if any_hit:
+        brute = intersect_any_bruteforce(
+            ro[idx], rd[idx], pack.tri_p0, pack.tri_e1, pack.tri_e2, tmin,
+            tmax[idx], chunk=brute_chunk(pack.n_triangles, idx.numel()))
+        return (tri[idx] >= 0) == brute
+    return same_as_brute(pack, t[idx], tri[idx],
+                         brute_closest(pack, ro, rd, tmax, tmin, idx))
 
 
 def differing(pack, hit_a, hit_b):
@@ -570,67 +606,116 @@ def f32_hex(x) -> str:
                     np.asarray(x, np.float32).reshape(-1).view(np.uint32))
 
 
-def lost_hits(label: str, pack, ro, rd, right, run) -> None:
+LOST_SHOWN = 16  # lost rays of one wave printed with their bits
+
+
+def lost_hits(label: str, pack, ro, rd, right, run, tmax=None,
+              tmin: float = 0.001) -> dict:
     """ROADMAP fault 3.5 on a closest-hit wave: the rays the unrepaired
     rules lose, and why. ``run(idx, first, repaired_box)`` is the plain walk
     (or query) on rays ``idx`` with tie keys ``first``; ``right`` the
-    repaired kernel's (t, tri) on the whole wave. The unrepaired walk
-    (identity keys, unrepaired box test) runs on every ray; where it
-    differs from ``right`` the brute sweep decides. Each lost ray is classed
-    by the repair that alone recovers it: ``slab`` (the box test), ``tie``
-    (the key), ``either``, or ``both`` (neither alone). Prints each lost
-    ray's bits, with its winner's and its wrong triangle's, and the counts;
-    fails if the repaired kernel is wrong on any ray where the two
-    differ."""
+    repaired kernel's (t, tri) on the whole wave; ``tmax`` the rays' bounds
+    (F32_MAX when None). The unrepaired walk (identity keys, unrepaired box
+    test) runs on every ray; where it differs from ``right`` the brute
+    sweep decides. Each lost ray is classed by the repair that alone
+    recovers it: ``slab`` (the box test), ``tie`` (the key), ``either``, or
+    ``both`` (neither alone). Prints the counts and the first LOST_SHOWN
+    lost rays' bits, with their winner's and their wrong triangle's; fails
+    if the repaired kernel is wrong on any ray where the two differ.
+    Returns {rays, lost, differ, wrong, <class>: count}."""
     import torch
 
     n = ro.shape[0]
     ident = torch.arange(pack.n_triangles, dtype=torch.int32, device="cuda")
     first = pack.bvh.first_slots
-    tmax = torch.full((n,), F32_MAX, device="cuda")
+    if tmax is None:
+        tmax = torch.full((n,), F32_MAX, device="cuda")
+    t0 = time.perf_counter()
     old = run(torch.arange(n, device="cuda"), ident, False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     idx = differing(pack, old, right)
-    lost, right_wrong = idx[:0], 0
-    if idx.numel():
-        ok_old = brute_agrees(pack, *old, ro, rd, tmax, 0.001, False, idx)
-        ok_new = brute_agrees(pack, *right, ro, rd, tmax, 0.001, False, idx)
-        lost = idx[~ok_old]
-        right_wrong = int((~ok_new).sum())
+    brute = brute_closest(pack, ro, rd, tmax, tmin, idx)
+    ok_old = same_as_brute(pack, old[0][idx], old[1][idx], brute)
+    right_wrong = int((~same_as_brute(pack, right[0][idx], right[1][idx],
+                                      brute)).sum())
+    lost = idx[~ok_old]
     classes = dict(slab=0, tie=0, either=0, both=0)
-    rows = pack.tri_row[:, :9].cpu().numpy()
-    for j in lost.tolist():
-        one = torch.tensor([j], device="cuda")
-
-        def fixed(keys, box):
-            t, tri = run(one, keys, box)
-            return bool(brute_agrees(pack, t, tri, ro[one], rd[one],
-                                     tmax[one], 0.001, False,
-                                     torch.zeros(1, dtype=torch.long,
-                                                 device="cuda"))[0])
-
-        by_box, by_key = fixed(ident, True), fixed(first, False)
-        cls = ("either" if by_box and by_key else "slab" if by_box
-               else "tie" if by_key else "both")
-        classes[cls] += 1
-        from raytpu_torch.kernels.intersect import intersect_bruteforce
-
-        brute = intersect_bruteforce(
-            ro[one], rd[one], pack.tri_p0, pack.tri_e1, pack.tri_e2, 0.001,
-            tmax[one], chunk=math.gcd(pack.n_triangles, 4096))
-        win, got = int(brute.tri[0]), int(old[1][j])
-        print(f"  {label} lost ray {j} ({cls}): ro {f32_hex(ro[j].cpu())}; "
-              f"rd {f32_hex(rd[j].cpu())}; brute slot {win} t "
-              f"{f32_hex(brute.t.cpu())} tri {f32_hex(rows[win])}; "
-              f"unrepaired slot {got} t {f32_hex(old[0][j:j + 1].cpu())} "
-              + (f"tri {f32_hex(rows[got])}" if got >= 0 else "(miss)"))
+    if lost.numel():
+        lost_brute = type(brute)(*(x[~ok_old] for x in brute))
+        rows = pack.tri_row[:, :9].cpu().numpy()
+        by_box, by_key = (same_as_brute(pack, *run(lost, keys, box),
+                                        lost_brute).tolist()
+                          for keys, box in ((ident, True), (first, False)))
+        for i, j in enumerate(lost.tolist()):
+            cls = ("either" if by_box[i] and by_key[i] else "slab"
+                   if by_box[i] else "tie" if by_key[i] else "both")
+            classes[cls] += 1
+            if i >= LOST_SHOWN:
+                continue
+            win, got = int(lost_brute.tri[i]), int(old[1][j])
+            print(f"  {label} lost ray {j} ({cls}): ro {f32_hex(ro[j].cpu())}; "
+                  f"rd {f32_hex(rd[j].cpu())}; brute slot {win} t "
+                  f"{f32_hex(lost_brute.t[i:i + 1].cpu())} tri "
+                  f"{f32_hex(rows[win])}; unrepaired slot {got} t "
+                  f"{f32_hex(old[0][j:j + 1].cpu())} "
+                  + (f"tri {f32_hex(rows[got])}" if got >= 0 else "(miss)"))
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
     by_class = ", ".join(f"{v} {k}" for k, v in classes.items())
+    shown = ("" if lost.numel() <= LOST_SHOWN
+             else f" (the first {LOST_SHOWN} printed)")
     print(f"phase {label} fault 3.5: the unrepaired rules lose "
-          f"{lost.numel()} of {n} rays ({by_class}); "
+          f"{lost.numel()} of {n} rays ({by_class}){shown}; "
           f"the repaired kernel is wrong on {right_wrong} of the "
-          f"{idx.numel()} rays where the two differ")
+          f"{idx.numel()} rays where the two differ (unrepaired plain run "
+          f"{run_s:.1f} s, brute checks {check_s:.1f} s)")
     if right_wrong:
         fail(f"phase {label}: the repaired kernel disagrees with the brute "
              f"sweep on {right_wrong} rays (ROADMAP fault 3.5)")
+    return dict(rays=n, lost=lost.numel(), differ=idx.numel(),
+                wrong=right_wrong, **classes)
+
+
+def bounce_lost_hits(label: str, pack, calls: list) -> dict:
+    """Fault 3.5 (``lost_hits``) on every live closest-hit lane of every
+    recorded binned mixed query (``recorded_mixed``), as one wave: the
+    unrepaired run is the binned query on those lanes with binned_walk's
+    plain version, the unrepaired box test and identity keys (per-lane
+    results do not depend on the other lanes of a query). Fails as
+    ``lost_hits`` does; returns its counts."""
+    import torch
+
+    from raytpu_torch.kernels import binned as binned_mod
+    from raytpu_torch.kernels.binned import binned_walk_torch, make_binned_query
+
+    if {(c[4], c[5]) for c in calls} != {(0.001, 0.0)}:
+        fail(f"phase {label}: a bounce query with another tmin")
+    lanes = [((smask == 0.0) & (tmax > 0.0)).nonzero().squeeze(1)
+             for _, _, tmax, smask, *_ in calls]
+    ro, rd, tmax, t, tri = (torch.cat([c[k][i] for c, i in zip(calls, lanes)])
+                            for k in (0, 1, 2, 6, 7))
+
+    def run(idx, keys, box):
+        keyed = dataclasses.replace(pack, bvh=dataclasses.replace(
+            pack.bvh, first_slots=keys))
+        kernel = binned_mod.binned_walk
+        binned_mod.binned_walk = binned_walk_torch
+        try:
+            with (contextlib.nullcontext() if box
+                  else unrepaired_box_test()):
+                return make_binned_query(keyed)(
+                    ro[idx], rd[idx], tmax[idx],
+                    torch.zeros(idx.numel(), device="cuda"), tmin=0.001,
+                    shadow_tmin=0.0)
+        finally:
+            binned_mod.binned_walk = kernel
+
+    sizes = ", ".join(str(i.numel()) for i in lanes)
+    return lost_hits(f"{label} bounce waves ({len(calls)} binned mixed "
+                     f"queries, closest-hit lanes {sizes})", pack, ro, rd,
+                     (t, tri), run, tmax=tmax)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2167,10 +2252,12 @@ def phase_block_route(main_rec: dict, errs: list) -> dict:
 class timed_treelets:
     """Context manager: the seconds of every call of the function ``name``
     that ``pack_scene`` calls (the treelet build by default, or
-    ``build_ribbon_tree``) inside it, as a list."""
+    ``build_ribbon_tree``) inside it, as a list; each call's positional
+    arguments appended to ``args`` when given."""
 
-    def __init__(self, name: str = "build_treelets"):
+    def __init__(self, name: str = "build_treelets", args=None):
         self.name = name
+        self.args = args
 
     def __enter__(self):
         from raytpu_torch.scene import pack as pack_mod
@@ -2179,6 +2266,8 @@ class timed_treelets:
                                           getattr(pack_mod, self.name), [])
 
         def timed(*args, **kwargs):
+            if self.args is not None:
+                self.args.append(args)
             t0 = time.perf_counter()
             out = self.real(*args, **kwargs)
             self.secs.append(time.perf_counter() - t0)
@@ -2401,12 +2490,16 @@ class recorded_walks:
 def phase_stream(tmp: str, errs: list) -> dict:
     """Phase 7a: the binned route at bench.py's config 6 shape
     (bench.py:421-440): the gallery scaled to ~2.9M triangles, packed
-    tables="stream", 640x360, 1 spp, 4 bounces, chunk 8, seed 1,
-    intersector="binned", through render_frame. The largest binned_walk
-    launch of a frame is replayed through the kernel and its plain
-    version; the primary wave's binned and strand closest hits on the same
-    pack are held to the brute sweep on a sample and wherever they
-    differ. The pack's strand tables are over raytpu's 100 MiB budget
+    tables="auto", 640x360, 1 spp, 4 bounces, chunk 8, seed 1,
+    intersector="binned", through render_frame. The pack must stream by
+    raytpu's TPU rule (treelets, BVH8 and leaf rows over the pack budget):
+    bench.py's own check for config 6 (bench.py:424-427), no BVH8 rows and
+    a strand tree. The largest binned_walk launch of a frame is replayed
+    through the kernel and its plain version; the primary wave's binned
+    and strand closest hits on the same pack are held to the brute sweep
+    on a sample and wherever they differ; fault 3.5's lost rays are
+    counted on the primary wave and on every closest-hit lane of every
+    bounce query of a frame. The pack's strand tables are over raytpu's 100 MiB budget
     (raytpu's tree_any), where the strand factory keeps the per-ray walk's
     default instance unless RAYTPU_STRAND_HBM is set: on the primary wave
     that instance is timed in turns with the pipelined schedule form
@@ -2431,7 +2524,12 @@ def phase_stream(tmp: str, errs: list) -> dict:
     )
     from raytpu_torch.scene.camera import camera_from_lookat
     from raytpu_torch.scene.gltf import load_scene
-    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.scene.pack import (
+        ROW_BYTES,
+        TABLE_BUDGET,
+        pack_camera,
+        pack_scene,
+    )
     from raytpu_torch.types import RenderConfig
 
     glb = os.path.join(tmp, "gallery_stream.glb")
@@ -2441,21 +2539,34 @@ def phase_stream(tmp: str, errs: list) -> dict:
     scene = load_scene(glb)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with timed_treelets() as tl_s:
-        pack = pack_scene(scene, "cuda", tables="stream")
+    tl_args = []
+    with timed_treelets(args=tl_args) as tl_s:
+        pack = pack_scene(scene, "cuda")
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    # build_treelets(bvh8, leaf_tris): the rows the stream rule counted
+    ((bvh8, leaf_rows),) = tl_args
+    rule_mb = (bvh8.node_rows.shape[0] + leaf_rows.shape[0]) * ROW_BYTES
+    rule_mb /= 2**20
     n_tris = sum(int(c) // 3 for c in scene.prim_index_count)
     n_tl, sn = pack.tl_nodes.shape[0], pack.tl_nodes.shape[1]
     sl = pack.tl_leaves.shape[1]
     tl_mb = (pack.tl_nodes.numel() + pack.tl_leaves.numel()) * 4 / 2**20
+    streams = pack.bvh.node8_rows is None
     print(f"phase 7a pack: {n_tris} triangles ({pack.n_triangles} slots), "
-          f"glb load {load_s:.2f} s, pack_scene(tables='stream') "
-          f"{pack_s:.2f} s")
+          f"glb load {load_s:.2f} s, pack_scene(tables='auto') "
+          f"{pack_s:.2f} s; BVH8 + leaf rows {rule_mb:.1f} MiB against the "
+          f"{TABLE_BUDGET / 2**20:.0f} MiB pack budget, with treelets: "
+          f"streams {streams}; node8_rows is None: {streams}, strand_rows "
+          f"is not None: {pack.bvh.strand_rows is not None} (bench.py "
+          f"config 6's check)")
     print(f"phase 7a treelets: built in {sum(tl_s):.2f} s; T {n_tl}, Sn {sn}, "
           f"Sl {sl}; tl_nodes + tl_leaves {tl_mb:.1f} MB")
+    if rule_mb * 2**20 <= TABLE_BUDGET:
+        fail("phase 7a: the pack's BVH8 and leaf rows fit the pack budget")
     if pack.bvh.node8_rows is not None or pack.bvh.strand_rows is None:
-        fail("the stream pack kept its BVH8 rows or lost its strand tree")
+        fail("phase 7a: the auto pack did not stream (bench.py config 6's "
+             "check: node8_rows is None, strand_rows is not None)")
     cam = pack_camera(camera_from_lookat(
         GALLERY_CAM["origin"], GALLERY_CAM["at"], GALLERY_CAM["fov"], w, h),
         "cuda")
@@ -2471,6 +2582,9 @@ def phase_stream(tmp: str, errs: list) -> dict:
             frame_s.append(time.perf_counter() - t0)
         counts = read_launches()
         rounds = rounds_note()
+    with recorded_mixed() as bounce_calls:
+        render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
     rays = count_rays(pack, cam, cfg)
     lit = float((frame.max(-1) > 0).mean())
     print(f"phase 7a frame: {w}x{h} 1spp 4 bounces, intersector='binned': "
@@ -2571,6 +2685,7 @@ def phase_stream(tmp: str, errs: list) -> dict:
               f"{k} {v:.4f}" for k, v in pipe_ms.items())
           + "; each equal to the default on t bits and the tie key")
     lost_hits("7a", pack, ro, rd, (hb.t, hb.tri), run)
+    bounce_lost_hits("7a", pack, bounce_calls)
     n_diff, binned_wrong, strand_wrong = differ_vs_brute(
         pack, (hb.t, hb.tri), (hs.t, hs.tri), ro, rd, tmax, 0.001)
     print(f"phase 7a kernel: {len(calls)} launches in frame 2, "
@@ -2663,7 +2778,8 @@ def phase_deferred(main_rec: dict) -> dict:
     phase 5's within tests/imgdiff.py's bar; each of a frame's binned mixed
     queries held to the brute sweep on a seeded SAMPLE of its closest lanes
     (t bits and the triangle's rows) and of its shadow lanes (the blocked
-    bit)."""
+    bit), and fault 3.5's lost rays counted on every closest-hit lane of
+    each."""
     import torch
 
     from raytpu_torch.engine.render import render_frame
@@ -2699,6 +2815,7 @@ def phase_deferred(main_rec: dict) -> dict:
         render_frame(pack, cam, cfg)
         torch.cuda.synchronize()
     mixed_vs_brute("7b binned", pack, calls, 30)
+    bounce_lost_hits("7b", pack, calls)
     return dict(frame=frame, frame_s=frame_s)
 
 
@@ -3357,13 +3474,14 @@ def launched(label: str, counts: dict, want: tuple) -> str:
             or "no kernel launches")
 
 
-def phase_bvh_route(tmp: str) -> str:
+def phase_bvh_route(tmp: str) -> tuple:
     """Phase 9a: the threaded-BVH route (plain torch ops, no kernel) on the
     card. One 128x128 primary wave of a 2.6k-triangle gallery (> 2048
     slots) through ``intersect_bvh`` on the card and on the CPU: tri and t
     bits equal, closest and any-hit. Then a 64x64 frame with
     ``intersector="bvh"``, card vs CPU within tests/imgdiff.py's bar, and
-    its warm time. Returns the scene's path for 9d/9e."""
+    its warm time. Returns the scene's path (for 9d, 9e and 9g) and the
+    card's frame (for 9g)."""
     import torch
 
     from raytpu_torch.engine.render import render_frame
@@ -3424,7 +3542,7 @@ def phase_bvh_route(tmp: str) -> str:
                      ()))
     if frac > 0.02 or s < 0.99 or lit < 0.3:
         fail("phase 9a: the card's bvh frame is off the CPU's")
-    return glb
+    return glb, frame
 
 
 class interrupted:
@@ -3638,6 +3756,144 @@ def phase_oracle(tmp: str) -> None:
         fail("phase 9f: the card's frame is off the oracle")
 
 
+def phase_pack_options(tmp: str, glb: str, bvh_frame) -> None:
+    """Phase 9g: pack_scene's options on the card, on 9a's 4,096-slot
+    gallery. (1) The ``bvh`` route needs the leaf rows, which a stream pack
+    keeps for its strand tree: with RAYTPU_SORT_MIN_TRIS above the slot
+    count no strand tree is built, a ``tables="stream"`` pack drops them
+    and ``intersector="bvh"`` raises the advice to repack with
+    ``tables="all"``, and the ``"all"`` pack renders 9a's frame. (2) An
+    ``as_numpy`` pack, pickled and moved with ``.to("cuda")`` (and one
+    left for ``render_frame`` to move), renders the PNG of
+    ``pack_scene(scene, "cuda")`` at 256x256. (3) ``auto`` on a
+    ``treelets="never"`` pack with the pack budget and the packet budget
+    shrunk to 64 KiB: no stream, no strand tree, and raytpu's TPU branch
+    ends at ``bvh`` (above 2048 slots): 9a's frame, no kernel launched.
+    (4) The CLI at 9d's settings in a child process under
+    ``RAYTPU_NO_NATIVE=1``: the pure-Python builder's pack on the card,
+    its PNG within tests/imgdiff.py's bar of 9d's."""
+    import pickle
+
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.io.metrics import psnr, ssim
+    from raytpu_torch.io.png import quantize_rgba32f
+    from raytpu_torch.kernels import packet
+    from raytpu_torch.scene import pack as pack_mod
+    from raytpu_torch.scene.camera import camera_from_lookat
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.types import RenderConfig
+
+    scene = load_scene(glb)
+    eye, at, fov = GALLERY_CAM["origin"], GALLERY_CAM["at"], GALLERY_CAM["fov"]
+    cam64 = pack_camera(camera_from_lookat(eye, at, fov, 64, 64), "cuda")
+    bvh_cfg = RenderConfig(width=64, height=64, seed=3, samples=1,
+                           bounces=4, chunk_size=16, intersector="bvh")
+    with env(RAYTPU_SORT_MIN_TRIS="8192"):
+        stream = pack_scene(scene, "cuda", tables="stream")
+        full = pack_scene(scene, "cuda", tables="all")
+        try:
+            render_frame(stream, cam64, bvh_cfg)
+            fail("phase 9g: the bvh route took a stream pack without leaf "
+                 "rows")
+        except ValueError as e:
+            advice = str(e)
+        if "tables='all'" not in advice:
+            fail(f"phase 9g: the bvh route's error gives no advice: {advice}")
+        reset_launches()
+        all_frame = render_frame(full, cam64, bvh_cfg)
+        torch.cuda.synchronize()
+        launched("9g all", read_launches(), ())
+    all_same = np.array_equal(all_frame, bvh_frame)
+    print(f"phase 9g tables: stream pack (no strand tree) with "
+          f"intersector='bvh' raises ({advice!r}); the tables='all' pack "
+          f"renders 9a's bvh frame bit for bit: {all_same}")
+    if not all_same:
+        fail("phase 9g: the tables='all' pack's bvh frame is not 9a's")
+
+    cfg = RenderConfig(width=256, height=256, seed=1, samples=1, bounces=4,
+                       chunk_size=16)
+    cam = pack_camera(camera_from_lookat(eye, at, fov, 256, 256), "cuda")
+    t0 = time.perf_counter()
+    blob = pickle.dumps(pack_scene(scene, as_numpy=True))
+    host = pickle.loads(blob)
+    host_s = time.perf_counter() - t0
+    reset_launches()
+    want = quantize_rgba32f(render_frame(pack_scene(scene, "cuda"), cam,
+                                         cfg))
+    direct = read_launches()
+    t0 = time.perf_counter()
+    moved = host.to("cuda")
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    reset_launches()
+    got = [quantize_rgba32f(render_frame(p, cam, cfg)) for p in (moved,
+                                                                   host)]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    same = [bool(np.array_equal(g, want)) for g in got]
+    print(f"phase 9g as_numpy: pack + pickle round trip {host_s:.2f} s "
+          f"({len(blob) / 2**20:.1f} MiB), .to('cuda') {move_s:.3f} s; "
+          f"256x256 1spp 4 bounces: the moved pack's PNG equals the direct "
+          f"pack's: {same[0]}, the numpy pack's through render_frame: "
+          f"{same[1]}; " + launched("9g as_numpy", counts, ("strand",))
+          + " (direct: " + launched("9g direct", direct, ("strand",)) + ")")
+    if not all(same) or not host.on_host:
+        fail("phase 9g: a numpy pack's frame differs from the direct pack's")
+
+    saved = pack_mod.TABLE_BUDGET, packet.PACKET_TABLE_BUDGET
+    pack_mod.TABLE_BUDGET = packet.PACKET_TABLE_BUDGET = 64 * 1024
+    try:
+        never = pack_scene(scene, "cuda", treelets="never")
+        reset_launches()
+        auto_frame = render_frame(never, cam64, dataclasses.replace(
+            bvh_cfg, intersector="auto"))
+        torch.cuda.synchronize()
+        note = launched("9g never", read_launches(), ())
+    finally:
+        pack_mod.TABLE_BUDGET, packet.PACKET_TABLE_BUDGET = saved
+    tables = {k: getattr(never.bvh, k) is not None
+              for k in ("node8_rows", "strand_rows", "ribbon_rows")}
+    auto_same = np.array_equal(auto_frame, bvh_frame)
+    print(f"phase 9g budget: treelets='never' pack under a 64 KiB budget: "
+          f"{tables}; auto renders 9a's bvh frame bit for bit: {auto_same} "
+          f"({note})")
+    if (not auto_same or tables != dict(node8_rows=True, strand_rows=False,
+                                        ribbon_rows=False)):
+        fail("phase 9g: auto did not take raytpu's TPU route (bvh) on an "
+             "over-budget pack without treelets")
+
+    cam_json = os.path.join(tmp, "camera9.json")
+    png = os.path.join(tmp, "cli9_no_native.png")
+    argv = cli_argv(glb, png, dict(width=640, height=360, seed=1,
+                                   chunk_size=8, samples=1, bounces=4),
+                    cam_json)
+    code = ("import sys\n"
+            "from raytpu_torch import cli, native\n"
+            "assert not native.native_available()\n"
+            "sys.exit(cli.main(sys.argv[1:]))\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, *argv],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=dict(os.environ, RAYTPU_NO_NATIVE="1"),
+                       capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"phase 9g: the RAYTPU_NO_NATIVE=1 CLI run exited "
+             f"{r.returncode}: {r.stderr[-2000:]}")
+    a = read_png_rgb(png)
+    b = read_png_rgb(os.path.join(tmp, "cli9_plain.png"))
+    frac = float(np.any(a != b, axis=-1).mean())
+    s, p = ssim(a, b), psnr(a, b)
+    print(f"phase 9g RAYTPU_NO_NATIVE=1: the CLI in a child process (the "
+          f"pure-Python builder) rc 0 in {child_s:.1f} s; vs 9d's PNG "
+          f"{frac:.5f} of pixels differ, SSIM {s:.5f}, PSNR {p:.2f} dB")
+    if frac > 0.02 or s < 0.99:
+        fail("phase 9g: the pure-Python builder's frame is off 9d's")
+
+
 @contextlib.contextmanager
 def timed(secs: dict, label: str):
     """The block's host seconds into ``secs[label]``."""
@@ -3693,11 +3949,13 @@ def main() -> int:
         with timed(secs, "8"):
             recs["step"] = phase_step_bench(errs["step"])
         with timed(secs, "9"):
-            glb = phase_bvh_route(tmp)
+            glb, bvh_frame = phase_bvh_route(tmp)
             phase_checkpoint(tmp, recs["strand"])
             phase_shards(recs["strand"])
             phase_cli_flags(tmp, glb)
             phase_oracle(tmp)
+        with timed(secs, "9g"):
+            phase_pack_options(tmp, glb, bvh_frame)
         with timed(secs, "10a"):
             recs["strand_mixed"], recs["packet_mixed"] = phase_mixed_route(
                 recs["strand"], deferred, errs)

@@ -37,12 +37,14 @@ __version__ = "0.1.0"
 def render(scene, camera, config: RenderConfig, device="cuda"):
     """Convenience wrapper: accepts host SceneData/CameraData, packed onto
     ``device`` (the card unless the caller asks for the CPU), or packed
-    objects, and returns the [H,W,4] float32 frame."""
+    objects (an ``as_numpy`` pack is moved to ``device``), and returns the
+    [H,W,4] float32 frame."""
     pack = scene if isinstance(scene, ScenePack) else pack_scene(scene,
                                                                  device)
     if isinstance(camera, CameraData):
         camera = pack_camera(camera, device)
-    return render_frame(pack, camera, config)
+    return render_frame(pack, camera, config,
+                        device=device if pack.on_host else None)
 
 
 __all__ = [

@@ -16,7 +16,7 @@ import os
 import numpy as np
 
 from ..types import CameraPack, RenderConfig, ScenePack
-from .render import render_frame_tiles
+from .render import placed, render_frame_tiles
 
 
 def _host(x) -> np.ndarray:
@@ -45,10 +45,12 @@ def _ckpt_key(pack: ScenePack, camera: CameraPack,
 
 def render_with_checkpoint(pack: ScenePack, camera: CameraPack,
                            config: RenderConfig, path: str,
-                           save_every: int = 1) -> np.ndarray:
+                           save_every: int = 1, device=None) -> np.ndarray:
     """Render, persisting progress to ``path`` after every ``save_every``
     tiles; resumes from an existing checkpoint of the same shape and key
-    (one with no key, another key or another shape restarts at row 0)."""
+    (one with no key, another key or another shape restarts at row 0).
+    The device is ``engine.render.placed``'s."""
+    pack, camera = placed(pack, camera, device)
     frame = np.zeros((config.height, config.width, 4), np.float32)
     key = _ckpt_key(pack, camera, config)
     next_y0 = 0

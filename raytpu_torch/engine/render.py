@@ -807,8 +807,9 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     "brute" at most ``bruteforce_max_tris`` slots and "bvh" above, as
     raytpu's branch ends. "packet" gives the packet route's pair;
     ``bounce_pair`` is the strand pair when the pack has a strand tree
-    (> 256 slots), else
-    None, and ``_trace_paths`` then sends every path-mode wave through it.
+    (above 256 slots, where its tables fit the pack budget or the pack
+    streams: scene/pack.py), else None, and ``_trace_paths`` then sends
+    every path-mode wave through it.
     With ``bounce_backend="binned"`` ``mixed_fn`` is the binned query,
     with ``"mixed"`` the strand walk's mixed query
     (``make_strand_mixed_query``; a pack without a strand tree raises);
@@ -934,10 +935,24 @@ def _pixel_layout(w: int, tile_h: int, packet_mode: bool, device):
     return px, py, unpermute
 
 
+def placed(pack: ScenePack, camera: CameraPack, device=None) -> tuple:
+    """(pack, camera) where a render entry point runs: on ``device`` when
+    the caller names one; else a pack of tensors stays where it is and an
+    ``as_numpy`` pack moves to the card. The camera goes with the pack.
+    Each entry point calls this once, so a numpy pack is moved once."""
+    if device is None:
+        if not pack.on_host:
+            return pack, camera
+        device = "cuda"
+    return pack.to(device), camera.to(device)
+
+
 def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
-                config: RenderConfig, tile_h: int, seed=None) -> torch.Tensor:
+                config: RenderConfig, tile_h: int, seed=None,
+                device=None) -> torch.Tensor:
     """Render rows [y0, y0 + tile_h) of the frame; returns [tile_h, W, 4]
-    on the pack's device. ``seed`` overrides config.seed."""
+    on the pack's device (``placed``'s). ``seed`` overrides config.seed."""
+    pack, camera = placed(pack, camera, device)
     w, h = config.width, config.height
     dev = pack.device
     closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair = (
@@ -974,13 +989,14 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
 
 
 def count_rays(pack: ScenePack, camera: CameraPack,
-               config: RenderConfig) -> int:
+               config: RenderConfig, device=None) -> int:
     """Count the ray queries the reference would issue for this frame: one
     primary query per in-grid lane and sample plus, per bounce iteration a
     lane survives, one shadow and one continuation query (the cost model
     of src/shader.wgsl:321-381, SURVEY.md §3.4). Exact: it runs the real
     trace loop with a counter, in path mode whatever ``config.mode`` says,
     as raytpu's ``count_rays`` does. The total is a Python int."""
+    pack, camera = placed(pack, camera, device)
     tile_h = _auto_tile_rows(config, pack.n_triangles)
     total = 0
     for y0 in range(0, config.height, tile_h):
@@ -1034,12 +1050,15 @@ def _auto_tile_rows(config: RenderConfig, n_tris: int) -> int:
 
 
 def render_frame_tiles(pack: ScenePack, camera: CameraPack,
-                       config: RenderConfig, first_row: int = 0):
+                       config: RenderConfig, first_row: int = 0,
+                       device=None):
     """Generator over (y0, rows, tile [rows, W, 4] numpy f32): the
     progressive API of the GUI and checkpoint/resume (the reference's
     per-chunk loop, src/main.rs:310-317). Tiles that end at or before
     ``first_row`` are neither rendered nor yielded (a resumed checkpoint;
-    raytpu renders them and its caller drops them)."""
+    raytpu renders them and its caller drops them). The device is
+    ``placed``'s."""
+    pack, camera = placed(pack, camera, device)
     tile_h = _auto_tile_rows(config, pack.n_triangles)
     for y0 in range(0, config.height, tile_h):
         rows = min(tile_h, config.height - y0)
@@ -1050,10 +1069,12 @@ def render_frame_tiles(pack: ScenePack, camera: CameraPack,
 
 
 def render_frame(pack: ScenePack, camera: CameraPack,
-                 config: RenderConfig) -> np.ndarray:
+                 config: RenderConfig, device=None) -> np.ndarray:
     """Full frame, stitched from tiles on the host; returns [H, W, 4] f32
-    (the SAMPLES texture contents, src/state.rs:691-696)."""
+    (the SAMPLES texture contents, src/state.rs:691-696). The device is
+    ``placed``'s: the pack's, or the card for an ``as_numpy`` pack."""
     out = np.zeros((config.height, config.width, 4), np.float32)
-    for y0, rows, tile in render_frame_tiles(pack, camera, config):
+    for y0, rows, tile in render_frame_tiles(pack, camera, config,
+                                             device=device):
         out[y0 : y0 + rows] = tile
     return out

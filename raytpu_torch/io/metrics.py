@@ -1,4 +1,4 @@
-"""Image-parity metric: SSIM (a copy of raytpu.io.metrics.ssim).
+"""Image-parity metrics: SSIM and PSNR (copies of raytpu.io.metrics).
 
 BASELINE.json's parity criterion is SSIM >= 0.99 (PSNR also tracked) against
 the reference render at matched seed. Standard SSIM (Wang et al. 2004):
@@ -49,3 +49,12 @@ def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 255.0) -> float:
         (mu_aa + mu_bb + c1) * (sig_aa + sig_bb + c2)
     )
     return float(s.mean())
+
+
+def psnr(a: np.ndarray, b: np.ndarray, data_range: float = 255.0) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    mse = np.mean((a - b) ** 2)
+    if mse == 0:
+        return float("inf")
+    return float(10.0 * np.log10(data_range**2 / mse))

@@ -3,9 +3,13 @@
 The source is ``csrc/bvh_builder.cpp``, a verbatim copy of raytpu's
 ``raytpu/native/bvh_builder.cpp`` (tests/test_torch_host.py pins the
 bytes), compiled with the same g++ flags, so both packages build
-identical trees. The shared object is content-hashed into the port's
-git-ignored build directory. When no toolchain is available the host BVH
-build falls back to the pure-Python builder in ``accel/bvh.py``.
+identical trees. The shared object is content-hashed into
+``RAYTPU_NATIVE_CACHE`` when it is set, else into the port's git-ignored
+build directory (raytpu's default is a directory under ``tempfile``).
+With ``RAYTPU_NO_NATIVE`` set (read at first use, as raytpu reads it), or
+with no toolchain, there is no native library and the host BVH build
+falls back to the pure-Python builder in ``accel/bvh.py``, as raytpu's
+does.
 """
 
 from __future__ import annotations
@@ -27,20 +31,28 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
+def _cache_dir() -> str:
+    d = os.environ.get("RAYTPU_NATIVE_CACHE", BUILD_DIR)
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
 def _load() -> Optional[ctypes.CDLL]:
     """Compile (once, content-hashed) and load the native library; None
-    when the source or the compiler is missing."""
+    under RAYTPU_NO_NATIVE or when the source or the compiler is
+    missing."""
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
+    if os.environ.get("RAYTPU_NO_NATIVE"):
+        return None
     try:
         with open(_SRC, "rb") as f:
             digest = hashlib.sha256(
                 f.read() + " ".join(_FLAGS).encode()
             ).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so_path = os.path.join(BUILD_DIR, f"bvh_builder_{digest}.so")
+        so_path = os.path.join(_cache_dir(), f"bvh_builder_{digest}.so")
         if not os.path.exists(so_path):
             tmp = so_path + f".tmp{os.getpid()}"
             subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
@@ -63,6 +75,10 @@ def _load() -> Optional[ctypes.CDLL]:
     ]
     _LIB = lib
     return _LIB
+
+
+def native_available() -> bool:
+    return _load() is not None
 
 
 def native_build_bvh(p0: np.ndarray, e1: np.ndarray, e2: np.ndarray,

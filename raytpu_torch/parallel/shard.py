@@ -66,10 +66,11 @@ def render_frame_sharded(pack: ScenePack, camera: CameraPack,
     ``devices`` (rows-major, ``len(devices) / n_sample_shards`` row
     shards) takes the place of raytpu's ``mesh``; without it the first
     ``n_devices`` CUDA devices (all by default) are used through
-    ``make_devices``. tiles_per_shard > 1 splits each shard's rows into
-    that many round-robin tiles for load balance (shard s takes tiles s,
-    s + n, s + 2n, ...: ray cost concentrates where geometry is); 1 = one
-    contiguous block per shard."""
+    ``make_devices``. Each device gets ``pack.to(device)`` once (an
+    ``as_numpy`` pack is made tensors there). tiles_per_shard > 1 splits
+    each shard's rows into that many round-robin tiles for load balance
+    (shard s takes tiles s, s + n, s + 2n, ...: ray cost concentrates
+    where geometry is); 1 = one contiguous block per shard."""
     if devices is None:
         if n_devices is None:
             n_devices = max(torch.cuda.device_count(), 1)

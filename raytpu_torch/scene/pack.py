@@ -14,16 +14,23 @@ numpy and then placed on the requested device:
   packet route (flat mode and every wave of a scene of <= 256 slots). Its
   depth is checked against the packet walk's stack bound here, as raytpu
   does. The octant-threaded strand tree is built only above 256 slots
-  (raytpu's bounce-sort threshold), where it serves every path-mode wave;
-  so is its ribbon layout (``RAYTPU_RIBBON``), where raytpu builds it.
+  (raytpu's bounce-sort threshold), where it serves every path-mode wave,
+  and only within the table budget below; so is its ribbon layout
+  (``RAYTPU_RIBBON``), where raytpu builds it.
   Every pack carries the walks' tie keys (``first_slots``, computed once
   here on ``device`` from the slots' p0/e1/e2).
   The binned route's treelet windows (accel/treelets.py) are built above
   4096 slots, or as ``treelets=`` says. Per-ray results do not depend on
   the route: ties break to the lowest slot.
-* **Stream packs.** ``tables="stream"`` drops ``node8_rows``, and also
-  ``leaf_tris`` when there is no strand tree, as raytpu's stream packs do;
-  such a scene renders through the strand or the binned route.
+* **Table budget.** ``TABLE_BUDGET`` (raytpu's 100 MiB VMEM budget)
+  decides three tables, by raytpu's TPU rule (raytpu/scene/pack.py:
+  279-306): a pack **streams** (drops ``node8_rows``, and ``leaf_tris``
+  too when there is no strand tree) under ``tables="stream"``, or under
+  ``"auto"`` when it has treelets and its BVH8 and leaf rows, 512 bytes a
+  row, exceed the budget; the **strand tree** is built above 256 slots
+  only when the strand and leaf rows fit the budget or the pack streams;
+  the **ribbon rows** only when they fit and the pack does not stream. A
+  streamed scene renders through the strand or the binned route.
 """
 
 from __future__ import annotations
@@ -44,10 +51,11 @@ from .gltf import SceneData
 
 # slots above which treelets="auto" builds the binned route's treelets
 TREELET_MIN_SLOTS = 4096
-# raytpu's VMEM budget for the strand tables (raytpu/scene/pack.py:297):
-# the ribbon rows are built only when the strand tree and the leaf rows,
-# each row counted at 128 floats, fit it
-RIBBON_BUDGET = 100 * 1024 * 1024
+# raytpu's VMEM budget for a pack's tables (raytpu/scene/pack.py:279-306),
+# each row counted at 128 floats: it decides the stream drop, the strand
+# tree and the ribbon rows (``pack_scene``)
+TABLE_BUDGET = 100 * 1024 * 1024
+ROW_BYTES = 128 * 4
 
 
 def _sort_min_tris() -> int:
@@ -129,29 +137,40 @@ def _bitcast_i32_to_f32(x: np.ndarray) -> np.ndarray:
 
 
 def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
-               treelets: str = "auto", tables: str = "auto") -> ScenePack:
+               treelets: str = "auto", tables: str = "auto",
+               as_numpy: bool = False) -> ScenePack:
     """Build the ScenePack on ``device`` (the card unless the caller asks
     for the CPU).
 
     ``treelets``: "auto" builds the binned route's treelet windows for
     scenes above 4096 slots; "always" and "never" force it.
-    ``tables``: "stream" drops the BVH8 rows, and the leaf rows too when
-    the scene has no strand tree (one is kept above 256 slots); "auto"
-    keeps every table. raytpu's "auto" drops the same tables for scenes
-    past the TPU kernels' VMEM budget on a TPU only; the port keeps them,
-    since on the card every table lives in global memory anyway, which is
-    raytpu's behaviour off a TPU.
+    ``tables`` follows raytpu's TPU branch on every device: "auto" streams
+    a pack that has treelets and whose BVH8 and leaf rows exceed
+    ``TABLE_BUDGET``; "stream" always streams; "all" never streams, so its
+    BVH8 and leaf rows stay whatever their size. A stream pack drops the
+    BVH8 rows, and the leaf rows too when it has no strand tree. The
+    strand tree (above 256 slots) is built only when the strand and leaf
+    rows fit the budget or the pack streams, so an "all" pack over the
+    budget has none and ``auto`` routes it to packet, binned, brute or
+    bvh as raytpu's TPU branch does.
+
+    ``as_numpy`` returns the same pack with every table a host numpy array
+    (``n_lights_f`` an ``np.float32``; ``device`` is not used): exactly
+    the arrays of raytpu's ``pack_scene(as_numpy=True)``, plus the port's
+    tie keys. Such a pack pickles, and ``ScenePack.to(device)`` turns it
+    into tensors there; every render entry point moves it once, to the
+    device its caller asks for (the card by default).
 
     This is also where raytpu's numpy-level scene data crosses into the
-    port: every table is the array raytpu's ``pack_scene(as_numpy=True)``
-    builds, as a tensor on ``device``. Raises ValueError for a BVH8 too
-    deep for the packet walk's stack, as raytpu does, or for an unknown
-    ``treelets``/``tables`` value."""
+    port. Raises ValueError for a BVH8 too deep for the packet walk's
+    stack, as raytpu does, or for an unknown ``treelets``/``tables``
+    value."""
     if treelets not in ("auto", "always", "never"):
         raise ValueError(f"treelets={treelets!r}: want 'auto', 'always' or "
                          "'never'")
-    if tables not in ("auto", "stream"):
-        raise ValueError(f"tables={tables!r}: want 'auto' or 'stream'")
+    if tables not in ("auto", "stream", "all"):
+        raise ValueError(f"tables={tables!r}: want 'auto', 'stream' or "
+                         "'all'")
     p0, e1, e2, vi, mat, obj = flatten_world_triangles(scene)
 
     bvh, bvh8 = build_bvh(p0, e1, e2, leaf_size=leaf_size)
@@ -271,29 +290,34 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
     if treelets == "always" or (treelets == "auto"
                                 and n_slots > TREELET_MIN_SLOTS):
         tl = build_treelets(bvh8, leaf_tris)
-    stream = tables == "stream"
+    leaf_bytes = leaf_tris.shape[0] * ROW_BYTES
+    stream = tables == "stream" or (
+        tables == "auto" and tl is not None
+        and bvh8.node_rows.shape[0] * ROW_BYTES + leaf_bytes > TABLE_BUDGET)
+    strand_fits = -(-bvh.n_nodes // 2) * ROW_BYTES + leaf_bytes <= TABLE_BUDGET
     strand_rows = ribbon_rows = None
-    if n_slots > _sort_min_tris():
+    if n_slots > _sort_min_tris() and (strand_fits or stream):
         strand_rows = build_strand_tree(bvh).rows
-        # raytpu's condition (raytpu/scene/pack.py:295-306): the same node
-        # budget in another numbering; stream packs walk the strand layout
-        strand_bytes = -(-bvh.n_nodes // 2) * 128 * 4
-        leaf_bytes = leaf_tris.shape[0] * 128 * 4
-        if not stream and strand_bytes + leaf_bytes <= RIBBON_BUDGET:
+        # the same node budget in another numbering; stream packs walk the
+        # strand layout only
+        if strand_fits and not stream:
             ribbon_rows = build_ribbon_tree(bvh).rows
 
     def conv(x):
-        return None if x is None else torch.from_numpy(
-            np.ascontiguousarray(x)).to(device)
+        if x is None:
+            return None
+        x = np.ascontiguousarray(x)
+        return x if as_numpy else torch.from_numpy(x).to(device)
 
-    leaf_t = None if stream and strand_rows is None else conv(leaf_tris)
     tri_row_t = conv(tri_row)
+    first = first_slots(torch.as_tensor(tri_row_t))
     return ScenePack(
         tri_row=tri_row_t,
         object_linear=conv(obj_linear),
         mat_table=conv(mat_table),
         light_table=conv(light_table),
-        n_lights_f=torch.tensor(np.float32(n_lights), device=device),
+        n_lights_f=(np.float32(n_lights) if as_numpy
+                    else torch.tensor(np.float32(n_lights), device=device)),
         scene_bmin=conv(bvh.bmin[0]),
         scene_bmax=conv(bvh.bmax[0]),
         tex_atlas=conv(atlas),
@@ -301,8 +325,9 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
         bvh=BvhPack(
             nodes=conv(nodes),
             node8_rows=None if stream else conv(bvh8.node_rows),
-            leaf_tris=leaf_t,
-            first_slots=first_slots(tri_row_t),
+            leaf_tris=(None if stream and strand_rows is None
+                       else conv(leaf_tris)),
+            first_slots=first.numpy() if as_numpy else first,
             strand_rows=conv(strand_rows),
             ribbon_rows=conv(ribbon_rows),
         ),

@@ -2,8 +2,9 @@
 
 Torch counterparts of ``raytpu.types``. ``ScenePack``, ``BvhPack`` and
 ``CameraPack`` are dataclasses of tensors on one device; ``.to(device)``
-returns a copy on another. They carry only the tables the path-mode
-slice reads:
+returns a copy on another. A pack made with ``pack_scene(as_numpy=True)``
+holds host numpy arrays instead, and ``.to(device)`` makes it tensors.
+They carry only the tables the path-mode slice reads:
 
 * ``tri_row``     [T, 64]  everything shading needs for one hit in one
                            row: world p0/e1/e2, object-space corner
@@ -15,11 +16,13 @@ slice reads:
 * ``bvh.node8_rows`` [N8, 128]  the 8-wide BVH of the packet route: child k
                            at columns 16k..16k+6 (bmin, bmax, then the link
                            as int32 bits: child node, or ~leaf_row); None
-                           in a ``tables="stream"`` pack
+                           in a stream pack (scene/pack.py's rule)
 * ``bvh.leaf_tris`` [Nl, 80]  8 triangles x (p0, e1, e2, pad) world space;
                            None in a stream pack without a strand tree
 * ``bvh.strand_rows`` [ceil(N/2), 128]  the octant-threaded strand tree,
-                           or None (scenes of <= 256 slots have none)
+                           or None (scenes of <= 256 slots, and packs
+                           whose strand and leaf rows exceed 100 MiB
+                           without streaming, have none)
 * ``bvh.ribbon_rows`` [8 * ceil(N/16), 128]  the same threading in the
                            ribbon layout (16 nodes of one octant per row,
                            accel/strandtree.py:RibbonTree), where raytpu
@@ -39,6 +42,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -60,18 +64,25 @@ class RenderConfig:
     intersector: str = "auto"
     # "sorted": coherence-sorted bounce queries with immediate NEE;
     # "binned": deferred NEE, each bounce's shadow rays ride the next
-    # bounce's mixed binned query. raytpu's "mixed" is a retired arm and
-    # is refused.
+    # bounce's mixed binned query; "mixed": the same deferred NEE through
+    # the strand walk's mixed query (a pack with a strand tree)
     bounce_backend: str = "sorted"
 
 
 def _to(obj, device):
-    """Copy of a tensor dataclass with every tensor field moved (None
-    fields stay None)."""
+    """Copy of a pack dataclass with every table on ``device``: tensors
+    moved, host numpy arrays and scalars (an ``as_numpy`` pack) made
+    tensors there; None fields stay None."""
+    def move(x):
+        if isinstance(x, (torch.Tensor, BvhPack)):
+            return x.to(device)
+        return torch.tensor(x, device=device)
+
     return replace(obj, **{
-        f.name: getattr(obj, f.name).to(device)
+        f.name: move(getattr(obj, f.name))
         for f in fields(obj)
-        if isinstance(getattr(obj, f.name), (torch.Tensor, BvhPack))
+        if isinstance(getattr(obj, f.name),
+                      (torch.Tensor, BvhPack, np.ndarray, np.generic))
     })
 
 
@@ -85,7 +96,8 @@ class BvhPack:
     leaf_tris: Optional[torch.Tensor]
     # [T] i32 tie keys (kernels/strand.py:first_slots), in every pack
     first_slots: torch.Tensor
-    # [ceil(N/2), 128] f32 (accel/strandtree.py); None up to 256 slots
+    # [ceil(N/2), 128] f32 (accel/strandtree.py); None up to 256 slots,
+    # and past 100 MiB in a pack that does not stream
     strand_rows: Optional[torch.Tensor] = None
     # [8 * ceil(N/16), 128] f32 (accel/strandtree.py:RibbonTree): octant
     # o's renumbered node j at row o * (rows // 8) + j // 16; None where
@@ -123,6 +135,11 @@ class ScenePack:
 
     def to(self, device) -> "ScenePack":
         return _to(self, device)
+
+    @property
+    def on_host(self) -> bool:
+        """An ``as_numpy`` pack: host numpy tables, not yet on a device."""
+        return isinstance(self.tri_row, np.ndarray)
 
     @property
     def device(self) -> torch.device:

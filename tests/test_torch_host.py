@@ -21,6 +21,7 @@ import raytpu
 from raytpu.accel.bvh import build_bvh as rt_build_bvh
 from raytpu.accel import strandtree as rt_strandtree
 from raytpu.accel.strandtree import build_strand_tree as rt_build_strand_tree
+from raytpu.io import metrics as rt_metrics
 from raytpu.io.metrics import ssim as rt_ssim
 from raytpu.io.png import write_png as rt_write_png
 from raytpu.scene.pack import flatten_world_triangles as rt_flatten
@@ -28,7 +29,8 @@ from raytpu.scene.pack import pack_scene as rt_pack_scene
 from raytpu_torch.accel.bvh import build_bvh
 from raytpu_torch.accel import strandtree as pt_strandtree
 from raytpu_torch.accel.strandtree import build_strand_tree, validate_strand_tree
-from raytpu_torch.io.metrics import ssim
+from raytpu_torch.io import metrics as pt_metrics
+from raytpu_torch.io.metrics import psnr, ssim
 from raytpu_torch.io.png import write_png
 from raytpu_torch.scene import camera as pt_camera
 from raytpu_torch.scene.gltf import load_scene
@@ -310,6 +312,21 @@ def test_ssim_copy_matches_raytpu():
     b = np.clip(a.astype(int) + rng.integers(-9, 10, size=a.shape), 0, 255)
     assert ssim(a, b) == rt_ssim(a, b) < 1.0
     assert ssim(a, a) == 1.0
+
+
+def test_psnr_copy_matches_raytpu():
+    """raytpu's psnr, copied verbatim: the same source and the same values
+    (inf on equal images)."""
+    import inspect
+
+    assert inspect.getsource(pt_metrics.psnr) == inspect.getsource(
+        rt_metrics.psnr)
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 256, size=(40, 30, 3)).astype(np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-9, 10, size=a.shape), 0, 255)
+    assert psnr(a, b) == rt_metrics.psnr(a, b) < float("inf")
+    assert psnr(a, b, data_range=1.0) == rt_metrics.psnr(a, b, 1.0)
+    assert psnr(a, a) == rt_metrics.psnr(a, a) == float("inf")
 
 
 def test_package_imports_neither_jax_nor_raytpu():
