@@ -4,7 +4,9 @@
 
 Builds the CUDA kernels from source (strand walk, the packet route's
 BVH8 walk, the binned route's treelet walk, the block-scheduled strand
-walk and the per-step probe, one nvcc each, in parallel), holds each
+walk and the per-step probe, one nvcc each, in parallel; beside them,
+phase 2b holds the default strand walk and block walk instances' machine
+code to the stored digests, ``tools/sass_diff.py``), holds each
 walk bit for bit against its plain torch version (phases 3, 3b, 3c, 3d;
 3e and 3f the mixed-lane forms of the strand and packet walks, also
 against their separate closest-hit and any-hit launches; 3g the strand
@@ -12,7 +14,9 @@ walk over ribbon rows, one record a step and with the K-wide fetch, also
 against the strand layout, and its stats counters; 3h the packet walk's near-first instances, also against storage
 order, and both orders' stats; 3i the strand walk's schedule form in each
 fetch form and the block walk's deferral form, also against the default
-instances, with every counter),
+instances, with every counter, then swept over pool sizes, claim sizes,
+the dual and K-wide forms and the deferral form's G and skip_done on a
+ray count that fills no block's warps),
 renders small frames on the card and on the CPU (phase 4, the packet
 route in path and flat mode; phase 4b, the binned route on a stream
 pack), then drives the entry points in this process, so each kernel's
@@ -43,7 +47,7 @@ launch count can be read:
   primary wave and on every closest-hit lane of every bounce query; its
   strand tables exceed raytpu's 100 MiB budget, and strand_walk's default
   instance is timed there in turns with the pipelined schedule form
-  (raytpu's tree_any), at 128 walkers and at the card's resident cap;
+  (raytpu's tree_any), with claims of 16 batches and of 1;
 * phase 7b, deferred NEE beside the strand route: phase 5's scene and
   configuration with ``bounce_backend="binned"``, held to phase 5's frame,
   its binned mixed queries sampled against the brute sweep, and fault
@@ -239,6 +243,25 @@ SCHED_SETS = {
 # and the block walk's deferral sets (raytpu's groups and skip_done)
 DEFER_SETS = {"G=16 skip_done": dict(defer=True, groups=16, skip_done=True),
               "G=4": dict(defer=True, groups=4)}
+# phase 3i's sweep of the launch shapes: raytpu's pool sizes (which add no
+# code) and claim sizes on the pipe form, the dual and K-wide forms at each
+# claim size, and the deferral form's G and skip_done, on a ray count whose
+# batches fill neither a block's 4 warps nor its 2 pairs (2,045 batches of
+# 32 rays, 1,023 of 64)
+SWEEP_RAYS = 65536 - 101
+SWEEP_SETS = {
+    **{f"pipe walkers={w} service_k={k}": dict(RAYTPU_SCHED, walkers=w,
+                                               service_k=k)
+       for w in (1, 128, 4096) for k in (1, 16, 64)},
+    **{f"dual service_k={k}": dict(RAYTPU_SCHED, dual=True, service_k=k)
+       for k in (1, 16, 64)},
+    **{f"ribbon K={r} service_k={k}": dict(walkers=128, service_k=k,
+                                           flush_occ=0.5, ribbon_k=r)
+       for r in (4, 8) for k in (1, 16, 64)},
+}
+DEFER_SWEEP = {f"G={g}" + (" skip_done" if s else ""): dict(
+    defer=True, groups=g, skip_done=s) for g in (1, 4, 16, 32)
+    for s in (False, True)}
 # one H100 SXM's peaks (NVIDIA's data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -809,6 +832,34 @@ def phase_device():
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(smi.stdout.strip().splitlines()[0])
+
+
+def start_sass_check():
+    """Start tools/sass_diff on this checkout's strand sources against the
+    stored digests of the default instances' machine code
+    (``raytpu_torch/tools/sass_digests.json``: walk_kernel and block_kernel
+    as the commit before the schedule and deferral forms were redesigned
+    compiled them), in a process group of its own beside the build."""
+    from raytpu_torch.tools.sass_diff import DIGESTS
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "raytpu_torch.tools.sass_diff", "--digests",
+         DIGESTS], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+
+
+def phase_sass(proc) -> None:
+    """Phase 2b: the sass_diff run's report; fails if a default instance's
+    instructions changed (a digest file from another nvcc is reported as
+    not comparable)."""
+    out, _ = proc.communicate(timeout=900)
+    print("phase 2b machine code of the default walk_kernel and "
+          "block_kernel instances, against the stored digests "
+          f"(tools/sass_diff, rc {proc.returncode}): "
+          + " | ".join(out.strip().splitlines()))
+    if proc.returncode not in (0, 2):
+        fail("phase 2b: a default instance no longer compiles to the "
+             "stored instructions")
 
 
 def phase_build():
@@ -1400,6 +1451,91 @@ def phase_sched_kernel(errs: dict) -> dict:
                                        "block_defer"))
                       and launches[k]))
     return launches
+
+
+def phase_sched_sweep(errs: dict) -> None:
+    """Phase 3i's sweep: on the 3000-triangle soup with SWEEP_RAYS rays,
+    every set of SWEEP_SETS (closest-hit, any-hit and mixed) and of
+    DEFER_SWEEP (closest-hit and any-hit) through its kernel and its plain
+    version, bit for bit (t, tri, every counter), and against the default
+    instance on t bits and the tie key (closest lanes) and the blocked bit;
+    the pool sizes must also give one another's results and counters."""
+    import torch
+
+    from raytpu_torch.accel.strandtree import (
+        build_ribbon_tree,
+        build_strand_tree,
+    )
+    from raytpu_torch.kernels import strand as S
+
+    n = SWEEP_RAYS
+    bvh, _, per, _ = slot_rows(*soup(3000))
+    leaf = to_card(per.reshape(-1, 80))
+    first = S.first_slots(leaf)
+    rib = build_ribbon_tree(bvh)
+    rows = {0: to_card(build_strand_tree(bvh).rows),
+            rib.rows_per_oct: to_card(rib.rows)}
+    ro, rd = (to_card(a[:n]) for a in soup_rays(65536, seed=3000))
+    tmax_c, tmax_s = (x[:n].contiguous() for x in phase3_lanes())
+    tmax_m, smask = (x[:n].contiguous() for x in mixed_lanes(65536, "cuda"))
+    modes = (("closest", S.strand_query_cuda, S.strand_query_torch,
+              (tmax_c, 0.001, False)),
+             ("any-hit", S.strand_query_cuda, S.strand_query_torch,
+              (tmax_s, 0.0, True)),
+             ("mixed", S.strand_mixed_query_cuda, S.strand_mixed_query_torch,
+              (tmax_m, smask, 0.001, 0.0)))
+    pools = {}
+    for form, kernel, plain, tail in modes:
+        base = kernel(rows[0], leaf, first, ro, rd, *tail)
+        for name, kw in SWEEP_SETS.items():
+            tree, kw = sched_rows(kw, rows)
+            args = (tree, leaf, first, ro, rd, *tail)
+            k = kernel(*args, stats=True, **kw)
+            p = plain(*args, stats=True, **kw)
+            torch.cuda.synchronize()
+            if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                    and torch.equal(k[2], p[2])):
+                fail(f"phase 3i sweep {form} {name}: kernel != plain on "
+                     f"{int((k[1] != p[1]).sum())} tri, stats "
+                     f"{k[2].tolist()} vs {p[2].tolist()}")
+            bad = agree(form, k, base, first,
+                        smask if form == "mixed" else None)
+            if bad:
+                fail(f"phase 3i sweep {form} {name}: differs from the "
+                     f"default instance on {bad} lanes")
+            if name.startswith("pipe walkers="):
+                got = pools.setdefault((form, kw["service_k"]), k)
+                if not (same_bits(got[0], k[0]) and torch.equal(got[1], k[1])
+                        and torch.equal(got[2], k[2])):
+                    fail(f"phase 3i sweep {form} {name}: the pool size "
+                         "changed a result or a counter")
+            key = form_key("strand_mixed" if form == "mixed" else "strand",
+                           kw)
+            errs[key].append(t_err(k[0], p[0]))
+    for form, tail in (("closest", (tmax_c, 0.001, False)),
+                       ("any-hit", (tmax_s, 0.0, True))):
+        args = (rows[0], leaf, first, ro, rd, *tail)
+        base = S.strand_block_query_cuda(*args)
+        for name, kw in DEFER_SWEEP.items():
+            k = S.strand_block_query_cuda(*args, True, **kw)
+            p = S.strand_block_query_torch(*args, True, **kw)
+            torch.cuda.synchronize()
+            if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                    and torch.equal(k[2], p[2])):
+                fail(f"phase 3i sweep block {form} {name}: kernel != plain "
+                     f"on {int((k[1] != p[1]).sum())} tri, "
+                     f"{int((k[2] != p[2]).any(1).sum())} stats rows")
+            bad = agree(form, k, base, first)
+            if bad:
+                fail(f"phase 3i sweep block {form} {name}: differs from "
+                     f"the default instance on {bad} lanes")
+            errs["block_defer"].append(t_err(k[0], p[0]))
+    print(f"phase 3i sweep ({n} rays, 3000 tris): closest, any-hit and "
+          f"mixed at {list(SWEEP_SETS)}, and the block walk's deferral "
+          f"closest and any-hit at {list(DEFER_SWEEP)}: each bit-equal (t, "
+          "tri, every counter) to its plain version and equal to the "
+          "default instance; the pool sizes 1, 128 and 4096 give equal "
+          "results and counters")
 
 
 def tie_mismatches(first, tri, brute_tri) -> int:
@@ -2503,9 +2639,9 @@ def phase_stream(tmp: str, errs: list) -> dict:
     (raytpu's tree_any), where the strand factory keeps the per-ray walk's
     default instance unless RAYTPU_STRAND_HBM is set: on the primary wave
     that instance is timed in turns with the pipelined schedule form
-    tree_any selects, at raytpu's 128 walkers and at the card's resident
-    cap (with service_k 16, and 1), each held to it on t bits and the tie
-    key."""
+    tree_any selects, with raytpu's claims of 16 batches and with claims of
+    1 (the grid, in blocks, printed beside each), each held to it on t bits
+    and the tie key."""
     import torch
 
     from raytpu_torch.engine.render import count_rays, render_frame
@@ -2660,15 +2796,15 @@ def phase_stream(tmp: str, errs: list) -> dict:
     if table_mb * 2**20 <= STRAND_TABLE_BUDGET:
         fail("phase 7a: the stream pack's strand tables fit the budget")
     pipe = dict(RAYTPU_SCHED, tree_any=True)
-    cap = sched_grid(_schedule(0, _n_nodes(tree, 0),
-                               **dict(pipe, walkers=1 << 20)), 0)
     wave = (leaf, first, ro, rd, tmax, 0.001, False)
-    # at the cap, service_k 16 leaves most warps without a claim on a wave
-    # this small (7,680 batches), so the cap also runs with service_k 1
-    forms = {"default": {}, "pipe, 128 walkers": pipe,
-             f"pipe, {cap} walkers (resident cap)": dict(pipe, walkers=cap),
-             f"pipe, {cap} walkers, service_k 1": dict(pipe, walkers=cap,
-                                                       service_k=1)}
+    # the pipe form at raytpu's claims of 16 batches, and of 1: the grid
+    # fills the card's resident capacity, or takes one block a claim
+    grids = {k: sched_grid(_schedule(0, _n_nodes(tree, 0),
+                                     **dict(pipe, service_k=k)), 0,
+                           ro.shape[0]) for k in (16, 1)}
+    forms = {"default": {},
+             **{f"pipe, service_k {k} ({g} blocks)": dict(pipe, service_k=k)
+                for k, g in grids.items()}}
     pipe_ms = in_turns({k: (lambda kw=kw: strand_query_cuda(tree, *wave,
                                                            **kw))
                         for k, kw in forms.items()})
@@ -3310,13 +3446,6 @@ def phase_schedule_route(main_rec: dict, block_rec: dict, mixed_rec: dict,
             tree, k = sched_rows(kw, rows)
             calls[form] = (lambda tree=tree, k=k:
                            kernel(tree, leaf, first, *wave, **k))
-        if label == "primary":  # the pool at the card's resident cap
-            cap = S.sched_grid(S._schedule(0, S._n_nodes(rows[0], 0),
-                                           **dict(RAYTPU_SCHED,
-                                                  walkers=1 << 20)), 0)
-            calls[f"pipe, {cap} walkers (resident cap)"] = lambda: kernel(
-                rows[0], leaf, first, *wave, **dict(RAYTPU_SCHED,
-                                                    walkers=cap))
         if label == "bounce 1":
             calls["block"] = lambda: S.strand_block_query_cuda(
                 rows[0], leaf, first, *wave)
@@ -3916,8 +4045,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with timed(secs, "2"):
-        phase_build()
+    sass = start_sass_check()
+    try:
+        with timed(secs, "2"):
+            phase_build()
+            phase_sass(sass)
+    finally:
+        if sass.poll() is None:
+            os.killpg(sass.pid, 9)
+            sass.wait()
     with timed(secs, "3-3f"):
         phase_kernel(errs["strand"], "strand", "3")
         phase_kernel(errs["packet"], "packet", "3b")
@@ -3931,6 +4067,7 @@ def main() -> int:
         packet_mixed_near = phase_near_kernel(errs)
     with timed(secs, "3i"):
         sched_launches = phase_sched_kernel(errs)
+        phase_sched_sweep(errs)
     with tempfile.TemporaryDirectory() as tmp:
         with timed(secs, "4-4b"):
             phase_card_vs_cpu(tmp)

@@ -42,6 +42,16 @@
 // Loading both successor records while the slab test and the vote run, and
 // persistent warps in blocks of 8 taking strands from a global counter,
 // measured slower and were reverted.
+//
+// The deferral form (strand_common.cuh:defer_kernel) is launched for two
+// resident blocks of 1024 threads a multiprocessor (32 registers): four
+// blocks of raytpu's G = 16 where its 55 registers held two, which gained
+// on bounce 1's wave (PERF.md). Three steps lost and were reverted:
+// one barrier a step (each warp's flags in shared memory, reduced by every
+// warp) in place of the four barrier votes; the row a round would pop
+// copied into the stage with cp.async before the vote; and both successor
+// records loaded before the vote (a gain of 3% at two blocks, a loss at
+// 32 registers, where it spills).
 
 #include "strand_common.cuh"
 

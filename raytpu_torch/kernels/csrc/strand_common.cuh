@@ -320,15 +320,19 @@ __global__ void __launch_bounds__(kBlock) block_kernel(Args a) {
 //
 // The order, step for step (kernels/strand.py:_sched_torch replays it):
 //
-// * Pool. The grid is persistent (the launcher sizes it from raytpu's
-//   `walkers`). Lane 0 of each warp claims `service_k` consecutive batches
-//   with one atomicAdd on s.work (a 64-bit counter the launcher zeroes on
-//   the launch's stream); a claim at or past n_batches ends the warp, so
-//   no warp reads past the rays. The warp walks its batches one after
-//   another: a batch is 32 rays (64 under kDual: lanes 0..31 and 32..63 of
-//   the batch are each thread's first and second ray). Batches do not
-//   share state, so the results and the counters do not depend on which
-//   warp took which batch.
+// * Pool. A batch is 32 rays, one warp's lanes (64 under kDual: lanes
+//   0..31 and 32..63 of the batch are each thread's first and second ray).
+//   The grid is persistent: as many blocks as the card holds resident for
+//   the instance, or one a claim where the launch has fewer (the launcher
+//   sizes it; raytpu's `walkers` is checked and adds no code). A claim is
+//   `service_k` consecutive batches taken with one atomicAdd on s.work (a
+//   64-bit counter the launcher zeroes on the launch's stream) for a
+//   block: its warps take the claim's batches one at a time from a word in
+//   shared memory (take), so one claim's batches are walked in parallel,
+//   and the warp that finds the claim spent takes the next one (claim). A
+//   claim at or past n_batches ends the block, so no warp reads past the
+//   rays. Batches do not share state, so the results and the counters do
+//   not depend on which warp took which batch.
 // * Iteration `it` of a batch: `unroll` sub-steps, in each of which every
 //   lane that can step takes one step (kWide: one fetch of up to
 //   ribbon_k records, then up to ribbon_k sub-steps from them). A lane can
@@ -364,12 +368,14 @@ __global__ void __launch_bounds__(kBlock) block_kernel(Args a) {
 // 0..n_top-1, all 8 octants, in shared memory per block; a lane reads a
 // record there while its cursor is below n_top. kWide walks ribbon rows
 // (a.rpo per octant; hit == v + 1 in each octant's pre-order): a fetch
-// loads the kWidth-wide window of ribbon_k records from the cursor, cut at
-// the end of its 16-node row, and the sub-steps pick records from the
-// window in registers while the cursor stays inside it.
+// loads the window of ribbon_k records from the cursor, cut at the end of
+// its 16-node row, with 16-byte loads into the lane's slots of the warp's
+// window in shared memory (kWidth records a lane), and the sub-steps read
+// records there while the cursor stays inside it.
 //
 // Counters (s.counters, int32 [8], or null): per warp, one atomicAdd each
-// after its last batch, so the sums do not depend on order.
+// after its last batch (a claim counted by the thread that took it), so
+// the sums do not depend on order.
 // ---------------------------------------------------------------------
 
 constexpr int kQcap = 4;      // leaves a lane can queue (registers)
@@ -391,6 +397,16 @@ struct Sched {
   int n_top;                 // kPipe/kDual: staged nodes, 0 = none
 };
 
+// The dynamic shared memory of an instance: the staged top nodes (kPipe,
+// kDual with s.n_top > 0), or every warp's window of kWidth records a lane
+// (kWide: 32 bytes x kWidth x 32 lanes a warp)
+template <int kBlock, int kFetch, int kWidth>
+constexpr size_t sched_smem(int n_top) {
+  return kFetch == kWide
+             ? static_cast<size_t>(kBlock) * kWidth * 2 * sizeof(float4)
+             : static_cast<size_t>(n_top) * kNodeFloats * sizeof(float);
+}
+
 struct Walker {
   Ray r;
   float tm;
@@ -407,6 +423,8 @@ struct SchedWalk {
   const Args& a;
   const Sched& s;
   const float4* top;  // the staged nodes (n_top * 16 float4)
+  float4* win;        // kWide: the warp's window, row 2j + h of 32 lanes
+                      // holding half h of each lane's record j
   float slab_tmin;
 
   __device__ __forceinline__ bool walkable(const Walker& w) const {
@@ -510,9 +528,10 @@ struct SchedWalk {
     if (can_step(w)) advance(w, fetch(w, w.c));
   }
 
-  // kWide: one fetch of the window [c, c + n), then its sub-steps
+  // kWide: one fetch of the window [c, c + n) into the warp's window in
+  // shared memory, then its sub-steps
   __device__ __forceinline__ void wide_iteration(Walker& w) const {
-    Rec buf[kWidth];
+    const int lane = threadIdx.x & 31;
     int n = 0;
     const int base = w.c;
     if (can_step(w)) {
@@ -522,7 +541,11 @@ struct SchedWalk {
       const float* p = rec_ptr(w, base);
 #pragma unroll
       for (int j = 0; j < kWidth; ++j) {
-        if (j < n) buf[j] = load_box(p + 8 * j);
+        if (j < n) {
+          const Rec x = load_box(p + 8 * j);
+          win[(2 * j) * 32 + lane] = x.a;
+          win[(2 * j + 1) * 32 + lane] = x.b;
+        }
       }
     }
 #pragma unroll
@@ -532,11 +555,9 @@ struct SchedWalk {
       const bool go = can_step(w) && j >= 0 && j < n;
       if (!__any_sync(kFull, go)) break;
       if (go) {
-        Rec q = buf[0];
-#pragma unroll
-        for (int m = 1; m < kWidth; ++m) {
-          if (j == m) q = buf[m];
-        }
+        Rec q;
+        q.a = win[(2 * j) * 32 + lane];
+        q.b = win[(2 * j + 1) * 32 + lane];
         advance(w, q);
       }
     }
@@ -626,47 +647,83 @@ struct SchedWalk {
   }
 };
 
+// A claim for the block: service_k batches from s.work into *pool (the
+// claim's first batch, capped at n_batches, in the high word; batches
+// handed out, 0, in the low word). Returns 1 if the claim holds a batch.
+__device__ __forceinline__ int claim(const Sched& s,
+                                     unsigned long long* pool) {
+  const unsigned long long n = static_cast<unsigned long long>(s.n_batches);
+  const unsigned long long g =
+      atomicAdd(s.work, static_cast<unsigned long long>(s.service_k));
+  atomicExch(pool, (g < n ? g : n) << 32);
+  return g < n ? 1 : 0;
+}
+
+// The next batch of the block's claim for the calling thread (lane 0 of a
+// batch's first warp), taking the next claim when this one is spent (the
+// thread that draws index service_k takes it; any later one waits for
+// it); -1 when no batch is left. *claims counts the claims taken.
+__device__ __forceinline__ int take(const Sched& s, unsigned long long* pool,
+                                    int* claims) {
+  const unsigned k = static_cast<unsigned>(s.service_k);
+  for (;;) {
+    const unsigned long long old = atomicAdd(pool, 1ull);
+    const long long first = static_cast<long long>(old >> 32);
+    const unsigned j = static_cast<unsigned>(old);
+    if (first >= s.n_batches) return -1;
+    if (j < k) return first + j < s.n_batches ? static_cast<int>(first + j)
+                                              : -1;
+    if (j == k) {
+      *claims += claim(s, pool);
+    } else {
+      while (static_cast<long long>(
+                 *reinterpret_cast<volatile unsigned long long*>(pool) >>
+                 32) == first) {
+        __nanosleep(64);
+      }
+    }
+  }
+}
+
 template <int kBlock, bool kAny, bool kMixed, int kFetch, int kWidth = 1>
 __global__ void __launch_bounds__(kBlock) sched_kernel(Args a, Sched s) {
-  extern __shared__ float4 top[];
+  extern __shared__ float4 top[];  // the staged nodes, or the windows
+  __shared__ unsigned long long pool;
   if (kFetch == kPipe || kFetch == kDual) {
     const float4* rows4 = reinterpret_cast<const float4*>(a.rows);
     for (int k = threadIdx.x; k < s.n_top * (kNodeFloats / 4); k += kBlock) {
       top[k] = __ldg(rows4 + k);
     }
-    __syncthreads();
   }
+  int claims = 0;
+  if (threadIdx.x == 0) claims = claim(s, &pool);
+  __syncthreads();
   const int lane = threadIdx.x & 31;
   const SchedWalk<kAny, kMixed, kFetch, kWidth> walk{
-      a, s, top, kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin};
+      a, s, top,
+      kFetch == kWide ? top + (threadIdx.x >> 5) * kWidth * 64 : nullptr,
+      kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin};
   Walker w0, w1;
   w0.loads = w0.tests = w0.enq = 0;
   w1.loads = w1.tests = w1.enq = 0;
-  int rounds = 0, claims = 0, installs = 0;
+  int rounds = 0, installs = 0;
   for (;;) {
-    unsigned long long first = 0;
-    if (lane == 0) {
-      first = atomicAdd(s.work, static_cast<unsigned long long>(s.service_k));
-    }
-    first = __shfl_sync(kFull, first, 0);
-    if (first >= static_cast<unsigned long long>(s.n_batches)) break;
-    ++claims;
-    const int end = static_cast<int>(
-        min(first + static_cast<unsigned long long>(s.service_k),
-            static_cast<unsigned long long>(s.n_batches)));
-    for (int bt = static_cast<int>(first); bt < end; ++bt) {
-      ++installs;
-      rounds += walk.batch(bt, lane, w0, w1);
-    }
+    int bt = -1;
+    if (lane == 0) bt = take(s, &pool, &claims);
+    bt = __shfl_sync(kFull, bt, 0);
+    if (bt < 0) break;
+    ++installs;
+    rounds += walk.batch(bt, lane, w0, w1);
   }
   if (s.counters != nullptr) {
     const int loads = __reduce_add_sync(kFull, w0.loads + w1.loads);
     const int tests = __reduce_add_sync(kFull, w0.tests + w1.tests);
     const int enq = __reduce_add_sync(kFull, w0.enq + w1.enq);
+    const int taken = __reduce_add_sync(kFull, claims);
     if (lane == 0) {
       atomicAdd(s.counters + kLoads, loads);
       atomicAdd(s.counters + kRounds, rounds);
-      atomicAdd(s.counters + kClaims, claims);
+      atomicAdd(s.counters + kClaims, taken);
       atomicAdd(s.counters + kInstalls, installs);
       atomicAdd(s.counters + kLeafTests, tests);
       atomicAdd(s.counters + kLeafReached, enq);
@@ -695,12 +752,19 @@ __global__ void __launch_bounds__(kBlock) sched_kernel(Args a, Sched s) {
 // * The block ends after the iteration at which no walker is active and
 //   every queue is empty. Stats (a.stats, int32 [S, 3], or null): each
 //   strand's steps, leaves pushed, and its block's leaf rounds.
+//
+// Residency: each step waits on one dependent record load, and lock-step
+// holds a block until its slowest walker ends, so what the card can hide
+// depends on the warps it holds. The launch bounds ask for two blocks of
+// 1024 threads a multiprocessor, i.e. at most 32 registers (a few values
+// spill): four blocks of G = 16, 64 warps, where 55 registers held two.
 // ---------------------------------------------------------------------
 
 constexpr int kBlockQcap = 16;  // rows a walker can queue
 
 template <bool kAny>
-__global__ void __launch_bounds__(1024) defer_kernel(Args a, int skip_done) {
+__global__ void __launch_bounds__(1024, 2)
+    defer_kernel(Args a, int skip_done) {
   extern __shared__ float4 dsm[];
   const int groups = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;

@@ -28,6 +28,21 @@
 // own (strand_common.cuh:sched_kernel), so the instances above keep the
 // while-while walk, which measured fastest on the card (PERF.md).
 //
+// The schedule form's design for the card has three steps over its first
+// port, each of which gained on the 1080p gallery frame's waves
+// (PERF.md): a persistent grid of the blocks the card holds resident, not
+// raytpu's `walkers` x 128 rays (which left ~4 warps an SM); claims of
+// `service_k` batches taken for a block and shared by its warps, so one
+// claim's batches run in parallel; and the K-wide window held in shared
+// memory, filled with 16-byte loads, not in registers. Four steps lost
+// and were reverted: a 64-ray dual batch on a pair of warps, one ray a
+// lane, voting through shared memory and a named barrier; the window
+// filled with cp.async; launch bounds of 8 blocks an SM (64 registers);
+// and a block of 4, 8 or 16 warps picked per launch to keep the most
+// warps walking where a launch has fewer claims than resident blocks
+// (its launch bounds of 512 threads cost the large waves more than it
+// gave the small ones).
+//
 // Options of raytpu's kernel, none of which changes a result, each a
 // template case of every form (closest, any-hit, mixed), so the strand
 // layout without counters keeps its code: the ribbon layout (rpo > 0:
@@ -127,30 +142,26 @@ extern "C" int strand_walk_mixed_launch(
 
 namespace {
 
-// The persistent grid: raytpu's `walkers` x 128 rays in flight, i.e.
-// walkers * 128 / 32 warps (/ 64 under kDual), in blocks of kBlock
-// threads, capped at the card's resident capacity for the instance: the
+// The persistent grid: the card's resident capacity for the instance (the
 // CUDA occupancy calculator's blocks per SM for its registers and shared
-// memory, times the card's SMs. With grid_out, only the grid is computed
-// and stored there.
+// memory, times the card's SMs), or fewer where the launch has fewer
+// claims than that (each block needs one to start). With grid_out, only
+// the grid is computed and stored there.
 template <bool kAny, bool kMixed, int kFetch, int kWidth>
-int launch_sched(const strand::Args& a, const strand::Sched& s, int walkers,
+int launch_sched(const strand::Args& a, const strand::Sched& s,
                  cudaStream_t stream, int* grid_out) {
   auto* kernel = strand::sched_kernel<kBlock, kAny, kMixed, kFetch, kWidth>;
-  const size_t smem = static_cast<size_t>(s.n_top) * strand::kNodeFloats *
-                      sizeof(float);
+  const size_t smem = strand::sched_smem<kBlock, kFetch, kWidth>(s.n_top);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
                                                 smem);
-  const int lanes = kFetch == strand::kDual ? 64 : 32;
-  const long long warps =
-      (static_cast<long long>(walkers) * 128 + lanes - 1) / lanes;
-  const long long blocks = (warps + kBlock / 32 - 1) / (kBlock / 32);
-  const int cap = per_sm * sms;
+  const long long cap = static_cast<long long>(per_sm) * sms;
   if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = static_cast<int>(blocks < cap ? blocks : cap);
+  const long long claims =
+      (static_cast<long long>(s.n_batches) + s.service_k - 1) / s.service_k;
+  const int grid = static_cast<int>(claims < cap ? claims : cap);
   if (grid_out != nullptr) {
     *grid_out = grid;
     return 0;
@@ -163,37 +174,34 @@ int launch_sched(const strand::Args& a, const strand::Sched& s, int walkers,
 
 template <bool kAny, bool kMixed>
 int launch_sched(const strand::Args& a, const strand::Sched& s, int fetch,
-                 int walkers, cudaStream_t stream, int* grid_out) {
+                 cudaStream_t stream, int* grid_out) {
   switch (fetch) {
     case strand::kLoad:
-      return launch_sched<kAny, kMixed, strand::kLoad, 1>(a, s, walkers,
-                                                          stream, grid_out);
+      return launch_sched<kAny, kMixed, strand::kLoad, 1>(a, s, stream,
+                                                          grid_out);
     case strand::kPipe:
-      return launch_sched<kAny, kMixed, strand::kPipe, 1>(a, s, walkers,
-                                                          stream, grid_out);
+      return launch_sched<kAny, kMixed, strand::kPipe, 1>(a, s, stream,
+                                                          grid_out);
     case strand::kDual:
-      return launch_sched<kAny, kMixed, strand::kDual, 1>(a, s, walkers,
-                                                          stream, grid_out);
+      return launch_sched<kAny, kMixed, strand::kDual, 1>(a, s, stream,
+                                                          grid_out);
     default:
       return s.ribbon_k <= 4
-                 ? launch_sched<kAny, kMixed, strand::kWide, 4>(
-                       a, s, walkers, stream, grid_out)
-                 : launch_sched<kAny, kMixed, strand::kWide, 8>(
-                       a, s, walkers, stream, grid_out);
+                 ? launch_sched<kAny, kMixed, strand::kWide, 4>(a, s, stream,
+                                                                grid_out)
+                 : launch_sched<kAny, kMixed, strand::kWide, 8>(a, s, stream,
+                                                                grid_out);
   }
 }
 
 int launch_sched(const strand::Args& a, const strand::Sched& s, int mode,
-                 int fetch, int walkers, cudaStream_t stream,
-                 int* grid_out) {
+                 int fetch, cudaStream_t stream, int* grid_out) {
   if (mode == 2) {
-    return launch_sched<false, true>(a, s, fetch, walkers, stream, grid_out);
+    return launch_sched<false, true>(a, s, fetch, stream, grid_out);
   }
   return mode == 1
-             ? launch_sched<true, false>(a, s, fetch, walkers, stream,
-                                         grid_out)
-             : launch_sched<false, false>(a, s, fetch, walkers, stream,
-                                          grid_out);
+             ? launch_sched<true, false>(a, s, fetch, stream, grid_out)
+             : launch_sched<false, false>(a, s, fetch, stream, grid_out);
 }
 
 }  // namespace
@@ -202,28 +210,28 @@ int launch_sched(const strand::Args& a, const strand::Sched& s, int mode,
 // 2 mixed (smask as strand_walk_mixed_launch; else null); fetch: 0 load,
 // 1 pipe, 2 dual, 3 ribbon (rpo > 0, 1 <= ribbon_k <= 8; the others need
 // rpo == 0); work: a device uint64 the launch zeroes on `stream`; stats:
-// null or int32 [8], zeroed, to which each warp adds its sums; walkers,
-// service_k >= 1; occ, the queued ray slots that fire a round; flush_pop
-// >= 1; ctl_every a power of two; unroll >= 1 (1 under fetch 3); n_top, the
-// nodes staged in shared memory under fetch 1 and 2 (<= 64 and <= n_nodes),
-// else 0. Returns the cudaGetLastError() code after the launch, 0 on
-// success, or cudaErrorInvalidValue for bad arguments (nothing launched).
+// null or int32 [8], zeroed, to which each warp adds its sums; service_k
+// >= 1; occ, the queued ray slots that fire a round; flush_pop >= 1;
+// ctl_every a power of two; unroll >= 1 (1 under fetch 3); n_top, the
+// nodes staged in shared memory under fetch 1 and 2 (<= 64 and <=
+// n_nodes), else 0. Returns the cudaGetLastError() code after the launch,
+// 0 on success, or cudaErrorInvalidValue for bad arguments (nothing
+// launched).
 extern "C" int strand_walk_sched_launch(
     const float* rows, const float* leaves, const int* first,
     const float* ro, const float* rd, const float* tmax, const float* smask,
     float* t_out, int* tri_out, int* stats, unsigned long long* work,
     int n_rays, int n_nodes, int n_leaf_rows, int rpo, int ribbon_k,
-    float tmin, float shadow_tmin, int mode, int fetch, int walkers,
-    int service_k, int occ, int flush_pop, int ctl_every, int unroll,
-    int n_top, void* stream) {
+    float tmin, float shadow_tmin, int mode, int fetch, int service_k,
+    int occ, int flush_pop, int ctl_every, int unroll, int n_top,
+    void* stream) {
   const bool wide = fetch == strand::kWide;
   if (bad_layout(rpo, ribbon_k) || (rpo > 0) != wide || fetch < 0 ||
       fetch > strand::kWide || mode < 0 || mode > 2 ||
-      (mode == 2) != (smask != nullptr) || walkers < 1 || service_k < 1 ||
-      occ < 1 || flush_pop < 1 || ctl_every < 1 ||
-      (ctl_every & (ctl_every - 1)) != 0 || unroll < 1 ||
-      (wide && unroll != 1) || n_top < 0 || n_top > strand::kTopNodes ||
-      n_top > n_nodes ||
+      (mode == 2) != (smask != nullptr) || service_k < 1 || occ < 1 ||
+      flush_pop < 1 || ctl_every < 1 || (ctl_every & (ctl_every - 1)) != 0 ||
+      unroll < 1 || (wide && unroll != 1) || n_top < 0 ||
+      n_top > strand::kTopNodes || n_top > n_nodes ||
       (n_top > 0 && fetch != strand::kPipe && fetch != strand::kDual)) {
     return cudaErrorInvalidValue;
   }
@@ -237,26 +245,31 @@ extern "C" int strand_walk_sched_launch(
                         service_k, occ,           flush_pop,
                         ctl_every - 1, unroll,    ribbon_k,
                         n_top};
-  return launch_sched(a, s, mode, fetch, walkers,
-                      static_cast<cudaStream_t>(stream), nullptr);
+  return launch_sched(a, s, mode, fetch, static_cast<cudaStream_t>(stream),
+                      nullptr);
 }
 
 // The grid (blocks of 128 threads) that strand_walk_sched_launch would
-// launch for mode, fetch (3: ribbon_k picks the window's width), walkers
-// and n_top on the current device, stored in *grid: raytpu's walkers x
-// 128 rays in flight, capped at the blocks the card holds resident.
+// launch for mode, fetch (3: ribbon_k picks the window's width), n_top,
+// n_rays and service_k on the current device, stored in *grid: the
+// blocks the card holds resident, or the launch's claims where fewer.
 // Returns 0, or a CUDA error code.
 extern "C" int strand_walk_sched_grid(int mode, int fetch, int ribbon_k,
-                                      int walkers, int n_top, int* grid) {
+                                      int n_top, int n_rays, int service_k,
+                                      int* grid) {
   if (mode < 0 || mode > 2 || fetch < 0 || fetch > strand::kWide ||
-      walkers < 1 || n_top < 0 || n_top > strand::kTopNodes) {
+      n_top < 0 || n_top > strand::kTopNodes || n_rays < 1 ||
+      service_k < 1) {
     return cudaErrorInvalidValue;
   }
   strand::Args a{};
   strand::Sched s{};
+  const int lanes = fetch == strand::kDual ? 64 : 32;
+  s.n_batches = (n_rays + lanes - 1) / lanes;
+  s.service_k = service_k;
   s.ribbon_k = ribbon_k;
   s.n_top = n_top;
-  return launch_sched(a, s, mode, fetch, walkers, nullptr, grid);
+  return launch_sched(a, s, mode, fetch, nullptr, grid);
 }
 
 extern "C" const char* strand_walk_error_string(int code) {

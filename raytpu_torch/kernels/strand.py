@@ -109,10 +109,15 @@ walk. Every per-ray form takes raytpu's keywords (``walkers``,
 given the rest take raytpu's kernel defaults (``SCHEDULE_DEFAULTS``) and
 raytpu's assertions raise ValueError (``_schedule``). On the card:
 
-* ``walkers``: a persistent grid of ``walkers * 128`` rays in flight (32
-  a warp, 64 under ``dual``), capped at the card's resident blocks; each
-  warp claims ``service_k`` batches of 32 rays (64 under ``dual``) with
-  one atomic and walks them one after another;
+* ``walkers`` is checked as raytpu checks it (>= 1, even under ``dual``)
+  and adds no code: the grid is persistent and fills the blocks the card
+  holds resident for the instance, whatever the pool's size (one block a
+  claim where the launch has fewer claims);
+* ``service_k``: a claim is ``service_k`` consecutive batches of 32 rays
+  (64 under ``dual``) taken with one atomic for a block, whose warps take
+  its batches one at a time, so one claim's batches run in parallel;
+  claims (counter [2]) are ``ceil(batches / service_k)`` whichever block
+  takes them;
 * ``flush_occ``, ``flush_pop``, ``ctl_every``, ``unroll``: a lane queues
   the leaves it reaches (at most ``QCAP``, then it stalls) and walks on;
   every ``ctl_every`` iterations of ``unroll`` steps the warp votes, and a
@@ -122,8 +127,9 @@ raytpu's assertions raise ValueError (``_schedule``). On the card:
 * ``pipe``: both successors of the held record load before its box test;
   ``dual``: two rays a thread; ``fetch_smem``: the top ``TOP_NODES``
   nodes, all octants, staged in shared memory a block; over ribbon rows
-  (``rpo > 0``) a fetch loads ``ribbon_k`` records of the row at once and
-  the in-row steps read them from registers;
+  (``rpo > 0``) a fetch loads ``ribbon_k`` records of the row at once into
+  the lane's window in shared memory and the in-row steps read them
+  there;
 * ``tree_any`` (tables past raytpu's VMEM budget) selects the pipelined
   form, as raytpu's assertions require: every table is in global memory
   on the card, so it adds nothing else. ``smem_cur`` and ``smem_pend``
@@ -505,10 +511,12 @@ def _schedule(rpo: int, n_nodes: int, **given) -> dict | None:
     """The schedule form's record from raytpu's keywords, or None (the
     while-while walk) when none is given. Unset keywords take raytpu's
     kernel defaults (``SCHEDULE_DEFAULTS``); raytpu's assertions
-    (``strand_persistent.py:118-164``) raise ValueError. ``smem_cur`` and
-    ``smem_pend`` mirror the TPU's scalar unit: they are normalised and
-    checked as raytpu does, and add no code (a thread keeps its cursor and
-    its popped leaf in registers)."""
+    (``strand_persistent.py:118-164``) raise ValueError. ``walkers``,
+    ``smem_cur`` and ``smem_pend`` are normalised and checked as raytpu
+    does, and add no code: the card's grid fills its resident capacity
+    whatever the pool's size, and a thread keeps its cursor and its popped
+    leaf in registers (the TPU's scalar unit holds them), so none of them
+    is in the record."""
     unknown = set(given) - set(SCHEDULE_DEFAULTS)
     if unknown:
         raise TypeError(f"unknown schedule keywords {sorted(unknown)}")
@@ -546,7 +554,7 @@ def _schedule(rpo: int, n_nodes: int, **given) -> dict | None:
             raise ValueError(msg)
     fetch = WIDE if ribbon else DUAL if k["dual"] else PIPE if pipe else LOAD
     lanes = 64 if fetch == DUAL else 32
-    return dict(fetch=fetch, walkers=walkers, service_k=service_k,
+    return dict(fetch=fetch, service_k=service_k,
                 occ=max(int(float(k["flush_occ"]) * lanes), 1),
                 flush_pop=pop, ctl_every=ctl, unroll=unroll,
                 n_top=min(TOP_NODES, n_nodes) if k["fetch_smem"] else 0)
@@ -757,9 +765,9 @@ def _library(name: str) -> ctypes.CDLL:
     stats, n_rays, n_nodes, n_leaf_rows, rpo, ribbon_k, tmin, shadow_tmin,
     stream) and its schedule form's (rows, leaves, first, ro, rd, tmax,
     smask, t, tri, stats, work, n_rays, n_nodes, n_leaf_rows, rpo,
-    ribbon_k, tmin, shadow_tmin, mode, fetch, walkers, service_k, occ,
-    flush_pop, ctl_every, unroll, n_top, stream), with its grid query
-    (mode, fetch, ribbon_k, walkers, n_top, int* grid)."""
+    ribbon_k, tmin, shadow_tmin, mode, fetch, service_k, occ, flush_pop,
+    ctl_every, unroll, n_top, stream), with its grid query (mode, fetch,
+    ribbon_k, n_top, n_rays, service_k, int* grid)."""
     from ._build import LOCK, load_library
 
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -780,10 +788,10 @@ def _library(name: str) -> ctypes.CDLL:
                     [ptr] * 10 + [i32] * 5 + [f32, f32, ptr])
                 lib.strand_walk_sched_launch.restype = ctypes.c_int
                 lib.strand_walk_sched_launch.argtypes = (
-                    [ptr] * 11 + [i32] * 5 + [f32, f32] + [i32] * 9 + [ptr])
+                    [ptr] * 11 + [i32] * 5 + [f32, f32] + [i32] * 8 + [ptr])
                 lib.strand_walk_sched_grid.restype = ctypes.c_int
                 lib.strand_walk_sched_grid.argtypes = (
-                    [i32] * 5 + [ctypes.POINTER(i32)])
+                    [i32] * 6 + [ctypes.POINTER(i32)])
             err = getattr(lib, name + "_error_string")
             err.restype = ctypes.c_char_p
             err.argtypes = [ctypes.c_int]
@@ -872,7 +880,7 @@ def _walk_launch(rows, leaf_tris, first, ro, rd, tmax, smask, tmin,
                 int(ribbon_k), float(tmin),
                 float(tmin if smask is None else second),
                 2 if smask is not None else int(second), sched["fetch"],
-                sched["walkers"], sched["service_k"], sched["occ"],
+                sched["service_k"], sched["occ"],
                 sched["flush_pop"], sched["ctl_every"], sched["unroll"],
                 sched["n_top"], torch.cuda.current_stream().cuda_stream)
         _raise_failed(lib, "strand_walk", rc)
@@ -893,18 +901,20 @@ def _walk_launch(rows, leaf_tris, first, ro, rd, tmax, smask, tmin,
     return t, tri, st, True
 
 
-def sched_grid(sched: dict, mode: int, ribbon_k: int = 4) -> int:
+def sched_grid(sched: dict, mode: int, n_rays: int,
+               ribbon_k: int = 4) -> int:
     """The grid, in blocks of 4 warps, that the schedule form ``sched``
-    (``_schedule``'s record) launches on the current CUDA device in mode
-    0 (closest-hit), 1 (any-hit) or 2 (mixed): raytpu's ``walkers`` x 128
-    rays in flight, capped at the blocks the card holds resident (the CUDA
-    occupancy calculator's blocks per SM for the instance's registers and
-    shared memory, times the SMs)."""
+    (``_schedule``'s record) launches for ``n_rays`` rays on the current
+    CUDA device in mode 0 (closest-hit), 1 (any-hit) or 2 (mixed): the
+    blocks the card holds resident (the CUDA occupancy calculator's blocks
+    per SM for the instance's registers and shared memory, times the SMs),
+    or the launch's claims of ``service_k`` batches where fewer. raytpu's
+    ``walkers`` does not enter it."""
     lib = _library("strand_walk")
     grid = ctypes.c_int(0)
     rc = lib.strand_walk_sched_grid(mode, sched["fetch"], ribbon_k,
-                                    sched["walkers"], sched["n_top"],
-                                    ctypes.byref(grid))
+                                    sched["n_top"], n_rays,
+                                    sched["service_k"], ctypes.byref(grid))
     _raise_failed(lib, "strand_walk", rc)
     return grid.value
 

@@ -3,6 +3,7 @@
 it exactly once into one file, and the wrappers' lazy initialisers load
 once."""
 
+import json
 import os
 import subprocess
 import sys
@@ -143,3 +144,53 @@ def test_sass_diff_compares_kernels_by_instructions(monkeypatch, capsys):
     assert sass_diff.main(["--old", "old", "--new", "renamed",
                            "--sources", "strand_walk"]) == 0
     assert "another name: {'k1': 'k1b'}" in capsys.readouterr().out
+
+
+def test_sass_diff_holds_named_templates_to_stored_digests(
+        monkeypatch, capsys, tmp_path):
+    """tools/sass_diff's digest file (nvcc stubbed): ``--write-digests``
+    stores the old checkout's instances of the ``--only`` templates with
+    the nvcc version; ``--digests`` holds a new checkout to it, failing
+    (exit 1) only where a held instance changed, never for another
+    template's; a file from another nvcc is not compared (exit 2)."""
+    from raytpu_torch.tools import sass_diff
+
+    walk = "_ZN6strand11walk_kernelILi128EEEvNS_4ArgsE"
+    sched = "_ZN6strand12sched_kernelILi128EEEvNS_4ArgsE"
+    sass = {"old": {walk: ["IADD R1, R2, R3", "EXIT"], sched: ["EXIT"]},
+            "same": {walk: ["IADD R1, R2, R3", "EXIT"], sched: ["NOP"]},
+            "changed": {walk: ["IADD R1, R2, R4", "EXIT"], sched: ["EXIT"]}}
+    built, version = {}, ["Build cuda_12.4.r12.4"]
+
+    def run(cmd, **kwargs):
+        if cmd[0] == "nvcc" and "--version" in cmd:
+            return subprocess.CompletedProcess(cmd, 0, "nvcc\n" + version[0],
+                                               "")
+        if cmd[0] == "nvcc":
+            built[cmd[cmd.index("-o") + 1]] = cmd[-1].split(os.sep)[0]
+            return subprocess.CompletedProcess(cmd, 0, "", "")
+        lines = []
+        for name, code in sass[built[cmd[-1]]].items():
+            lines.append(f"\t\tFunction : {name}")
+            lines += [f"        /*{16 * i:04x}*/  {op} ;" for i, op in
+                      enumerate(code)]
+        return subprocess.CompletedProcess(cmd, 0, "\n".join(lines), "")
+
+    monkeypatch.setattr(sass_diff, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(sass_diff.subprocess, "run", run)
+    file = str(tmp_path / "digests.json")
+    assert sass_diff.main(["--old", "old", "--new", "same", "--sources",
+                           "strand_walk", "--only", "walk_kernel",
+                           "--write-digests", file]) == 0
+    out = capsys.readouterr().out
+    assert "1 of the old checkout's 1 kernels of ['walk_kernel']" in out
+    assert sched in out  # listed apart: it changed, and is not held
+    with open(file) as f:
+        stored = json.load(f)
+    assert stored["sources"] == {"strand_walk": {
+        walk: sass_diff.digest([f"{op} ;" for op in sass["old"][walk]])}}
+    assert sass_diff.main(["--digests", file, "--new", "same"]) == 0
+    assert sass_diff.main(["--digests", file, "--new", "changed"]) == 1
+    assert f"differ: ['{walk}']" in capsys.readouterr().out
+    version[0] = "Build cuda_12.8.r12.8"
+    assert sass_diff.main(["--digests", file, "--new", "changed"]) == 2

@@ -11,8 +11,9 @@ values worked out by hand on a two-leaf scene, and, in a child process,
 to raytpu's kernels in interpret mode. The factories are held to raytpu's
 (which kernel and keywords each variable reaches, read at factory time),
 and ``auto`` to raytpu's budget rule. The CUDA forms are held to the plain
-versions by the ``cuda``-marked test and by chip_smoke.py (phases 3i,
-12)."""
+versions by the ``cuda``-marked tests (also over pool sizes, claim
+sizes and the deferral form's G and skip_done) and by chip_smoke.py
+(phases 3i, 12)."""
 
 import functools
 
@@ -416,6 +417,39 @@ def test_deferral_counters_on_two_leaves(groups):
     assert torch.equal(blocked >= 0, torch.arange(64) < 48)
 
 
+@pytest.mark.parametrize("mode", ["closest", "mixed"])
+@pytest.mark.parametrize("form", list(strand.SCHED_FORMS))
+def test_plain_form_does_not_depend_on_walkers(form, mode):
+    """``walkers`` is checked and adds no code: the schedule record has no
+    pool size, and each form's plain walk returns the same t, tri and
+    counters at 1 (2 under dual, raytpu's even pool), 128 and 4096
+    walkers, on a ray count whose batches fill no block of 4 warps."""
+    rows, rib, rpo, leaf, first, ro, rd = _scene("300")
+    n = SWEEP_RAYS
+    ro, rd = ro[:n].contiguous(), rd[:n].contiguous()
+    closest, _, mixed, smask = _bounds(n)
+    runs = []
+    for walkers in (2 if form == "dual" else 1, 128, 4096):
+        tree, kw = _walk(dict(FORM_SETS[form], walkers=walkers), rows, rib,
+                         rpo)
+        sched = strand._schedule(kw.get("rpo", 0),
+                                 strand._n_nodes(tree, kw.get("rpo", 0)),
+                                 **{k: v for k, v in kw.items()
+                                    if k not in ("rpo", "ribbon_k")})
+        assert "walkers" not in sched
+        runs.append((sched, strand_mixed_query_torch(
+            tree, leaf, first, ro, rd, mixed, smask, 0.001, 0.0, stats=True,
+            **kw) if mode == "mixed" else strand_query_torch(
+            tree, leaf, first, ro, rd, closest, 0.001, False, stats=True,
+            **kw)))
+    (s0, (t0, tri0, st0)), *rest = runs
+    for s, (t, tri, st) in rest:
+        assert s == s0
+        assert torch.equal(t.view(torch.int32), t0.view(torch.int32))
+        assert torch.equal(tri, tri0) and torch.equal(st, st0)
+    assert st0[3] == -(-n // (64 if form == "dual" else 32))
+
+
 @isolated
 def test_plain_forms_match_raytpu_kernels():
     """raytpu's persistent kernel at a non-default schedule (walkers 8,
@@ -770,19 +804,35 @@ def test_window_fetch_bit_equal_plain_on_cuda(kind, k):
     assert torch.equal(got[2], want[2])
 
 
+# the launch shapes the cuda cases also sweep: raytpu's pool sizes (which
+# add no code) with claim sizes, and the K-wide form at K 8, on 430 rays:
+# 14 batches of 32 rays and 7 of 64, so the last block's warps are not all
+# busy, and the last batch is partial
+POOLS = [(1, 1), (128, 16), (4096, 64), (1, 64), (4096, 1)]
+SWEEP_RAYS = 430
+CASES = ([(kind, form, {}, N_RAYS) for kind, form in FORMS]
+         + [(kind, form, dict(walkers=w * 2 if form == "dual" and w == 1
+                              else w, service_k=k), SWEEP_RAYS)
+            for kind in ("strand", "mixed") for form in strand.SCHED_FORMS
+            for w, k in POOLS]
+         + [(kind, "wide", dict(ribbon_k=8, service_k=k), SWEEP_RAYS)
+            for kind in ("strand", "mixed") for k in (1, 16, 64)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,form", FORMS)
-def test_schedule_form_bit_equal_plain_on_cuda(kind, form):
+@pytest.mark.parametrize("kind,form,sweep,n", CASES, ids=lambda v: str(v))
+def test_schedule_form_bit_equal_plain_on_cuda(kind, form, sweep, n):
     """Each form of strand_walk.cu's schedule and strand_block.cu's
     deferral against its plain version (t, tri, every counter) and the
     default instance (t bits and the tie key, the blocked bit), counting
-    one launch of its form."""
+    one launch of its form; the schedule forms also at each launch shape
+    of the sweep (``sweep``'s keywords over the form's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
     rows, rib, rpo, leaf, first, ro, rd = (
         x.cuda() if isinstance(x, torch.Tensor) else x
         for x in _scene("3000"))
-    n = ro.shape[0]
+    ro, rd = ro[:n].contiguous(), rd[:n].contiguous()
     closest, shadow, mixed, smask = (x.cuda() for x in _bounds(n))
     if kind == "block":
         args = (rows, leaf, first, ro, rd, closest, 0.001, False)
@@ -793,7 +843,7 @@ def test_schedule_form_bit_equal_plain_on_cuda(kind, form):
         default = strand.strand_block_query_cuda(*args)
         shadow_lanes = torch.zeros(n, dtype=torch.bool, device="cuda")
     else:
-        tree, kw = _walk(FORM_SETS[form], rows, rib, rpo)
+        tree, kw = _walk(dict(FORM_SETS[form], **sweep), rows, rib, rpo)
         fn = (strand.strand_query_cuda if kind == "strand"
               else strand.strand_mixed_query_cuda)
         if kind == "strand":
@@ -813,3 +863,35 @@ def test_schedule_form_bit_equal_plain_on_cuda(kind, form):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     _same_contract(got, default, first, shadow_lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "any-hit"])
+@pytest.mark.parametrize("skip_done", [False, True])
+@pytest.mark.parametrize("groups", [1, 4, 16, 32])
+def test_deferral_form_bit_equal_plain_on_cuda(groups, skip_done, mode):
+    """strand_block.cu's deferral form at G strands a block, with and
+    without skip_done, against its plain version: t bits, tri and every
+    strand's steps, leaves pushed and block rounds; and the default block
+    walk on the contract (t bits and tie key, the blocked bit). 430 rays:
+    14 strands, which fill no block of 4, 16 or 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
+    rows, _, _, leaf, first, ro, rd = (
+        x.cuda() if isinstance(x, torch.Tensor) else x
+        for x in _scene("3000"))
+    n = SWEEP_RAYS
+    ro, rd = ro[:n].contiguous(), rd[:n].contiguous()
+    closest, shadow, _, _ = (x.cuda() for x in _bounds(n))
+    any_hit = mode == "any-hit"
+    args = (rows, leaf, first, ro, rd, shadow if any_hit else closest,
+            0.0 if any_hit else 0.001, any_hit)
+    kw = dict(defer=True, groups=groups, skip_done=skip_done)
+    got = strand.strand_block_query_cuda(*args, True, **kw)
+    want = strand_block_query_torch(*args, True, **kw)
+    default = strand.strand_block_query_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _same_contract(got, default, first, torch.full((n,), any_hit,
+                                                   device="cuda"))
