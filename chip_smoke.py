@@ -505,6 +505,16 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
+def same_walk(a, b, skip: int = 0) -> bool:
+    """Two strand walks' outputs agree bit for bit: t, tri and, where both
+    carry them, the int32 [8] counters from [skip] on."""
+    import torch
+
+    return (same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x[skip:], y[skip:])
+                    for x, y in zip(a[2:], b[2:])))
+
+
 def brute_mismatches(t_k, tri_k, t_b, tri_b, order) -> int:
     """Lanes where the kernel and the brute sweep disagree on hit/miss,
     on the original triangle, or on t. Slots are compared through
@@ -836,9 +846,9 @@ def phase_device():
 
 def start_sass_check():
     """Start tools/sass_diff on this checkout's strand sources against the
-    stored digests of the default instances' machine code
-    (``raytpu_torch/tools/sass_digests.json``: walk_kernel and block_kernel
-    as the commit before the schedule and deferral forms were redesigned
+    stored digests (``raytpu_torch/tools/sass_digests.json``: walk_kernel's
+    6 instances without an option and block_kernel's 2, as the commit
+    before walk_kernel's K-wide fetch and stats counters were redesigned
     compiled them), in a process group of its own beside the build."""
     from raytpu_torch.tools.sass_diff import DIGESTS
 
@@ -849,17 +859,22 @@ def start_sass_check():
 
 
 def phase_sass(proc) -> None:
-    """Phase 2b: the sass_diff run's report; fails if a default instance's
-    instructions changed (a digest file from another nvcc is reported as
-    not comparable)."""
+    """Phase 2b: the sass_diff run's report; fails, naming the held
+    instances, if one's instructions changed (a digest file from another
+    nvcc is reported as not comparable)."""
+    from raytpu_torch.tools.sass_diff import DIGESTS
+
+    with open(DIGESTS) as f:
+        held = [instance_name(k) for src in json.load(f)["sources"].values()
+                for k in src]
     out, _ = proc.communicate(timeout=900)
-    print("phase 2b machine code of the default walk_kernel and "
-          "block_kernel instances, against the stored digests "
+    print(f"phase 2b machine code of the {len(held)} held instances "
+          f"({', '.join(held)}), against the stored digests "
           f"(tools/sass_diff, rc {proc.returncode}): "
           + " | ".join(out.strip().splitlines()))
     if proc.returncode not in (0, 2):
-        fail("phase 2b: a default instance no longer compiles to the "
-             "stored instructions")
+        fail(f"phase 2b: a held instance of {held} no longer compiles to "
+             "the stored instructions (see the differ list above)")
 
 
 def phase_build():
@@ -879,14 +894,11 @@ def phase_build():
         built = list(pool.map(build, names))
     notes = []
     for name, secs in built:
-        # ptxas -v: each kernel's mangled name, then its stack, spills and
-        # registers
-        ptxas = [line.split()[-1] if "Function properties" in line
-                 else line.strip()
-                 for line in _build.build_log(name).splitlines()
-                 if "registers" in line or "spill" in line
-                 or "Function properties" in line]
-        notes.append(f"{name}.cu in {secs:.2f} s: " + " | ".join(ptxas))
+        # ptxas -v: each kernel's registers, spills and shared memory
+        notes.append(f"{name}.cu in {secs:.2f} s: " + " | ".join(
+            f"{k} {r['registers']} registers, {r['spill_stores']} B spill "
+            f"stores, {r['spill_loads']} B spill loads, {r['smem']} B smem"
+            for k, r in _build.kernel_resources(name).items()))
     print(f"phase 2 build: ok — {len(built)} sources in "
           f"{time.perf_counter() - t0:.2f} s; " + "; ".join(notes))
 
@@ -1160,10 +1172,11 @@ def phase_ribbon_kernel(errs: dict) -> None:
     """Phase 3g: strand_walk over ribbon rows (rpo = rows per octant) on
     phase 3's 3 soups x 65536 rays, closest-hit, any-hit and mixed, one
     record a step (ribbon_k 1) and with the K-wide fetch (ribbon_k 4 and
-    8): bit for bit (t and tri of every lane, and the stats counters,
-    stats=True, int32 [8]) against its plain version and against the
-    strand layout's launch (the K-wide fetch: t, tri and every counter but
-    [0], which counts its windows)."""
+    8), each instance without and with stats: bit for bit (t and tri of
+    every lane, and with stats=True the int32 [8] counters) against its
+    plain version and against the strand layout's launch (the K-wide
+    fetch: t, tri and every counter but [0], which counts its windows);
+    then stats_sweep at STATS_RAYS."""
     import torch
 
     from raytpu_torch.accel.strandtree import (
@@ -1184,6 +1197,7 @@ def phase_ribbon_kernel(errs: dict) -> None:
         leaf = to_card(per.reshape(-1, 80))
         first = first_slots(leaf)
         rib = build_ribbon_tree(bvh)
+        rib_rows = to_card(rib.rows)
         strand_rows = to_card(build_strand_tree(bvh).rows)
         rpo = rib.rows_per_oct
         ro, rd = (to_card(a) for a in soup_rays(65536, seed=ntri))
@@ -1198,41 +1212,100 @@ def phase_ribbon_kernel(errs: dict) -> None:
         stats = []
         for form, kernel, plain, tail in forms:
             head = (leaf, first, ro, rd, *tail)
-            k0 = kernel(strand_rows, *head, stats=True)
-            p0 = plain(strand_rows, *head, stats=True)
-            out = {k: (kernel(to_card(rib.rows), *head, rpo=rpo, ribbon_k=k,
-                              stats=True),
-                       plain(to_card(rib.rows), *head, rpo=rpo, ribbon_k=k,
-                             stats=True)) for k in (1, 4, 8)}
-            torch.cuda.synchronize()
-            checks = [("strand kernel vs plain", k0, p0, 0)]
-            for k, (k1, p1) in out.items():
-                # the K-wide fetch's stats[0] counts its windows
-                checks += [(f"ribbon K={k} kernel vs plain", k1, p1, 0),
-                           (f"ribbon K={k} vs strand kernel", k1, k0,
-                            0 if k == 1 else 1)]
-            for what, a, b, skip in checks:
-                if not (same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
-                        and torch.equal(a[2][skip:], b[2][skip:])):
-                    fail(f"phase 3g {ntri} tris {form}: {what} differ on "
-                         f"{int((a[1] != b[1]).sum())} tri, stats "
-                         f"{a[2].tolist()} vs {b[2].tolist()}")
             mixed = "mixed_" if form == "mixed" else ""
-            errs[f"strand_{mixed}ribbon"].append(t_err(out[1][0][0],
-                                                       out[1][1][0]))
-            for k in (4, 8):
-                errs[f"strand_{mixed}ribbon_wide"].append(
-                    t_err(out[k][0][0], out[k][1][0]))
+            for st in (False, True):
+                k0 = kernel(strand_rows, *head, stats=st)
+                p0 = plain(strand_rows, *head, stats=st)
+                out = {k: (kernel(rib_rows, *head, rpo=rpo, ribbon_k=k,
+                                  stats=st),
+                           plain(rib_rows, *head, rpo=rpo, ribbon_k=k,
+                                 stats=st)) for k in (1, 4, 8)}
+                torch.cuda.synchronize()
+                checks = [("strand kernel vs plain", k0, p0, 0)]
+                for k, (k1, p1) in out.items():
+                    # the K-wide fetch's stats[0] counts its windows
+                    checks += [(f"ribbon K={k} kernel vs plain", k1, p1, 0),
+                               (f"ribbon K={k} vs strand kernel", k1, k0,
+                                0 if k == 1 else 1)]
+                for what, a, b, skip in checks:
+                    if not same_walk(a, b, skip):
+                        fail(f"phase 3g {ntri} tris {form} stats={st}: "
+                             f"{what} differ on {int((a[1] != b[1]).sum())} "
+                             f"tri, stats {[x.tolist() for x in a[2:]]} vs "
+                             f"{[x.tolist() for x in b[2:]]}")
+                errs[f"strand_{mixed}ribbon"].append(t_err(out[1][0][0],
+                                                           out[1][1][0]))
+                for k in (4, 8):
+                    errs[f"strand_{mixed}ribbon_wide"].append(
+                        t_err(out[k][0][0], out[k][1][0]))
             stats.append(f"{form} {out[1][0][2].tolist()}, fetches K=4 "
                          f"{int(out[4][0][2][0])}, K=8 {int(out[8][0][2][0])}")
         notes.append(f"{ntri} tris (rpo {rib.rows_per_oct}): "
                      + ", ".join(stats))
+    ragged = stats_sweep(strand_rows, rib_rows, rpo, leaf, first)
     print("phase 3g strand_walk over ribbon rows, one record a step and the "
-          "K-wide fetch (K 4, 8): bit-equal (t, tri, stats) to its plain "
-          "version and to the strand layout's launch (the K-wide fetch's "
-          "stats[0] apart: its windows) on 3 soups x 65536 rays, closest, "
-          "any-hit and mixed; stats [loads, 0, 0, installs, leaf tests, leaf "
-          "rows reached, 0, 0]: " + "; ".join(notes))
+          "K-wide fetch (K 4, 8), each without and with stats: bit-equal (t, "
+          "tri, stats) to its plain version and to the strand layout's "
+          "launch (the K-wide fetch's stats[0] apart: its windows) on 3 "
+          "soups x 65536 rays, closest, any-hit and mixed; stats [loads, 0, "
+          "0, installs, leaf tests, leaf rows reached, 0, 0]: "
+          + "; ".join(notes) + f"; at {STATS_RAYS} rays (3000 tris, strand "
+          "rows and ribbon K 1, 2, 4, 5, 8, closest, any-hit, mixed, each "
+          "without and with stats), each bit-equal (t, tri, stats) to its "
+          f"plain version: {ragged}")
+
+
+# phase 3g's ray counts for the stats instances: a partial warp, a warp
+# and one lane, a partial block (65,435 = 511 blocks of 4 warps and 27
+# lanes), and a 1080p-sized wave with a partial warp
+STATS_RAYS = (1, 31, 33, 65536 - 101, 2**20 + 7)
+
+
+def stats_sweep(strand_rows, rib_rows, rpo, leaf, first) -> str:
+    """Every walk_kernel instance of the strand walks (strand rows; ribbon
+    rows at K 1 and with the K-wide fetch at K 2, 4, 5, 8; closest-hit,
+    any-hit, mixed), without and with stats, against its plain version at
+    each of STATS_RAYS rays: t, tri and the int32 [8] counters, which each
+    block of 4 warps sums before one atomic a counter (the plain walk's t
+    and tri do not depend on ``stats``: one plain run serves both).
+    Returns the closest-hit strand counters per ray count."""
+    import torch
+
+    from raytpu_torch.kernels.strand import (
+        strand_mixed_query_cuda,
+        strand_mixed_query_torch,
+        strand_query_cuda,
+        strand_query_torch,
+    )
+
+    notes = []
+    for n in STATS_RAYS:
+        ro, rd = (to_card(a) for a in soup_rays(n, seed=n))
+        tmax, smask = mixed_lanes(n, "cuda")
+        for form, kernel, plain, tail in (
+                ("closest", strand_query_cuda, strand_query_torch,
+                 (tmax, 0.001, False)),
+                ("any-hit", strand_query_cuda, strand_query_torch,
+                 (tmax, 0.0, True)),
+                ("mixed", strand_mixed_query_cuda, strand_mixed_query_torch,
+                 (tmax, smask, 0.001, 0.0))):
+            args = (leaf, first, ro, rd, *tail)
+            for rows, kw in ((strand_rows, {}),
+                             *((rib_rows, dict(rpo=rpo, ribbon_k=k))
+                               for k in (1, 2, 4, 5, 8))):
+                want = plain(rows, *args, stats=True, **kw)
+                for st in (False, True):
+                    got = kernel(rows, *args, stats=st, **kw)
+                    torch.cuda.synchronize()
+                    if not same_walk(got, want):
+                        fail(f"phase 3g {n} rays {form} "
+                             f"{kw or 'strand rows'} stats={st}: t, tri or "
+                             f"stats differ from the plain version's "
+                             f"({[x.tolist() for x in got[2:]]} vs "
+                             f"{want[2].tolist()})")
+                if form == "closest" and not kw:
+                    notes.append(f"{n}: {got[2].tolist()}")
+    return ", ".join(notes)
 
 
 def phase_near_kernel(errs: dict) -> int:
@@ -3122,7 +3195,7 @@ def plain_run(fn) -> tuple:
     return (time.perf_counter() - t0) * 1e3, out, work
 
 
-def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> dict:
+def phase_ribbon_route(main_rec: dict, mixed_rec: dict, errs: dict) -> dict:
     """Phase 11a: phase 5's pack and configuration with RAYTPU_RIBBON=1 and
     then =4 (each set just before, restored just after), the counts set to
     0 before the frames and read after: every strand query on strand_walk
@@ -3130,15 +3203,22 @@ def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> dict:
     fetch (K 4), each PNG equal to phase 5's; then phase 10a's
     configuration (deferred NEE through the strand walk's mixed form) with
     the same knobs, each PNG equal to 10a's. On phase 5's 1080p primary
-    wave, strand_walk over ribbon rows at K 1, 4 and 8 beside the strand
-    layout (CUDA events, in turns) and with stats=True (the counters'
-    cost), the plain versions (bit-equal with stats); on 10a's largest
-    mixed query the mixed forms the same way. Every form is bound by the
-    strand layout's plain walk on the same rays (the same visits). Returns
-    the four forms' records."""
+    wave and on 10a's largest mixed query: strand_walk over the strand
+    rows and over ribbon rows at K 1, 4 and 8, each with and without
+    stats=True, all in turns (CUDA events), so that each K-wide fetch is
+    timed beside K 1 and each stats instance beside its twin; each of
+    these instances bit-equal to its plain version (t, tri, with stats
+    every counter; on the mixed query t and tri of the closest lanes, the
+    blocked bit of the shadow lanes) and to the strand layout's instance
+    (the K-wide fetch's [0], its windows, apart), the errors of the timed
+    instances (without stats) going to ``errs``; and every walk_kernel
+    instance's registers, spills and shared memory from ptxas's report.
+    Every form is bound by the strand layout's plain walk on the same rays
+    (the same visits). Returns the four forms' records."""
     import torch
 
     from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.kernels import _build
     from raytpu_torch.kernels.strand import (
         strand_mixed_query_cuda,
         strand_mixed_query_torch,
@@ -3186,70 +3266,108 @@ def phase_ribbon_route(main_rec: dict, mixed_rec: dict) -> dict:
     n = ro.shape[0]
     tmax = torch.full((n,), F32_MAX, device="cuda")
     wave = (leaf, first, ro, rd, tmax, 0.001, False)
-    calls = {"strand": lambda: strand_query_cuda(strand_rows, *wave)}
-    for k in (1, 4, 8):
-        calls[f"ribbon K={k}"] = (lambda k=k: strand_query_cuda(
-            rib, *wave, rpo=rpo, ribbon_k=k))
-    calls["strand+stats"] = lambda: strand_query_cuda(strand_rows, *wave,
-                                                      stats=True)
-    for k in (1, 4):
-        calls[f"ribbon K={k}+stats"] = (lambda k=k: strand_query_cuda(
-            rib, *wave, rpo=rpo, ribbon_k=k, stats=True))
-    ms = in_turns(calls)
-    k0 = strand_query_cuda(strand_rows, *wave, stats=True)
-    _, _, work = plain_run(lambda c: strand_query_torch(strand_rows, *wave,
-                                                        c))
-    recs, fetched = {}, {}
-    for k, key in ((1, "strand_ribbon"), (4, "strand_ribbon_wide")):
-        got = strand_query_cuda(rib, *wave, rpo=rpo, ribbon_k=k, stats=True)
-        plain_ms, p, _ = plain_run(lambda c: strand_query_torch(
-            rib, *wave, c, rpo=rpo, ribbon_k=k, stats=True))
-        skip = 0 if k == 1 else 1  # the K-wide fetch's [0]: its windows
-        if not (same_bits(got[0], p[0]) and torch.equal(got[1], p[1])
-                and torch.equal(got[2], p[2]) and same_bits(got[0], k0[0])
-                and torch.equal(got[1], k0[1])
-                and torch.equal(got[2][skip:], k0[2][skip:])):
-            fail(f"phase 11a: the ribbon kernel (K {k}) != its plain version "
-                 "or the strand layout on the primary wave")
-        fetched[k] = got[2].tolist()
-        recs[key] = dict(launches=launches[key], ms=ms[f"ribbon K={k}"],
-                         plain_ms=plain_ms, **walk_bound(work, n, 28))
     q = mixed_rec["query"]
     margs = (leaf, first, *q)
-    mcalls = {"strand": lambda: strand_mixed_query_cuda(strand_rows, *margs)}
-    for k in (1, 4, 8):
-        mcalls[f"ribbon K={k}"] = (lambda k=k: strand_mixed_query_cuda(
-            rib, *margs, rpo=rpo, ribbon_k=k))
-    mms = in_turns(mcalls)
-    mk0 = strand_mixed_query_cuda(strand_rows, *margs)
-    _, _, mwork = plain_run(lambda c: strand_mixed_query_torch(
-        strand_rows, *margs, c))
-    for k, key in ((1, "strand_mixed_ribbon"),
-                   (4, "strand_mixed_ribbon_wide")):
-        mk = strand_mixed_query_cuda(rib, *margs, rpo=rpo, ribbon_k=k)
-        mplain_ms, mp, _ = plain_run(lambda c: strand_mixed_query_torch(
-            rib, *margs, c, rpo=rpo, ribbon_k=k))
-        if not (mixed_same(*mk, *mp, q[3]) and same_bits(mk[0], mk0[0])
-                and torch.equal(mk[1], mk0[1])):
-            fail(f"phase 11a: the mixed ribbon kernel (K {k}) != its plain "
-                 "version or the strand layout on 10a's largest mixed query")
-        recs[key] = dict(launches=launches[key], ms=mms[f"ribbon K={k}"],
-                         plain_ms=mplain_ms,
-                         **walk_bound(mwork, q[0].shape[0], 32))
-    print(f"phase 11a primary wave ({n} rays), in turns, ms a launch: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-          + f"; stats K=1 {fetched[1]}, K=4 {fetched[4]}; each bit-equal to "
-          f"its plain version (t, tri, stats) and to the strand layout (t, "
-          f"tri, stats but K=4's [0]); plain K=1 "
-          f"{recs['strand_ribbon']['plain_ms']:.1f} ms, K=4 "
+    forms = (("primary", strand_query_cuda, strand_query_torch, wave),
+             ("mixed", strand_mixed_query_cuda, strand_mixed_query_torch,
+              margs))
+    # each layout and K with and without stats, in turns (a b ... b a)
+    ms = {}
+    for label, kernel, _, args in forms:
+        calls = {}
+        for st in (False, True):
+            tag = "+stats" if st else ""
+            calls["strand" + tag] = (lambda a=args, st=st: kernel(
+                strand_rows, *a, stats=st))
+            for k in (1, 4, 8):
+                calls[f"ribbon K={k}{tag}"] = (lambda a=args, k=k, st=st:
+                                               kernel(rib, *a, rpo=rpo,
+                                                      ribbon_k=k, stats=st))
+        ms[label] = in_turns(calls)
+    recs, fetched = {}, {}
+    for label, kernel, plain, args in forms:
+        mixed = label == "mixed"
+
+        def to_plain(a, b):
+            return ((mixed_same(*a[:2], *b[:2], q[3]) if mixed else
+                     same_walk(a[:2], b[:2]))
+                    and all(torch.equal(x, y) for x, y in zip(a[2:], b[2:])))
+
+        for st in (False, True):
+            k0 = kernel(strand_rows, *args, stats=st)
+            _, p0, work = plain_run(lambda c: plain(strand_rows, *args, c,
+                                                    stats=st))
+            if not to_plain(k0, p0):
+                fail(f"phase 11a {label} stats={st}: the strand layout's "
+                     f"kernel != its plain version (t, tri, stats "
+                     f"{[x.tolist() for x in k0[2:]]} / "
+                     f"{[x.tolist() for x in p0[2:]]})")
+            for k in (1, 4, 8):
+                got = kernel(rib, *args, rpo=rpo, ribbon_k=k, stats=st)
+                plain_ms, p, _ = plain_run(lambda c: plain(
+                    rib, *args, c, rpo=rpo, ribbon_k=k, stats=st))
+                skip = 0 if k == 1 else 1  # the K-wide fetch's [0]: windows
+                if not (to_plain(got, p) and same_walk(got, k0, skip)):
+                    fail(f"phase 11a {label} stats={st}: the ribbon kernel "
+                         f"(K {k}) != its plain version or the strand layout "
+                         f"(t, tri, stats {[x.tolist() for x in got[2:]]} / "
+                         f"{[x.tolist() for x in p[2:]]} / "
+                         f"{[x.tolist() for x in k0[2:]]})")
+                if st:
+                    fetched[f"{label} K={k}"] = got[2].tolist()
+                    continue
+                key = ("strand_mixed_" if mixed else "strand_") + (
+                    "ribbon" if k == 1 else "ribbon_wide")
+                errs[key].append(t_err(got[0], p[0]))
+                if k == 8:
+                    continue
+                recs[key] = dict(launches=launches[key],
+                                 ms=ms[label][f"ribbon K={k}"],
+                                 plain_ms=plain_ms,
+                                 **walk_bound(work, args[2].shape[0],
+                                              32 if mixed else 28))
+    regs = {instance_name(name)[12:]: r for name, r in
+            _build.kernel_resources("strand_walk").items()
+            if "walk_kernel" in name}
+    b = recs["strand_ribbon"], recs["strand_mixed_ribbon"]
+    print(f"phase 11a in turns, ms a launch (each layout and K with and "
+          f"without stats): primary wave ({n} rays) " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ms["primary"].items())
+          + f"; 10a's largest mixed query ({q[0].shape[0]} lanes) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms["mixed"].items())
+          + "; stats/twin " + ", ".join(
+              f"{label} {k} {ms[label][k + '+stats'] / ms[label][k]:.3f}"
+              for label in ms for k in ("strand", "ribbon K=1", "ribbon K=4",
+                                        "ribbon K=8"))
+          + "; K-wide/K=1 " + ", ".join(
+              f"{label} K={k} {ms[label][f'ribbon K={k}'] / ms[label]['ribbon K=1']:.3f}"
+              for label in ms for k in (4, 8))
+          + f"; stats {fetched}; each, without and with stats, bit-equal "
+          "to its plain version (t, tri, stats) and to the strand layout (t, "
+          "tri, stats but the K-wide fetch's [0]); plain K=1 {b[0]['plain_ms']:.1f} ms, K=4 "
           f"{recs['strand_ribbon_wide']['plain_ms']:.1f} ms; bound "
-          f"{recs['strand_ribbon']['bound_ms']:.4f} ms "
-          f"({recs['strand_ribbon']['bound_by']}); 10a's largest mixed query "
-          f"({q[0].shape[0]} lanes): " + ", ".join(
-              f"{k} {v:.4f}" for k, v in mms.items())
-          + f", bound {recs['strand_mixed_ribbon']['bound_ms']:.4f} ms "
-          f"({recs['strand_mixed_ribbon']['bound_by']})")
+          f"{b[0]['bound_ms']:.4f} ms ({b[0]['bound_by']}), mixed "
+          f"{b[1]['bound_ms']:.4f} ms ({b[1]['bound_by']}); walk_kernel "
+          "registers / spill stores / spill loads / smem bytes: " + ", ".join(
+              f"{k} {r['registers']}/{r['spill_stores']}/{r['spill_loads']}/"
+              f"{r['smem']}" for k, r in sorted(regs.items())))
     return recs
+
+
+def instance_name(mangled: str) -> str:
+    """walk_kernel<128, kAny, kMixed, kRibbon, kStats>'s instance as
+    "walk_kernel closest|any|mixed K<kRibbon>[ stats]" (K0: strand rows),
+    block_kernel<128, kAny>'s as "block_kernel closest|any"."""
+    import re
+
+    m = re.search(r"walk_kernelILi128ELb(\d)ELb(\d)ELi(\d+)ELb(\d)E",
+                  mangled)
+    if m is None:
+        m = re.search(r"block_kernelILi128ELb(\d)E", mangled)
+        return "block_kernel " + ("any" if m.group(1) == "1" else "closest")
+    any_, mixed, k, st = m.groups()
+    mode = "mixed" if mixed == "1" else "any" if any_ == "1" else "closest"
+    return f"walk_kernel {mode} K{k}" + (" stats" if st == "1" else "")
 
 
 def phase_near_route(flat_rec: dict, mixed_rec: dict,
@@ -4101,7 +4219,7 @@ def main() -> int:
             phase_sorted_arms(recs["strand"])
         with timed(secs, "11a"):
             recs.update(phase_ribbon_route(recs["strand"],
-                                           recs["strand_mixed"]))
+                                           recs["strand_mixed"], errs))
         with timed(secs, "11b"):
             recs["packet_near"], recs["packet_mixed_near"] = phase_near_route(
                 recs["packet"], recs["strand_mixed"], packet_mixed_near)

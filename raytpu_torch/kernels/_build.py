@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -95,3 +96,30 @@ def build_log(name: str) -> str:
     """The compiler output kept from the build of ``csrc/<name>.cu``."""
     with open(library_path(name) + ".log") as f:
         return f.read()
+
+
+def kernel_resources(name: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "smem"}} from ptxas's report in the build log of ``csrc/<name>.cu``
+    (bytes for spills and static shared memory)."""
+    out, kernel = {}, None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = dict(registers=0, spill_stores=0, spill_loads=0,
+                               smem=0)
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[kernel].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[kernel]["smem"] = int(s.group(1)) if s else 0
+    return out

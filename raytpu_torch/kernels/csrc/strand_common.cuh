@@ -109,25 +109,49 @@ struct Args {
 // oct's node c at (oct*rpo*16 + c)*8, where the strand layout (kRibbon 0)
 // has node c's record at c*64 + oct*8. kRibbon 1 loads one record a step.
 // kRibbon = W >= 2 is raytpu's ribbon sub-steps as a K-wide fetch: a lane
-// holds a window of up to K = a.ribbon_k <= W consecutive records of its
-// row in registers ([wb, wb + wn), cut at the end of the cursor's 16-node
-// row and at n_nodes) and steps from it while its cursor stays inside;
-// a cursor outside the window fetches the window at the cursor. The
-// window lives across leaf tests, so a lane's fetches follow its own walk
-// alone. kStats counts: each warp adds its lanes' sums of records loaded
-// (fetches under the K-wide fetch) and leaf rows tested to a.stats's Stat
-// counters, one atomic each. Both are template cases, so the strand
-// layout's instances without stats compile to the walk without either
-// option.
+// keeps the window [wb, wb + wn) of up to K = a.ribbon_k <= W consecutive
+// records of its row that it fetched last (cut at the end of the cursor's
+// 16-node row and at n_nodes), and a cursor outside it fetches the window
+// at the cursor: the window's 128-byte lines are loaded into L1
+// (load_window_lines) and each sub-step then loads its record as kRibbon 1
+// does, from L1. The window lives across leaf tests, so a lane's fetches
+// follow its own walk alone. kStats counts: the block's warps' sums of
+// records loaded (fetches under the K-wide fetch) and leaf rows tested
+// meet in shared memory, and one thread adds them to a.stats's Stat
+// counters, one atomic each a block. Both are template cases, so the
+// strand layout's instances without stats compile to the walk without
+// either option.
 // ---------------------------------------------------------------------
+
+// Bring into L1 the 128-byte lines that hold the n (<= kMax) records at
+// p, past p's own line (which the load of the record at p brings in): one
+// 4-byte non-coherent load a line, whose word goes to *sink (a volatile
+// store to shared memory, so that the compilers keep the load). Lanes
+// that load one line share one request; prefetch.global.L1 in its place
+// measured slower (PERF.md).
+template <int kMax>
+__device__ __forceinline__ void load_window_lines(const float* p, int n,
+                                                  volatile unsigned* sink) {
+  const unsigned long long first =
+      reinterpret_cast<unsigned long long>(p) >> 7;
+  const unsigned long long last =
+      (reinterpret_cast<unsigned long long>(p + 8 * n) - 1) >> 7;
+#pragma unroll
+  for (int m = 1; m <= (kMax * 32 + 127) / 128; ++m) {
+    if (first + m <= last) {
+      *sink = __ldg(reinterpret_cast<const unsigned*>((first + m) << 7));
+    }
+  }
+}
+
 template <int kBlock, bool kAny, bool kMixed = false, int kRibbon = 0,
           bool kStats = false>
 __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   constexpr bool kWindow = kRibbon >= 2;
-  constexpr int kWin = kWindow ? kRibbon : 1;
   const int lane = threadIdx.x & 31;
   const int base = (blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5)) * 32;
-  if (base >= a.n_rays) return;  // warp-uniform
+  // warp-uniform; the stats instances keep every warp for the block's sum
+  if (!kStats && base >= a.n_rays) return;
   const int i = base + lane;
   const bool real = i < a.n_rays;
   Ray r = make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
@@ -153,39 +177,28 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
   const float slab_tmin = kMixed ? fminf(a.tmin, a.shadow_tmin) : a.tmin;
   int c = real ? 0 : -1;
   int steps = 0;
-  int leaves = 0;
   int leaf = -1;
-  Rec win[kWin];  // kWindow: records wb .. wb + wn - 1 of the lane's octant
-  int wb = 0, wn = 0, fetches = 0;
+  int wb = 0, wn = 0;  // kWindow: the window last fetched
+  unsigned fetches = 0, tests = 0;  // kStats: windows fetched, leaf rows
   for (;;) {
     for (;;) {
       const bool stepping =
           leaf < 0 && c >= 0 && c < a.n_nodes && steps < a.n_nodes;
       if (!__any_sync(kFull, stepping)) break;
       if (stepping) {
-        Rec q;
-        if (kWindow) {
-          int j = c - wb;
-          if (j < 0 || j >= wn) {
+        const float* p = rec0 + static_cast<size_t>(c) * kStride;
+        if constexpr (kWindow) {
+          if (c < wb || c >= wb + wn) {
+            // the warp's word that the window's line loads go to
+            __shared__ unsigned sink[kBlock / 32];
             wb = c;
             wn = min(min(a.ribbon_k, kRibbonNodes - (c & (kRibbonNodes - 1))),
                      a.n_nodes - c);
-            const float* p = rec0 + static_cast<size_t>(c) * kStride;
-#pragma unroll
-            for (int m = 0; m < kWin; ++m) {
-              if (m < wn) win[m] = load_box(p + 8 * m);
-            }
+            load_window_lines<kRibbon>(p, wn, sink + (threadIdx.x >> 5));
             ++fetches;
-            j = 0;
           }
-          q = win[0];
-#pragma unroll
-          for (int m = 1; m < kWin; ++m) {
-            if (j == m) q = win[m];
-          }
-        } else {
-          q = load_box(rec0 + static_cast<size_t>(c) * kStride);
         }
+        const Rec q = load_box(p);
         ++steps;
         const int hl = hit_link(q);
         c = miss_link(q);
@@ -200,7 +213,7 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
     }
     if (!__any_sync(kFull, leaf >= 0)) break;
     if (leaf >= 0) {
-      if (kStats) ++leaves;
+      if (kStats) ++tests;
       bool blocked;
       if (kMixed) {
         blocked = shad ? test_leaf<true>(r, a.leaves, a.first, leaf,
@@ -215,13 +228,27 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Args a) {
       leaf = -1;
     }
   }
-  if (kStats) {
-    const int loads = __reduce_add_sync(kFull, kWindow ? fetches : steps);
-    const int tests = __reduce_add_sync(kFull, leaves);
+  if constexpr (kStats) {
+    // the block's sums (integer sums wrap and do not depend on order)
+    __shared__ unsigned part[2][kBlock / 32];
+    const unsigned loads = __reduce_add_sync(
+        kFull, kWindow ? fetches : static_cast<unsigned>(steps));
+    tests = __reduce_add_sync(kFull, tests);
     if (lane == 0) {
-      atomicAdd(a.stats + kLoads, loads);
-      atomicAdd(a.stats + kLeafTests, tests);
-      atomicAdd(a.stats + kLeafReached, tests);
+      part[0][threadIdx.x >> 5] = loads;
+      part[1][threadIdx.x >> 5] = tests;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned l = 0, t = 0;
+#pragma unroll
+      for (int w = 0; w < kBlock / 32; ++w) {
+        l += part[0][w];
+        t += part[1][w];
+      }
+      atomicAdd(reinterpret_cast<unsigned*>(a.stats) + kLoads, l);
+      atomicAdd(reinterpret_cast<unsigned*>(a.stats) + kLeafTests, t);
+      atomicAdd(reinterpret_cast<unsigned*>(a.stats) + kLeafReached, t);
     }
   }
   if (real) {

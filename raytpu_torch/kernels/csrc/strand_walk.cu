@@ -45,12 +45,27 @@
 //
 // Options of raytpu's kernel, none of which changes a result, each a
 // template case of every form (closest, any-hit, mixed), so the strand
-// layout without counters keeps its code: the ribbon layout (rpo > 0:
-// raytpu's ribbon_rpo; each lane reads its own octant's renumbered
-// records, the same visit sequence; ribbon_k 1 loads one 32-byte record a
-// step, ribbon_k = K >= 2 fetches a window of K records of the row and
-// steps from registers inside it) and the stats counters (stats non-null:
-// strand_common.cuh's Stat).
+// and ribbon layouts without counters keep their code: the ribbon layout
+// (rpo > 0: raytpu's ribbon_rpo; each lane reads its own octant's
+// renumbered records, the same visit sequence; ribbon_k 1 loads one
+// 32-byte record a step, ribbon_k = K >= 2 fetches a window of K records
+// of the row) and the stats counters (stats non-null: strand_common.cuh's
+// Stat). Both were redesigned for the card (PERF.md), each timed in turns
+// with the instance without the option. The K-wide fetch loads the
+// window's 128-byte lines into L1 (those past the line of the cursor's
+// record, which its load brings), one 4-byte load a line, and each step
+// loads its record from there: 1.2-1.3x K 1 on the 1080p primary wave
+// and on a mixed query. The window held in registers (93-126 registers;
+// 1.6-2.3x) or in shared memory (16 / 32 KB a block; 1.4-2.2x) lost, and
+// so did prefetch instructions into L1 (1.2x, but 1.35-1.5x on the mixed
+// query) or L2, those deduplicated by a warp match, the window's bounds
+// packed in one register, and launch bounds of 9 blocks an SM. The
+// counters: each block sums its 4 warps' counts in shared memory and adds
+// them with one atomic a counter, where each warp's three atomics on the
+// same words cost a mixed query +50%; the instances read 1.1-1.2x their
+// twins. Slots summed by the last block, counts by warp votes or in
+// shared memory, the largest L1 carveout, and partial sums stored for a
+// second kernel were no faster.
 
 #include "strand_common.cuh"
 

@@ -82,9 +82,13 @@ neither of which changes a result:
   fetched row): K = 1 loads one 32-byte record a step; K >= 2 is the
   K-wide fetch, a template case of the same walk: a lane fetches a window
   of up to K consecutive records of its 16-node row (cut at the row's end
-  and at the node count) into registers and steps from it while its
-  cursor stays inside, fetching anew at a cursor outside (the schedule
-  form, below, fetches the same windows under its pool). The factories
+  and at the node count) and steps inside it while its cursor stays
+  there, fetching anew at a cursor outside (the schedule form, below,
+  fetches the same windows under its pool). On the card a fetch loads
+  the window's 128-byte lines into L1, one 4-byte load a line (the line
+  of the cursor's own record comes with its load), and each step loads
+  its record from there, so the window costs no registers; a window held
+  in registers or in shared memory measured slower (PERF.md). The factories
   read ``RAYTPU_RIBBON`` = K once, as raytpu's do.
 * ``stats=True`` also returns int32 [8] counters in raytpu's order
   (``strand_query_persistent(stats=True)``: iterations, flushes, services,
@@ -97,8 +101,9 @@ neither of which changes a result:
   leaf rows reached, each summed over rays (equal here). A dead lane (tmax
   = -inf) loads the root record and stops. Each counter is an int32 sum
   that wraps past 2^31 - 1 (a 1080p wave loads about 10^8 records); the
-  kernel adds one warp's sum with one atomic, and integer sums do not
-  depend on order, so the plain version reproduces them bit for bit.
+  kernel sums each block's 4 warps in shared memory and adds the block's
+  sums with one atomic a counter, and integer sums do not depend on
+  order, so the plain version reproduces them bit for bit.
 
 The schedule form (``csrc/strand_common.cuh:sched_kernel``, which sets out
 its order step for step) is raytpu's persistent schedule on the per-ray

@@ -19,8 +19,9 @@ same instructions. Prints, per source, how many of the old checkout's
 kernels the new one compiles to the same instructions, those found under
 another name, and which differ, and exits 1 if any differ. ``--only``
 holds only the instances of the named kernel templates (e.g.
-``walk_kernel block_kernel``); the others are listed apart and never fail
-the run.
+``walk_kernel block_kernel``) and the kernels named by their mangled
+names (an entry that starts with ``_Z``, e.g. one instance of a
+template); the others are listed apart and never fail the run.
 
 ``--write-digests FILE`` stores the held kernels' digests (SHA-256 of the
 instructions) of the old checkout (or of the new one, without ``--old``)
@@ -29,9 +30,12 @@ FILE`` holds the new checkout to such a file instead of to a second
 checkout, with its sources and templates, and exits 2 without comparing
 when the file was written by another nvcc (instructions are only
 comparable from one compiler). ``raytpu_torch/tools/sass_digests.json``
-holds those of the commit before the schedule and deferral forms were
-redesigned, for chip_smoke.py's check that the default instances kept
-their code. Needs nvcc and cuobjdump (the CUDA toolkit), not a GPU.
+holds the instructions of walk_kernel's 6 instances without an option
+(strand and ribbon rows one record a step, closest / any-hit / mixed,
+no stats) and of block_kernel's 2, as the commit before walk_kernel's
+K-wide fetch and stats counters were redesigned compiled them, for
+chip_smoke.py's check that those instances kept their code. Needs nvcc
+and cuobjdump (the CUDA toolkit), not a GPU.
 """
 
 from __future__ import annotations
@@ -77,9 +81,12 @@ def digest(instructions: list) -> str:
 
 
 def held(name: str, only) -> bool:
-    """Whether the mangled kernel ``name`` is an instance of one of the
-    templates ``only`` (all kernels when None)."""
-    return only is None or any(f"{len(t)}{t}I" in name for t in only)
+    """Whether the mangled kernel ``name`` is one of ``only``: a template
+    name holds its instances, a mangled name (``_Z...``) that kernel; all
+    kernels when None."""
+    return only is None or any(
+        name == t if t.startswith("_Z") else f"{len(t)}{t}I" in name
+        for t in only)
 
 
 def compare(old: dict, new: dict) -> tuple:
@@ -111,7 +118,8 @@ def main(argv=None) -> int:
     p.add_argument("--sources", nargs="+",
                    default=["strand_walk", "strand_block"])
     p.add_argument("--only", nargs="+", default=None,
-                   help="kernel templates to hold (default: every kernel)")
+                   help="kernel templates, or mangled kernel names, to hold "
+                        "(default: every kernel)")
     p.add_argument("--digests", default=None,
                    help="hold --new to this digest file, not to --old")
     p.add_argument("--write-digests", default=None,

@@ -1,8 +1,10 @@
-"""Time the strand walks' schedule and deferral forms on the 1080p
-gallery's waves, in one checkout of the repo or in several, in turns.
+"""Time the strand walks' schedule and deferral forms, or walk_kernel's
+option forms, on the 1080p gallery's waves, in one checkout of the repo
+or in several, in turns.
 
     python -m raytpu_torch.tools.sched_times              # this checkout
     python raytpu_torch/tools/sched_times.py --roots A B --order ABBA
+    python raytpu_torch/tools/sched_times.py --forms options --roots A B
 
 A root is the top of a checkout (the directory that holds ``chip_smoke.py``,
 ``raytpu_torch/`` and ``tests/tools/``). The waves are captured once, by
@@ -29,8 +31,17 @@ root's mean per call. Only each checkout's public calls are used
 (``strand_query_cuda``, ``strand_mixed_query_cuda``,
 ``strand_block_query_cuda``), so any two checkouts of the port compare.
 The small wave's launches are short enough that CUDA events around them
-measure the host as much as the card. Needs a GPU; refuses to run
-without one.
+measure the host as much as the card.
+
+``--forms options`` times walk_kernel's option forms instead (``OPTIONS``:
+the stats counters on the strand rows, and the ribbon rows one record a
+step and with the K-wide fetch at K 4 and 8, each with and without
+stats) beside the default instance, in turns, on the primary wave and the
+mixed query only (each form held to the default instance as above; the
+counters are left to chip_smoke.py's phases 3g and 11a), and each process
+reports every walk_kernel instance's registers, spills and static shared
+memory from ptxas's report (``kernels/_build.py:kernel_resources``, where
+the checkout has it). Needs a GPU; refuses to run without one.
 """
 
 from __future__ import annotations
@@ -54,6 +65,12 @@ FORMS = {
     "smem": dict(RAYTPU_SCHED, fetch_smem=True),
     "wide K 4": dict(walkers=128, service_k=16, flush_occ=0.5, ribbon_k=4),
     "wide K 8": dict(walkers=128, service_k=16, flush_occ=0.5, ribbon_k=8),
+}
+# walk_kernel's option forms (--forms options)
+OPTIONS = {
+    "strand stats": dict(stats=True),
+    **{f"ribbon K {k}{' stats' if st else ''}": dict(ribbon_k=k, stats=st)
+       for k in (1, 4, 8) for st in (False, True)},
 }
 DEFER = dict(defer=True, groups=16, skip_done=True)
 WAVES = "waves.pt"
@@ -107,7 +124,7 @@ def _capture(root: str, out: str) -> None:
         os.path.join(out, WAVES))
 
 
-def _time_root(root: str, waves: str, reps: int) -> dict:
+def _time_root(root: str, waves: str, reps: int, forms: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import time
 
@@ -140,12 +157,15 @@ def _time_root(root: str, waves: str, reps: int) -> dict:
     n = SMALL_RAYS
     d["small"] = (ro[:n].contiguous(), rd[:n].contiguous(),
                   tmax[:n].contiguous(), tmin)
+    table = OPTIONS if forms == "options" else FORMS
+    labels = ("primary",) if forms == "options" else ("primary", "small",
+                                                      "bounce")
     sets = {}
-    for label in ("primary", "small", "bounce"):
+    for label in labels:
         ro, rd, tmax, tmin = d[label]
         wave = (leaf, first, ro, rd, tmax, tmin, False)
         calls = {"default": lambda wave=wave: strand_query_cuda(rows, *wave)}
-        for name, kw in FORMS.items():
+        for name, kw in table.items():
             t, k = tree(kw)
             calls[name] = (lambda t=t, k=k, wave=wave:
                            strand_query_cuda(t, *wave, **k))
@@ -159,7 +179,7 @@ def _time_root(root: str, waves: str, reps: int) -> dict:
     ro, rd, tmax, smask, tmin, shadow = d["mixed"]
     wave = (leaf, first, ro, rd, tmax, smask, tmin, shadow)
     calls = {"default": lambda: strand_mixed_query_cuda(rows, *wave)}
-    for name, kw in FORMS.items():
+    for name, kw in table.items():
         t, k = tree(kw)
         calls[name] = (lambda t=t, k=k: strand_mixed_query_cuda(t, *wave,
                                                                 **k))
@@ -174,11 +194,17 @@ def _time_root(root: str, waves: str, reps: int) -> dict:
                 raise SystemExit(f"sched_times {root} {label} {name}: {bad} "
                                  "lanes differ from the default instance")
         out[label] = c.in_turns(calls, reps=reps)
+    # walk_kernel's instances by name, in checkouts that report them
+    res = getattr(_build, "kernel_resources", None)
+    name = getattr(c, "instance_name", lambda k: k)
+    regs = {name(k): v for k, v in res("strand_walk").items()
+            if "walk_kernel" in k} if res and forms == "options" else {}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     return dict(root=root, card=smi, build_s=round(build_s, 2), reps=reps,
-                rays={k: int(d[k][0].shape[0]) for k in sets}, ms=out)
+                rays={k: int(d[k][0].shape[0]) for k in sets}, ms=out,
+                resources=regs)
 
 
 def main(argv=None) -> int:
@@ -196,6 +222,10 @@ def main(argv=None) -> int:
     ap.add_argument("--capture", action="store_true",
                     help="only capture the waves (with --root's package)")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--forms", choices=("schedule", "options"),
+                    default="schedule",
+                    help="the schedule and deferral forms (default) or "
+                         "walk_kernel's option forms")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -218,7 +248,8 @@ def _run(args, waves: str, here: str) -> int:
         if proc.returncode != 0:
             return proc.returncode
     if args.roots is None:
-        print(json.dumps(_time_root(roots[0], waves, args.reps)), flush=True)
+        print(json.dumps(_time_root(roots[0], waves, args.reps,
+                                    args.forms)), flush=True)
         return 0
     order = args.order or "".join(chr(65 + i) for i in range(len(roots)))
     rows = []
@@ -226,7 +257,8 @@ def _run(args, waves: str, here: str) -> int:
         root = roots[ord(letter) - 65]
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
-             "--waves", waves, "--reps", str(args.reps)],
+             "--waves", waves, "--reps", str(args.reps), "--forms",
+             args.forms],
             capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr[-4000:], file=sys.stderr)
@@ -241,6 +273,11 @@ def _run(args, waves: str, here: str) -> int:
             print(f"{root} {label} ({mine[0]['rays'][label]} rays): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in mean.items())
                   + f" ms ({len(mine)} processes; {mine[0]['card']})")
+        if mine[0].get("resources"):
+            print(f"{root} walk_kernel registers / spill stores / smem: "
+                  + ", ".join(f"{k} {v['registers']}/{v['spill_stores']}/"
+                              f"{v['smem']}" for k, v in
+                              sorted(mine[0]["resources"].items())))
     return 0
 
 if __name__ == "__main__":

@@ -105,6 +105,34 @@ def test_lazy_initialisers_load_once(monkeypatch, module, arg):
     assert all(lib is libs[0] for lib in libs)
 
 
+PTXAS_LOG = """ptxas info    : Compiling entry function '_Z1aPi' for 'sm_90a'
+ptxas info    : Function properties for _Z1aPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, 364 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bPi' for 'sm_90a'
+ptxas info    : Function properties for _Z1bPi
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 63 registers, used 1 barriers, 32 bytes smem, 364 bytes cmem[0]
+"""
+
+
+def test_kernel_resources_reads_ptxas_report(stub_nvcc, monkeypatch):
+    """_build.kernel_resources: each kernel's registers, spills and static
+    shared memory from the build log's ptxas report (nvcc stubbed)."""
+    real = _build.subprocess.run
+
+    def run(cmd, **kwargs):
+        real(cmd, **kwargs)  # the stub writes the shared object
+        return subprocess.CompletedProcess(cmd, 0, "", PTXAS_LOG)
+
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    _build.load_library("strand_walk")
+    assert _build.kernel_resources("strand_walk") == {
+        "_Z1aPi": dict(registers=56, spill_stores=0, spill_loads=0, smem=0),
+        "_Z1bPi": dict(registers=63, spill_stores=8, spill_loads=4,
+                       smem=32)}
+
+
 def test_sass_diff_compares_kernels_by_instructions(monkeypatch, capsys):
     """tools/sass_diff with nvcc and cuobjdump stubbed: each root's cubin
     is disassembled, addresses and comments are dropped, and a kernel
@@ -152,7 +180,8 @@ def test_sass_diff_holds_named_templates_to_stored_digests(
     stores the old checkout's instances of the ``--only`` templates with
     the nvcc version; ``--digests`` holds a new checkout to it, failing
     (exit 1) only where a held instance changed, never for another
-    template's; a file from another nvcc is not compared (exit 2)."""
+    template's; a file from another nvcc is not compared (exit 2). An
+    ``--only`` entry that is a mangled name holds that instance alone."""
     from raytpu_torch.tools import sass_diff
 
     walk = "_ZN6strand11walk_kernelILi128EEEvNS_4ArgsE"
@@ -194,3 +223,27 @@ def test_sass_diff_holds_named_templates_to_stored_digests(
     assert f"differ: ['{walk}']" in capsys.readouterr().out
     version[0] = "Build cuda_12.8.r12.8"
     assert sass_diff.main(["--digests", file, "--new", "changed"]) == 2
+    # named instances: --only a mangled name holds that instance alone, so
+    # a sibling instance of its template may change
+    version[0] = "Build cuda_12.4.r12.4"
+    wide = "_ZN6strand11walk_kernelILi128ELi4EEEvNS_4ArgsE"
+    sass["old"][wide] = ["LDG R1, [R2]", "EXIT"]
+    sass["same"][wide] = ["LDS R1, [R2]", "EXIT"]
+    sass["changed"][wide] = ["LDG R1, [R2]", "EXIT"]
+    assert sass_diff.main(["--old", "old", "--new", "same", "--sources",
+                           "strand_walk", "--only", walk, "--write-digests",
+                           file]) == 0
+    out = capsys.readouterr().out
+    assert f"1 of the old checkout's 1 kernels of ['{walk}']" in out
+    assert wide in out  # listed apart: it changed, and is not held
+    with open(file) as f:
+        stored = json.load(f)
+    assert stored["only"] == [walk]
+    assert list(stored["sources"]["strand_walk"]) == [walk]
+    assert sass_diff.main(["--digests", file, "--new", "same"]) == 0
+    assert sass_diff.main(["--digests", file, "--new", "changed"]) == 1
+    assert f"differ: ['{walk}']" in capsys.readouterr().out
+    assert sass_diff.main(["--old", "old", "--new", "same", "--sources",
+                           "strand_walk", "--only", "walk_kernel"]) == 1
+    assert sass_diff.held(wide, ["walk_kernel"])
+    assert not sass_diff.held(wide, [walk, "block_kernel"])

@@ -130,6 +130,110 @@ def test_plain_ribbon_walk_bit_equal_strand_walk(ntri):
     assert int((want[1] >= 0).sum()) > 0
 
 
+@functools.lru_cache(maxsize=None)
+def _k1_walks(ntri: int):
+    """The plain walks one record a step over ribbon rows, closest-hit,
+    any-hit and mixed, with stats, and the strand layout's, on the soup's
+    rays: {mode: (args, strand result, K 1 result)}."""
+    rows, rib, rpo, leaf, _ = _ribbon(ntri)
+    ro, rd = _rays(N_RAYS, seed=ntri)
+    tmax = np.full(N_RAYS, F32_MAX, np.float32)
+    tmax[3::10] = 5.0
+    tmax[::7] = -np.inf
+    shadow = np.full(N_RAYS, 6.0, np.float32)
+    shadow[::5] = -np.inf
+    lf = _t(leaf)
+    first = strand.first_slots(lf)
+    mro, mrd, mtmax, smask, _ = _lanes(N_RAYS, ntri)
+    out = {}
+    for mode, fn, args in (
+            ("closest", strand_query_torch,
+             (lf, first, _t(ro), _t(rd), _t(tmax), 0.001, False)),
+            ("any-hit", strand_query_torch,
+             (lf, first, _t(ro), _t(rd), _t(shadow), 0.0, True)),
+            ("mixed", strand_mixed_query_torch,
+             (lf, first, _t(mro), _t(mrd), _t(mtmax), _t(smask), 0.001,
+              0.0))):
+        out[mode] = (fn, args, fn(_t(rows), *args, stats=True),
+                     fn(_t(rib), *args, rpo=rpo, ribbon_k=1, stats=True))
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("ntri", [5, 300, 3000])
+def test_plain_k_wide_walk_bit_equal_k1_and_strand(ntri, k):
+    """The plain K-wide fetch (ribbon_k = K >= 2) walks every record as K 1
+    does: closest-hit, any-hit and mixed t and tri bits equal to K 1's and
+    the strand layout's, and every counter but [0] too; [0] counts its
+    windows, at least one a live lane and at most one a record loaded."""
+    _, rib, rpo, *_ = _ribbon(ntri)
+    for mode, (fn, args, strand_out, k1) in _k1_walks(ntri).items():
+        counts = {}
+        got = fn(_t(rib), *args, counts, rpo=rpo, ribbon_k=k, stats=True)
+        for want in (k1, strand_out):
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), mode
+            assert torch.equal(got[1], want[1]), mode
+            assert torch.equal(got[2][1:], want[2][1:]), mode
+        assert int(got[2][0]) == counts["fetches"]
+        assert 0 < counts["fetches"] <= counts["boxes"] == int(k1[2][0])
+        if ntri > 5:  # deeper than a root leaf: some steps stay inside
+            assert counts["fetches"] < counts["boxes"]
+
+
+def _hand_tree():
+    """A ribbon tree of 2 rows per octant (n_nodes 32) whose octant-0
+    threading a ray from (0.25, 0.25, -10) along +z walks 0, 1, 14, 15,
+    16, 29, 30 (a leaf) and 31: boxes at x, y in [0, 1] are hit, those at
+    [5, 6] missed. Leaf row 0 holds a triangle at z = 0 under the ray
+    (slot 0) and 7 beside it. Returns (rows, leaf rows, ro, rd) with a
+    live lane and a lane whose tmax is set dead by the caller."""
+    recs = np.zeros((8 * 2 * 16, 8), np.float32)
+    hit, miss = [0, 0, -1, 1, 1, 1], [5, 5, -1, 6, 6, 1]
+    links = {0: (hit, 1, -1), 1: (miss, 2, 14), 14: (hit, 15, -1),
+             15: (hit, 16, -1), 16: (miss, 17, 29), 29: (hit, 30, -1),
+             30: (hit, ~0, 31), 31: (miss, -1, -1)}
+    for j in range(32):
+        box, h, m = links.get(j, (miss, -1, -1))
+        recs[j] = box + [h, m]
+    leaf = np.zeros((1, 8, 10), np.float32)
+    leaf[0, :, :9] = [5, 5, 0, 1, 0, 0, 0, 1, 0]
+    leaf[0, 0, :3] = 0
+    ro = np.array([[0.25, 0.25, -10.0]] * 2, np.float32)
+    rd = np.array([[0.001, 0.001, 1.0]] * 2, np.float32)
+    return (_t(recs.reshape(16, 128)), _t(leaf.reshape(1, 80)), _t(ro),
+            _t(rd))
+
+
+@pytest.mark.parametrize("k,closest,any_hit", [
+    (1, 9, 8), (2, 6, 5), (3, 5, 5), (4, 5, 5), (5, 5, 5), (8, 5, 5)])
+def test_k_wide_fetch_count_by_hand(k, closest, any_hit):
+    """The K-wide fetch's windows on _hand_tree, counted by hand (K 1: the
+    records loaded). Closest-hit at K 4, live lane: 0 fetches [0, 4); 1
+    steps inside; 14 fetches [14, 16), cut at row 0's end; 15 inside; 16
+    fetches [16, 20); 29 fetches [29, 32), cut at row 1's end, which is
+    n_nodes = 16 * rpo (so the cut at n_nodes falls at the last row's
+    end); 30 inside, a leaf tested with the window kept; 31 inside: 4
+    windows. K 2 fetches [29, 31) and then [31, 32): 5. The dead lane
+    (tmax -inf) fetches at the root and stops: +1. The any-hit lane is
+    blocked at 30's leaf and never steps to 31 (K 1, 2: one fewer)."""
+    rows, leaf, ro, rd = _hand_tree()
+    first = strand.first_slots(leaf)
+    for tmax, tmin, any_hit_, want in (
+            ((F32_MAX, -np.inf), 0.001, False, closest),
+            ((20.0, -np.inf), 0.0, True, any_hit)):
+        args = (leaf, first, ro, rd, _t(np.array(tmax, np.float32)), tmin,
+                any_hit_)
+        counts = {}
+        t, tri, st = strand_query_torch(rows, *args, counts, rpo=2,
+                                        ribbon_k=k, stats=True)
+        assert st.tolist() == [want, 0, 0, 1, 1, 1, 0, 0]
+        assert counts["boxes"] == (8 if any_hit_ else 9)
+        assert tri.tolist() == [0, -1]
+        if not any_hit_:
+            assert t.tolist() == [10.0, -np.inf]
+
+
 def test_ribbon_layout_arguments_are_checked():
     """``rpo`` must match the rows (8 per octant's rpo) and ``ribbon_k``
     lie in 1..8, raytpu's bound; the CUDA wrapper refuses CPU tensors and
@@ -265,9 +369,12 @@ def test_ribbon_frame_equals_default_frame(monkeypatch, backend):
 
 @pytest.mark.cuda
 def test_ribbon_kernel_bit_equal_plain_on_cuda():
-    """strand_walk.cu over ribbon rows against the plain walk and against
-    its own strand-layout launch, closest, any-hit and mixed, with the
-    stats counters."""
+    """strand_walk.cu over ribbon rows, one record a step (K 1) and with
+    the K-wide fetch (K 2, 4, 5, 8), without and with stats, against the
+    plain walk and against its own strand-layout launch, closest, any-hit
+    and mixed: t bits and tri of every lane, and with stats the counters
+    (the K-wide fetch's [0] counts its windows); and the hand-counted
+    windows of _hand_tree."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
     rows, rib, rpo, leaf, _ = _ribbon(3000)
@@ -275,25 +382,73 @@ def test_ribbon_kernel_bit_equal_plain_on_cuda():
     dev = [_t(a).cuda() for a in (rows, rib, leaf, ro, rd, tmax, smask)]
     rows, rib, leaf, ro, rd, tmax, smask = dev
     first = strand.first_slots(leaf)
-    for any_hit, tmin in ((False, 0.001), (True, 0.0)):
-        args = (leaf, first, ro, rd, tmax, tmin, any_hit)
-        before = strand_query_cuda.ribbon_launches
-        got = strand_query_cuda(rib, *args, rpo=rpo, ribbon_k=1, stats=True)
-        assert strand_query_cuda.ribbon_launches == before + 1
-        want = strand_query_torch(rib, *args, rpo=rpo, ribbon_k=1,
-                                  stats=True)
-        strand_layout = strand_query_cuda(rows, *args)
-        torch.cuda.synchronize()
-        for a, b in ((got[0], want[0]), (got[0], strand_layout[0])):
-            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-        assert torch.equal(got[1], want[1])
-        assert torch.equal(got[1], strand_layout[1])
-        assert torch.equal(got[2], want[2])
-    args = (leaf, first, ro, rd, tmax, smask, 0.001, 0.0)
-    got = strand.strand_mixed_query_cuda(rib, *args, rpo=rpo)
-    want = strand_mixed_query_torch(rows, *args)
-    assert torch.equal(got[1], want[1])
-    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    forms = [(strand_query_cuda, strand_query_torch,
+              (leaf, first, ro, rd, tmax, 0.001, False)),
+             (strand_query_cuda, strand_query_torch,
+              (leaf, first, ro, rd, tmax, 0.0, True)),
+             (strand.strand_mixed_query_cuda, strand_mixed_query_torch,
+              (leaf, first, ro, rd, tmax, smask, 0.001, 0.0))]
+    for kernel, plain, args in forms:
+        for stats in (False, True):
+            strand_layout = kernel(rows, *args, stats=stats)
+            for k in (1, 2, 4, 5, 8):
+                attr = ("ribbon_launches" if k == 1
+                        else "ribbon_wide_launches")
+                before = getattr(kernel, attr)
+                got = kernel(rib, *args, rpo=rpo, ribbon_k=k, stats=stats)
+                assert getattr(kernel, attr) == before + 1
+                want = plain(rib, *args, rpo=rpo, ribbon_k=k, stats=stats)
+                torch.cuda.synchronize()
+                assert len(got) == len(want) == (3 if stats else 2)
+                for a, b in ((got, want), (got, strand_layout)):
+                    assert torch.equal(a[0].view(torch.int32),
+                                       b[0].view(torch.int32)), (k, stats)
+                    assert torch.equal(a[1], b[1]), (k, stats)
+                if stats:
+                    assert torch.equal(got[2], want[2]), k
+                    assert torch.equal(got[2][0 if k == 1 else 1:],
+                                       strand_layout[2][0 if k == 1 else 1:])
+    hrows, hleaf, hro, hrd = (a.cuda() for a in _hand_tree())
+    htmax = torch.tensor([F32_MAX, -np.inf], device="cuda")
+    for k, want in ((1, 9), (2, 6), (3, 5), (4, 5), (8, 5)):
+        got = strand_query_cuda(hrows, hleaf, strand.first_slots(hleaf),
+                                hro, hrd, htmax, 0.001, False, rpo=2,
+                                ribbon_k=k, stats=True)
+        assert got[2].tolist() == [want, 0, 0, 1, 1, 1, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 65435, 2**20 + 7])
+def test_stats_kernel_bit_equal_plain_on_cuda_at_ragged_sizes(n):
+    """Every strand walk instance (strand rows, ribbon K 1, the K-wide
+    fetch at K 2, 4, 5 and 8; closest, any-hit, mixed), with stats and its
+    twin without, against the plain versions' t bits, tri and int32 [8] on
+    grids with a partial block and a partial warp (each block of 4 warps
+    sums its counts before one atomic a counter)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
+    rows, rib, rpo, leaf, _ = (_t(a).cuda() if isinstance(a, np.ndarray)
+                               else a for a in _ribbon(3000))
+    ro, rd, tmax, smask, _ = (_t(a).cuda() for a in _lanes(n, 11))
+    first = strand.first_slots(leaf)
+    for kernel, plain, args in (
+            (strand_query_cuda, strand_query_torch,
+             (leaf, first, ro, rd, tmax, 0.001, False)),
+            (strand_query_cuda, strand_query_torch,
+             (leaf, first, ro, rd, tmax, 0.0, True)),
+            (strand.strand_mixed_query_cuda, strand_mixed_query_torch,
+             (leaf, first, ro, rd, tmax, smask, 0.001, 0.0))):
+        for table, kw in ((rows, {}), *((rib, dict(rpo=rpo, ribbon_k=k))
+                                        for k in (1, 2, 4, 5, 8))):
+            want = plain(table, *args, stats=True, **kw)
+            for stats in (False, True):
+                got = kernel(table, *args, stats=stats, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0].view(torch.int32),
+                                   want[0].view(torch.int32)), (n, kw, stats)
+                assert torch.equal(got[1], want[1]), (n, kw, stats)
+                if stats:
+                    assert torch.equal(got[2], want[2]), (n, kw)
 
 
 @pytest.mark.slow

@@ -193,6 +193,39 @@ def test_strand_stats_count_the_plain_walks_work(ntri):
     assert strand.wrap_i32(2**31) == -2**31 and strand.wrap_i32(5) == 5
 
 
+@pytest.mark.parametrize("layout", ["strand", "ribbon K 1", "ribbon K 4"])
+@pytest.mark.parametrize("ntri", [5, 300, 3000])
+def test_strand_stats_do_not_depend_on_ray_order(ntri, layout):
+    """strand_query*(stats=True) on a permuted wave: the same int32 [8]
+    (and each lane's t and tri, permuted), closest-hit, any-hit and mixed.
+    The kernel sums a block's warps' counts before one atomic a block, in
+    an order the launch does not fix; this pins that the sums, and so the
+    counters, do not depend on which lanes share a warp or a block."""
+    from .test_torch_ribbon import _ribbon
+
+    c = _case(ntri)
+    _, rib, rpo, *_ = _ribbon(ntri)
+    rows, kw = (c["rows"], {}) if layout == "strand" else (
+        _t(rib), dict(rpo=rpo, ribbon_k=int(layout[-1])))
+    perm = torch.from_numpy(np.random.default_rng(ntri).permutation(N_RAYS))
+    ro, rd, mtmax, smask, _ = (_t(a) for a in _lanes(N_RAYS, ntri))
+    head = (c["leaf"], c["first"])
+    for fn, lanes, tail in (
+            (strand_query_torch, (c["ro"], c["rd"], c["tmax"]),
+             (0.001, False)),
+            (strand_query_torch, (c["ro"], c["rd"], c["shadow"]),
+             (0.0, True)),
+            (strand_mixed_query_torch, (ro, rd, mtmax, smask), (0.001, 0.0))):
+        want = fn(rows, *head, *lanes, *tail, stats=True, **kw)
+        got = fn(rows, *head, *(a[perm] for a in lanes), *tail, stats=True,
+                 **kw)
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0][perm].view(torch.int32))
+        assert torch.equal(got[1], want[1][perm])
+        assert int(want[2][0]) >= N_RAYS
+
+
 @pytest.mark.parametrize("ntri", [5, 300, 3000])
 def test_near_first_order_keeps_t_and_tie_key(ntri):
     """Near-first order against storage order: closest-hit t bits equal and
