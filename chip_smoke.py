@@ -845,11 +845,10 @@ def phase_device():
 
 
 def start_sass_check():
-    """Start tools/sass_diff on this checkout's strand sources against the
-    stored digests (``raytpu_torch/tools/sass_digests.json``: walk_kernel's
-    6 instances without an option and block_kernel's 2, as the commit
-    before walk_kernel's K-wide fetch and stats counters were redesigned
-    compiled them), in a process group of its own beside the build."""
+    """Start tools/sass_diff on this checkout's sources against the stored
+    digests (``raytpu_torch/tools/sass_digests.json``: every instance it
+    names, each source it names rebuilt), in a process group of its own
+    beside the build."""
     from raytpu_torch.tools.sass_diff import DIGESTS
 
     return subprocess.Popen(
@@ -1308,15 +1307,87 @@ def stats_sweep(strand_rows, rib_rows, rpo, leaf, first) -> str:
     return ", ".join(notes)
 
 
+# phase 3h's sweep of packet_walk's counters over block and packet
+# boundaries: ray counts under a warp, over one, three blocks and a part,
+# and a packet of 4096 and a part; packets of one block and of three
+PACKET_SWEEP_RAYS = (1, 31, 33, 434, 4096 + 33)
+PACKET_SWEEP_SIZES = (128, 384)
+
+
+def packet_registers() -> str:
+    """packet_walk's instances' registers, spills and static shared memory
+    from ptxas's report, by instance_name."""
+    from raytpu_torch.kernels import _build
+
+    return ", ".join(
+        f"{instance_name(k)} {r['registers']} ({r['spill_stores']} B spill, "
+        f"{r['smem']} B smem)" for k, r in sorted(
+            _build.kernel_resources("packet_walk").items(),
+            key=lambda kv: instance_name(kv[0])))
+
+
+def packet_stats_sweep(rows8, leaf, first) -> int:
+    """Every packet_walk instance (closest-hit, any-hit and mixed, each
+    order, with and without stats) bit for bit (t, tri, stats) against its
+    plain version with stats at PACKET_SWEEP_RAYS x PACKET_SWEEP_SIZES, the
+    rays of the second packet of 128 all dead where there is one; returns
+    the launches made."""
+    import torch
+
+    from raytpu_torch.kernels.packet import (
+        packet_query_cuda,
+        packet_query_torch,
+    )
+
+    n_launches = 0
+    for n in PACKET_SWEEP_RAYS:
+        ro, rd = (to_card(a) for a in soup_rays(n, seed=n))
+        tmax, smask = mixed_lanes(n, "cuda")
+        tmax[128:256] = float("-inf")
+        for form, tail, kw in (
+                ("closest", (tmax, 0.001, False), {}),
+                ("any-hit", (tmax, 0.0, True), {}),
+                ("mixed", (tmax, 0.001, False),
+                 dict(smask=smask, shadow_tmin=0.0))):
+            args = (rows8, leaf, first, ro, rd, *tail)
+            for packet in PACKET_SWEEP_SIZES:
+                for ordered in (False, True):
+                    want = packet_query_torch(*args, **kw, ordered=ordered,
+                                              with_stats=True, packet=packet)
+                    for st in (False, True):
+                        got = packet_query_cuda(*args, **kw, ordered=ordered,
+                                                with_stats=st, packet=packet)
+                        n_launches += 1
+                        torch.cuda.synchronize()
+                        if not (same_bits(got[0], want[0])
+                                and torch.equal(got[1], want[1])
+                                and (not st or torch.equal(got[2],
+                                                           want[2]))):
+                            fail(f"phase 3h sweep {n} rays {form} packet "
+                                 f"{packet} ordered={ordered} stats={st}: "
+                                 "t, tri or stats differ from the plain "
+                                 "version's")
+                    if (packet == 128 and n > 256
+                            and int(want[2][1].abs().sum()) != 0):
+                        fail(f"phase 3h sweep {n} rays: the all-dead "
+                             "packet counts")
+    return n_launches
+
+
 def phase_near_kernel(errs: dict) -> int:
-    """Phase 3h: packet_walk's near-first instances (ordered=True) on phase
-    3's 3 soups x 65536 rays, closest-hit, any-hit and mixed, with stats
-    (default packet, and 384 rays a packet, which does not divide R): bit
-    for bit (t, tri, stats) against their plain versions, the storage-order
-    instances' stats against theirs, and near-first against storage order on
+    """Phase 3h: packet_walk's near-first instances (ordered=True) and its
+    storage-order ones on phase 3's 3 soups x 65536 rays, closest-hit,
+    any-hit and mixed, each without and with stats (default packet, and
+    384 rays a packet, which does not divide R): bit for bit (t, tri, and
+    with stats every stats lane) against their plain versions (the
+    ``kernels`` line's error is the near-first instances' without stats),
+    and near-first against storage order on
     t bits and the tie key (closest lanes) and the blocked bit (shadow
     lanes). The mixed near-first queries go through ``packet_query``, as
-    3f's do: their launches, counted from 0, are the kernel form's."""
+    3f's do: their launches, counted from 0, are the kernel form's. Then
+    every instance over block and packet boundaries
+    (``packet_stats_sweep``, on the 3,000-triangle soup), and the
+    instances' registers."""
     import torch
 
     from raytpu_torch.kernels.packet import (
@@ -1346,25 +1417,30 @@ def phase_near_kernel(errs: dict) -> int:
             args = (rows8, leaf, first, ro, rd, *tail)
             out = {}
             for ordered in (False, True):
-                if form == "mixed" and ordered:
-                    reset_launches()
-                    k = packet_query(*args, ordered=True, with_stats=True,
-                                     **kw)
-                    torch.cuda.synchronize()
-                    launches += read_launches()["packet_mixed_near"]
-                else:
-                    k = packet_query_cuda(*args, ordered=ordered,
-                                          with_stats=True, **kw)
-                out[ordered] = (k, packet_query_torch(
+                ks = {}
+                for st in (False, True):
+                    if form == "mixed" and ordered:
+                        reset_launches()
+                        ks[st] = packet_query(*args, ordered=True,
+                                              with_stats=st, **kw)
+                        torch.cuda.synchronize()
+                        launches += read_launches()["packet_mixed_near"]
+                    else:
+                        ks[st] = packet_query_cuda(*args, ordered=ordered,
+                                                   with_stats=st, **kw)
+                out[ordered] = (ks, packet_query_torch(
                     *args, ordered=ordered, with_stats=True, **kw))
             torch.cuda.synchronize()
-            for ordered, (k, p) in out.items():
-                if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
-                        and torch.equal(k[2], p[2])):
-                    fail(f"phase 3h {ntri} tris {form} ordered={ordered}: "
-                         f"kernel != plain on {int((k[1] != p[1]).sum())} "
-                         f"tri, {int((k[2] != p[2]).sum())} stats lanes")
-            near, store = out[True][0], out[False][0]
+            for ordered, (ks, p) in out.items():
+                for st, k in ks.items():
+                    if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                            and (not st or torch.equal(k[2], p[2]))):
+                        fail(f"phase 3h {ntri} tris {form} ordered={ordered} "
+                             f"stats={st}: kernel != plain on "
+                             f"{int((k[1] != p[1]).sum())} tri"
+                             + (f", {int((k[2] != p[2]).sum())} stats lanes"
+                                if st else ""))
+            near, store = out[True][0][True], out[False][0][True]
             if form == "any-hit":
                 bad = int(((near[1] >= 0) != (store[1] >= 0)).sum())
             else:
@@ -1378,16 +1454,22 @@ def phase_near_kernel(errs: dict) -> int:
                 fail(f"phase 3h {ntri} tris {form}: near-first differs from "
                      f"storage order on {bad} lanes")
             key = "packet_mixed_near" if form == "mixed" else "packet_near"
-            errs[key].append(t_err(out[True][0][0], out[True][1][0]))
+            errs[key].append(t_err(out[True][0][False][0], out[True][1][0]))
             pops[form] = (int(store[2][:, 0].sum()), int(near[2][:, 0].sum()))
         notes.append(f"{ntri} tris: node pops storage/near-first " + ", ".join(
             f"{f} {a}/{b}" for f, (a, b) in pops.items()))
-    print("phase 3h packet_walk near-first: bit-equal (t, tri, stats) to its "
-          "plain version, storage order's stats to theirs, equal to storage "
-          "order on t bits and the tie key (closest lanes) and the blocked "
+    swept = packet_stats_sweep(rows8, leaf, first)
+    print("phase 3h packet_walk: both orders, each without and with stats, "
+          "bit-equal (t, tri, stats) to their plain versions, near-first "
+          "equal to storage order on t bits and the tie key (closest lanes) "
+          "and the blocked "
           "bit, on 3 soups x 65536 rays, closest, any-hit and mixed; "
           f"{launches} mixed near-first launches through packet_query; "
-          + "; ".join(notes))
+          + "; ".join(notes)
+          + f"; every instance bit-equal to its plain version over "
+          f"{PACKET_SWEEP_RAYS} rays x packets {PACKET_SWEEP_SIZES} "
+          f"({swept} launches; an all-dead packet counts 0); registers: "
+          + packet_registers())
     return launches
 
 
@@ -2581,6 +2663,9 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
         bad, checked, notes = waves_vs_brute(
             pack, calls, packet_mod.packet_query_cuda, None)
         n_any = sum(1 for a in calls if a[7])
+        # the primary wave: the frame's largest closest-hit query
+        rec["primary"] = max((a for a in calls if not a[7]),
+                             key=lambda a: a[3].shape[0])[:8]
         line += (f"; packet_walk vs brute on every ray of the frame's "
                  f"{len(calls)} calls ({len(calls) - n_any} closest, {n_any} "
                  f"any-hit; {checked} rays): {bad} mismatches")
@@ -2671,7 +2756,8 @@ def phase_packet_route(tmp: str, main_rec: dict, errs: list) -> dict:
                          samples=1, bounces=1),
                     "flat", 0.10, tmp, errs),
     ]
-    return dict(cells[2], launches=sum(c["launches"] for c in cells))
+    return dict(cells[2], launches=sum(c["launches"] for c in cells),
+                a_primary=cells[0]["primary"])
 
 
 class recorded_walks:
@@ -3357,30 +3443,76 @@ def phase_ribbon_route(main_rec: dict, mixed_rec: dict, errs: dict) -> dict:
 def instance_name(mangled: str) -> str:
     """walk_kernel<128, kAny, kMixed, kRibbon, kStats>'s instance as
     "walk_kernel closest|any|mixed K<kRibbon>[ stats]" (K0: strand rows),
-    block_kernel<128, kAny>'s as "block_kernel closest|any"."""
+    block_kernel<128, kAny>'s as "block_kernel closest|any",
+    packet_kernel<kAny, kMixed, kNearFirst, kStats>'s (and
+    packet_option_kernel's, the instances with an option) as
+    "packet_kernel closest|any|mixed[ near-first][ stats]", binned_kernel
+    as itself and any other kernel by its mangled name."""
     import re
+
+    def mode(any_, mixed):
+        return "mixed" if mixed == "1" else "any" if any_ == "1" else "closest"
 
     m = re.search(r"walk_kernelILi128ELb(\d)ELb(\d)ELi(\d+)ELb(\d)E",
                   mangled)
-    if m is None:
-        m = re.search(r"block_kernelILi128ELb(\d)E", mangled)
+    if m is not None:
+        any_, mixed, k, st = m.groups()
+        return (f"walk_kernel {mode(any_, mixed)} K{k}"
+                + (" stats" if st == "1" else ""))
+    m = re.search(r"packet_(?:option_)?kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                  mangled)
+    if m is not None:
+        any_, mixed, near, st = m.groups()
+        return (f"packet_kernel {mode(any_, mixed)}"
+                + (" near-first" if near == "1" else "")
+                + (" stats" if st == "1" else ""))
+    m = re.search(r"block_kernelILi128ELb(\d)E", mangled)
+    if m is not None:
         return "block_kernel " + ("any" if m.group(1) == "1" else "closest")
-    any_, mixed, k, st = m.groups()
-    mode = "mixed" if mixed == "1" else "any" if any_ == "1" else "closest"
-    return f"walk_kernel {mode} K{k}" + (" stats" if st == "1" else "")
+    return "binned_kernel" if "13binned_kernel" in mangled else mangled
 
 
-def phase_near_route(flat_rec: dict, mixed_rec: dict,
-                     mixed_launches: int) -> tuple:
+# phase 11b's instances, each timed and held to its plain version: name ->
+# (ordered, with_stats)
+INSTANCES_11B = (("storage", False, False), ("near", True, False),
+                 ("storage+stats", False, True), ("near+stats", True, True))
+
+
+def plain_differs(out: dict, plain_near, plain_storage) -> str:
+    """The first of phase 11b's instances (``out``: name -> its result)
+    that is not bit for bit its plain version (with stats: ``plain_near``
+    or ``plain_storage``; t bits, tri, which holds the blocked bit of a
+    shadow lane, and every stats lane where the instance has stats), or
+    ""."""
+    import torch
+
+    for name, ordered, st in INSTANCES_11B:
+        k, p = out[name], plain_near if ordered else plain_storage
+        if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+                and (not st or torch.equal(k[2], p[2]))):
+            return name
+    return ""
+
+
+def phase_near_route(flat_rec: dict, mixed_rec: dict, mixed_launches: int,
+                     errs: dict) -> tuple:
     """Phase 11b: phase 6c's pack and configuration (flat mode, 1080p)
     with RAYTPU_ORDER_MODE=all, set just before and restored just after,
     the counts set to 0 before the frames and read after: every query on
     packet_walk's near-first instance, the PNG equal to 6c's. On 6c's
     primary wave, near-first beside storage order (CUDA events, in turns)
-    and each with stats (the counters' cost), the plain near-first walk
-    (bit-equal, with stats) and its bound; on 10a's largest mixed query
-    the mixed near-first form the same way (its launches are 3h's, through
-    packet_query). Returns the two forms' records."""
+    and each with stats (the counters' cost), each of the 4 timed
+    instances then called again as timed and held bit for bit to its
+    plain version with stats (``plain_differs``; the ``kernels`` line's
+    error is the near-first instance's without stats), near-first to
+    storage order on the contract, and the plain near-first walk's bound;
+    on 10a's largest mixed query the mixed instances the same way (their
+    launches are 3h's, through packet_query); the ratios near-first ÷
+    storage order and stats ÷ twin
+    of both; and on 6a's primary wave (its frame's largest closest-hit
+    query: 65,536 lanes, one sample) both orders' device times
+    (``device_times``), for the choice of the default order. Returns the
+    two forms' records."""
     import torch
 
     from raytpu_torch.engine.render import render_frame
@@ -3409,51 +3541,73 @@ def phase_near_route(flat_rec: dict, mixed_rec: dict,
     n = ro.shape[0]
     tmax = torch.full((n,), F32_MAX, device="cuda")
     wave = (rows8, leaf, first, ro, rd, tmax, 0.001, False)
-    ms = in_turns({
-        "storage": lambda: packet_query_cuda(*wave, ordered=False),
-        "near": lambda: packet_query_cuda(*wave, ordered=True),
-        "storage+stats": lambda: packet_query_cuda(*wave, ordered=False,
-                                                   with_stats=True),
-        "near+stats": lambda: packet_query_cuda(*wave, ordered=True,
-                                                with_stats=True)})
-    k = packet_query_cuda(*wave, ordered=True, with_stats=True)
-    k0 = packet_query_cuda(*wave, ordered=False, with_stats=True)
+    calls = {name: lambda o=o, st=st: packet_query_cuda(
+        *wave, ordered=o, with_stats=st) for name, o, st in INSTANCES_11B}
+    ms = in_turns(calls)
+    out = {name: fn() for name, fn in calls.items()}
     plain_ms, p, work = plain_run(lambda c: packet_query_torch(
         *wave, c, ordered=True, with_stats=True))
-    if not (same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
-            and torch.equal(k[2], p[2]) and same_bits(k[0], k0[0])
-            and torch.equal(tie_key(first, k[1]), tie_key(first, k0[1]))):
-        fail("phase 11b: near-first != its plain version, or off storage "
-             "order on t and the tie key, on 6c's primary wave")
+    p0 = packet_query_torch(*wave, ordered=False, with_stats=True)
+    near, store = out["near"], out["storage"]
+    bad = plain_differs(out, p, p0)
+    if bad or not (same_bits(near[0], store[0]) and torch.equal(
+            tie_key(first, near[1]), tie_key(first, store[1]))):
+        fail(f"phase 11b: {bad or 'near-first'} != its plain version, or "
+             "near-first off storage order on t and the tie key, on 6c's "
+             "primary wave")
+    errs["packet_near"].append(t_err(near[0], p[0]))
     rec = dict(launches=counts["packet_near"], ms=ms["near"],
                plain_ms=plain_ms, **walk_bound(work, n, 28))
     q = mixed_rec["query"]
     margs = (rows8, leaf, first, *q[:3], q[4], False)
     mkw = dict(smask=q[3], shadow_tmin=q[5])
-    mms = in_turns({
-        "storage": lambda: packet_query_cuda(*margs, **mkw, ordered=False),
-        "near": lambda: packet_query_cuda(*margs, **mkw, ordered=True)})
-    mk = packet_query_cuda(*margs, **mkw, ordered=True)
-    mk0 = packet_query_cuda(*margs, **mkw, ordered=False)
+    mcalls = {name: lambda o=o, st=st: packet_query_cuda(
+        *margs, **mkw, ordered=o, with_stats=st)
+        for name, o, st in INSTANCES_11B}
+    mms = in_turns(mcalls)
+    mout = {name: fn() for name, fn in mcalls.items()}
     mplain_ms, mp, mwork = plain_run(lambda c: packet_query_torch(
-        *margs, c, **mkw, ordered=True))
-    if not (mixed_same(*mk, *mp, q[3])
-            and mixed_same(*mk, *mk0, q[3], first)):
-        fail("phase 11b: the mixed near-first kernel != its plain version or "
-             "storage order on 10a's largest mixed query")
+        *margs, c, **mkw, ordered=True, with_stats=True))
+    mp0 = packet_query_torch(*margs, **mkw, ordered=False, with_stats=True)
+    mbad = plain_differs(mout, mp, mp0)
+    if mbad or not mixed_same(*mout["near"], *mout["storage"], q[3], first):
+        fail(f"phase 11b: the mixed {mbad or 'near-first'} kernel != its "
+             "plain version, or near-first off storage order, on 10a's "
+             "largest mixed query")
+    errs["packet_mixed_near"].append(t_err(mout["near"][0], mp[0]))
     mrec = dict(launches=mixed_launches, ms=mms["near"], plain_ms=mplain_ms,
                 **walk_bound(mwork, q[0].shape[0], 32))
-    pops = (int(k0[2][:, 0].sum()), int(k[2][:, 0].sum()))
-    tests = (int(k0[2][:, 1].sum()), int(k[2][:, 1].sum()))
+    k, k0 = out["near+stats"][2], out["storage+stats"][2]
+    pops = (int(k0[:, 0].sum()), int(k[:, 0].sum()))
+    tests = (int(k0[:, 1].sum()), int(k[:, 1].sum()))
+    # 6a's primary wave: the two orders queued behind one sleep, in turns
+    a = flat_rec["a_primary"]
+    order = [False, True, True, False] * 3
+    times = device_times([lambda o=o: packet_query_cuda(*a, ordered=o)
+                          for o in order])
+    a_ms = {o: sum(t for t, p in zip(times, order) if p == o) / 6
+            for o in (False, True)}
+
+    def ratios(m):
+        return (f"near ÷ storage {m['near'] / m['storage']:.3f}, stats ÷ "
+                f"twin {m['storage+stats'] / m['storage']:.3f} (storage) / "
+                f"{m['near+stats'] / m['near']:.3f} (near-first)")
     print(f"phase 11b 6c primary wave ({n} rays): packet_walk near-first "
           f"{ms['near']:.4f} ms, storage order {ms['storage']:.4f} ms; with "
           f"stats {ms['near+stats']:.4f} / {ms['storage+stats']:.4f} ms; "
           f"node pops storage/near-first {pops[0]}/{pops[1]}, leaf-row tests "
-          f"{tests[0]}/{tests[1]}; plain {plain_ms:.1f} ms, bit-equal (t, "
-          f"tri, stats); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+          f"{tests[0]}/{tests[1]}; plain {plain_ms:.1f} ms, each instance "
+          f"bit-equal to its plain version (t, tri, stats); bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
           f"10a's largest mixed query: near-first {mms['near']:.4f} ms, "
           f"storage order {mms['storage']:.4f} ms, plain {mplain_ms:.1f} ms, "
-          f"bound {mrec['bound_ms']:.4f} ms ({mrec['bound_by']})")
+          f"each instance bit-equal to its plain version (t, tri, stats), "
+          f"bound {mrec['bound_ms']:.4f} ms ({mrec['bound_by']}); with "
+          f"stats {mms['near+stats']:.4f} / {mms['storage+stats']:.4f} ms; "
+          f"in turns, primary: {ratios(ms)}; mixed: {ratios(mms)}; 6a's "
+          f"primary wave ({a[3].shape[0]} lanes, device times, 6 launches "
+          f"each in turns): near-first {a_ms[True]:.4f} ms, storage order "
+          f"{a_ms[False]:.4f} ms ({a_ms[True] / a_ms[False]:.3f})")
     return rec, mrec
 
 
@@ -4222,7 +4376,7 @@ def main() -> int:
                                            recs["strand_mixed"], errs))
         with timed(secs, "11b"):
             recs["packet_near"], recs["packet_mixed_near"] = phase_near_route(
-                recs["packet"], recs["strand_mixed"], packet_mixed_near)
+                recs["packet"], recs["strand_mixed"], packet_mixed_near, errs)
         with timed(secs, "12"):
             forms = phase_schedule_route(recs["strand"], recs["block"],
                                          recs["strand_mixed"],

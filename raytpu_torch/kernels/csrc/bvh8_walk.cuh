@@ -30,7 +30,14 @@
 // 0x7ffffff8 | k, after every hit one), the 8 keys are sorted, interior
 // children are pushed far-first (so the nearest is popped next) and
 // leaves are tested near-first. The plain version sorts the same integer
-// keys, so it keeps the kernel's bits.
+// keys, so it keeps the kernel's bits. Only the order among two or more
+// hit interior children, or two or more hit leaves, is the keys': a lane
+// that holds no such pair (97.9% of the pops on the 1080p gallery's
+// primary wave, PERF.md) pushes its one interior child, whose link it
+// kept from the box tests, and queues its one leaf, without keys or a
+// sort. A lane that holds one forms the keys from the entry distances it
+// kept, sorts them and reads each pushed child's link again from the node
+// row (in L1 since the box loads).
 
 #pragma once
 
@@ -57,13 +64,10 @@ __device__ __forceinline__ void sort8(unsigned* c) {
   order(c[2], c[4]); order(c[3], c[5]); order(c[3], c[4]);
 }
 
-// link[k] for a k known only at run time, without indexing the array (which
-// would put it in local memory)
-__device__ __forceinline__ int link_of(const int* link, unsigned k) {
-  int l = link[0];
-#pragma unroll
-  for (unsigned q = 1; q < 8; ++q) l = (k == q) ? link[q] : l;
-  return l;
+// child k's link, read again from the node row (in L1 since the pop
+// loaded its boxes), where k is known only at run time
+__device__ __forceinline__ int link_at(const float* nd, unsigned k) {
+  return __float_as_int(__ldg(nd + 16 * k + 6));
 }
 
 // One lane's walk from the root of `nodes` (n_nodes rows, n_leaf_rows leaf
@@ -98,32 +102,57 @@ __device__ __forceinline__ int walk(const float* __restrict__ nodes,
         int link[8];
         unsigned inner = 0;
         if constexpr (kNearFirst) {
-          unsigned key[8];
+          float nr[8];        // each child's entry distance
+          unsigned hits = 0;  // the hit children
           unsigned leaves = 0;
+          int one = 0;  // the link of the last hit interior child
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
             const Box x = load_box(nd + 16 * k);
-            link[k] = __float_as_int(x.b.z);
+            const int lk = __float_as_int(x.b.z);
             float near;
             const bool hit = slab(r, x, slab_tmin, lim, &near);
-            key[k] = hit ? (__float_as_uint(near + 0.0f) & ~7u) | k
-                         : 0x7ffffff8u | k;
+            nr[k] = near;
             if (!hit) continue;
-            if (link[k] >= 0) {
-              if (link[k] < n_nodes) inner |= 1u << k;
-            } else if (~link[k] < n_leaf_rows) {
+            hits |= 1u << k;
+            if (lk >= 0) {
+              if (lk < n_nodes) {
+                inner |= 1u << k;
+                one = lk;
+              }
+            } else if (~lk < n_leaf_rows) {
               leaves |= 1u << k;
             }
           }
-          sort8(key);
+          // the order is the keys' only where the lane holds two hit
+          // interior children or two hit leaves; else it pushes its one
+          // child and queues its one leaf unsorted
+          const bool many = ((inner & (inner - 1)) | (leaves & (leaves - 1)))
+                            != 0;
+          if (many) {
+            unsigned key[8];
 #pragma unroll
-          for (int j = 7; j >= 0; --j) {
-            const unsigned k = key[j] & 7u;
-            if ((inner >> k) & 1) {
-              stack[min(sp, kDepth - 1)] = link_of(link, k);
+            for (int k = 0; k < 8; ++k) {
+              key[k] = ((hits >> k) & 1)
+                           ? (__float_as_uint(nr[k] + 0.0f) & ~7u) | k
+                           : 0x7ffffff8u | k;
+            }
+            sort8(key);
+#pragma unroll
+            for (int j = 7; j >= 0; --j) {
+              const unsigned k = key[j] & 7u;
+              if ((inner >> k) & 1) {
+                stack[min(sp, kDepth - 1)] = link_at(nd, k);
+                sp = min(sp + 1, kDepth - 1);
+              }
+              if ((leaves >> k) & 1) pend = (pend << 4) | (k + 1);
+            }
+          } else {
+            if (inner != 0) {
+              stack[min(sp, kDepth - 1)] = one;
               sp = min(sp + 1, kDepth - 1);
             }
-            if ((leaves >> k) & 1) pend = (pend << 4) | (k + 1);
+            pend = __ffs(leaves);  // the leaf's k + 1, or 0
           }
         } else {
 #pragma unroll

@@ -31,19 +31,29 @@
 // stack measured slower and was reverted; the stack stays in local memory
 // (2 KB a thread).
 //
-// Options of raytpu's kernel, none of which changes t or the tie key:
+// Options of raytpu's kernel, none of which changes t or the tie key, each
+// a template case, so the three storage-order instances without stats
+// keep their code (packet_kernel); the nine with an option are
+// packet_option_kernel, which holds each to the blocks an SM it must keep:
 // * near-first child order (raytpu's `ordered`, RAYTPU_ORDER_MODE): an
 //   instance of each form, kNearFirst, which orders each node's hit
 //   children by the ray's own entry distance (raytpu's kernel orders by a
-//   packet representative); it measured slower than storage order on the
-//   card (PERF.md), and the port's default keeps storage order;
+//   packet representative). bvh8_walk.cuh forms the keys and sorts them
+//   only for a lane that holds two hit interior children or two hit
+//   leaves; 9 blocks an SM (56 registers). It reads 0.94x storage order on
+//   the 1080p primary wave and 0.85x on a mixed query (PERF.md; 1.21x and
+//   1.05x before); the port's default keeps storage order until a
+//   benchmark cell decides;
 // * stats (raytpu's with_stats), an instance of each form and order,
-//   kStats: with stats non-null, int32 [ceil(R /
-//   packet), 128], each warp adds its lanes' node pops to lane 0 and their
-//   leaf-row tests to lane 1 of its packet's row (one atomic each; packet
-//   is a multiple of 128, so a warp lies in one packet), and the wrapper
-//   copies lane 0 to lanes 2..127. These are sums of each ray's own walk,
-//   not raytpu's one shared walk per packet.
+//   kStats: with stats non-null, int32 [ceil(R / packet), 128], a
+//   block's 4 warps sum their lanes' node pops and leaf-row tests in
+//   shared memory and one thread adds them to lanes 0 and 1 of the
+//   block's packet row (one atomic each; packet is a multiple of 128, so
+//   a block lies in one packet), and the wrapper copies lane 0 to lanes
+//   2..127. These are sums of each ray's own walk, not raytpu's one shared
+//   walk per packet. The storage-order stats instances run 7 blocks an SM
+//   as their twins do (the counters had taken them to 74 registers and 6
+//   blocks, +11-12%); they read 0.98-1.05x their twins.
 
 #include "bvh8_walk.cuh"
 
@@ -70,11 +80,13 @@ struct Args {
   float tmin, shadow_tmin;
 };
 
+// One thread's ray: the body of packet_kernel and packet_option_kernel
 template <bool kAny, bool kMixed, bool kNearFirst, bool kStats>
-__global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
+__device__ __forceinline__ void packet_walk(const Args& a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  if (i - lane >= a.n_rays) return;  // warp-uniform
+  // warp-uniform; the stats instances keep every warp for the block's sum
+  if (!kStats && i - lane >= a.n_rays) return;
   const bool real = i < a.n_rays;
   const Ray r = real ? load_ray(a.ro, a.rd, i)
                      : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
@@ -106,13 +118,29 @@ __global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
         return test_row<kAny, false>(r, lf, lr * kLeafSize, a.first, a.tmin,
                                      tm, &b);
       });
-  if (kStats) {
-    const int n_pops = __reduce_add_sync(kFull, pops);
-    const int n_tests = __reduce_add_sync(kFull, tests);
+  if constexpr (kStats) {
+    // the block's sums (the block lies in one packet; integer sums wrap
+    // and do not depend on order)
+    __shared__ unsigned part[2][kBlock / 32];
+    const unsigned n_pops = __reduce_add_sync(kFull, pops);
+    const unsigned n_tests = __reduce_add_sync(kFull, tests);
     if (lane == 0) {
-      int* row = a.stats + static_cast<size_t>((i - lane) / a.packet) * 128;
-      atomicAdd(row, n_pops);
-      atomicAdd(row + 1, n_tests);
+      part[0][threadIdx.x >> 5] = n_pops;
+      part[1][threadIdx.x >> 5] = n_tests;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned p = 0, t = 0;
+#pragma unroll
+      for (int w = 0; w < kBlock / 32; ++w) {
+        p += part[0][w];
+        t += part[1][w];
+      }
+      unsigned* row = reinterpret_cast<unsigned*>(a.stats) +
+                      static_cast<size_t>(blockIdx.x * kBlock / a.packet) *
+                          128;
+      atomicAdd(row, p);
+      atomicAdd(row + 1, t);
     }
   }
   if (real) {
@@ -121,10 +149,34 @@ __global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
   }
 }
 
+// The three storage-order instances without stats (kNearFirst and kStats
+// false; the template keeps both, so their names and code stay as they
+// were before the options had kernels of their own)
+template <bool kAny, bool kMixed, bool kNearFirst, bool kStats>
+__global__ void __launch_bounds__(kBlock) packet_kernel(Args a) {
+  packet_walk<kAny, kMixed, kNearFirst, kStats>(a);
+}
+
+// The option instances (near-first order, stats), each held to the blocks
+// an SM it must keep resident: the storage-order stats instances 7, as
+// their twins without stats run (72 / 70 registers; the counters took
+// them to 74 registers and 6 blocks), the near-first instances 9
+template <bool kAny, bool kMixed, bool kNearFirst, bool kStats>
+__global__ void __launch_bounds__(kBlock, kNearFirst ? 9 : 7)
+    packet_option_kernel(Args a) {
+  packet_walk<kAny, kMixed, kNearFirst, kStats>(a);
+}
+
 template <bool kAny, bool kMixed, bool kNearFirst, bool kStats>
 int launch(const Args& a, cudaStream_t s) {
   const int grid = (a.n_rays + kBlock - 1) / kBlock;
-  packet_kernel<kAny, kMixed, kNearFirst, kStats><<<grid, kBlock, 0, s>>>(a);
+  if constexpr (kNearFirst || kStats) {
+    packet_option_kernel<kAny, kMixed, kNearFirst, kStats>
+        <<<grid, kBlock, 0, s>>>(a);
+  } else {
+    packet_kernel<kAny, kMixed, kNearFirst, kStats><<<grid, kBlock, 0, s>>>(
+        a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

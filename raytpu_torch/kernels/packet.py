@@ -70,8 +70,9 @@ key:
   call reads ``RAYTPU_ORDER_MODE`` as raytpu does: ``all`` orders every
   query, ``none`` none, any other value the any-hit queries only. **Unset,
   the port keeps storage order**, where raytpu's default is ``all``:
-  near-first measured slower on the card (PERF.md), and order changes no
-  result of the contract.
+  order changes no result of the contract, and a default changes only
+  with a benchmark cell that times both orders (near-first measured
+  faster on the card's 1080p waves once redesigned; PERF.md).
 * ``with_stats`` (raytpu's): also returns int32 [ceil(R / packet), 128],
   per packet of ``packet`` rays (``RAYTPU_PACKET``, default 4096, read at
   import as raytpu reads it; a multiple of 128) lane 1 the leaf-row tests
@@ -80,7 +81,7 @@ key:
   (a pop per node of the union); the port has no shared walk, so its
   counts are the per-ray sums. A dead lane (tmax = -inf) walks no node, so
   an all-dead packet counts 0. The sums are int32 and wrap past 2^31 - 1;
-  the kernel adds a warp's sum with one atomic, and integer sums do not
+  the kernel adds a block's sum with one atomic, and integer sums do not
   depend on order, so the plain version reproduces them bit for bit.
 """
 
@@ -145,6 +146,25 @@ def _packet_stats(pops, tests, packet: int) -> torch.Tensor:
     return torch.where(lane == 1, sums[:, 1:2], sums[:, 0:1]).to(torch.int32)
 
 
+def _count_hits(hits: dict, idx, inner, at_leaf) -> None:
+    """One iteration of the plain walk (one pop of each walking ray:
+    ``idx`` the rays, ``inner`` / ``at_leaf`` [W, 8] its hit interior
+    children and hit leaves) added to ``hits``: "pops" int64 [9, 9], the
+    pops by (hit interior children, hit leaves); "groups" [2], the groups
+    of 32 consecutive rays with a ray popping, and those with no ray that
+    holds two hit interior children or two hit leaves (the kernel's warps,
+    as far as the walk's lock-step iterations stand for them)."""
+    ni, nl = inner.sum(1), at_leaf.sum(1)
+    pops = torch.bincount(ni * 9 + nl, minlength=81).reshape(9, 9).cpu()
+    many = ((ni > 1) | (nl > 1)).long()
+    grp = torch.unique(idx // 32, return_inverse=True)[1]
+    bad = torch.zeros(int(grp.max()) + 1, dtype=torch.long,
+                      device=idx.device).scatter_reduce(0, grp, many, "amax")
+    hits["pops"] = hits.get("pops", 0) + pops
+    hits["groups"] = [a + b for a, b in zip(
+        hits.get("groups", [0, 0]), (bad.numel(), int((bad == 0).sum())))]
+
+
 def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
                        tmin: float, any_hit: bool,
                        counts: dict | None = None, smask=None,
@@ -160,7 +180,8 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
     width grows to STACK_DEPTH as pushes need.
     A ``counts`` dict gains the walk's box tests ("boxes"), triangle tests
     ("tris") and the table bytes it reads, each distinct 512-byte node row
-    and 320-byte leaf row once ("bytes").
+    and 320-byte leaf row once ("bytes"); one that holds a dict under
+    "hits" also gains the pops by hit children there (``_count_hits``).
 
     With ``smask`` [R] (raytpu's ``packet_query(mixed=True)``), the mixed
     form: ``smask == 1`` flags a shadow lane, any-hit over [shadow_tmin,
@@ -257,6 +278,8 @@ def packet_query_torch(node8_rows, leaf_tris, first, ro, rd, tmax,
         hit = near <= far * FAR_SCALE
         inner = hit & (kl >= 0) & (kl < n_nodes)
         at_leaf = hit & (kl < 0) & (~kl < n_leaf_rows)
+        if counts is not None and "hits" in counts:
+            _count_hits(counts["hits"], s["idx"], inner, at_leaf)
         if ordered:
             # the visit order: children by their near-first keys; column j
             # of the reordered tensors is the j-th child to visit

@@ -15,7 +15,11 @@ compared with addresses and comments stripped. An old kernel is paired
 with the new kernel of the same mangled name, or, where the new checkout
 has none (a template parameter that changed type, as bool to int, renames
 every instance), with a kernel of a name the old checkout lacks and the
-same instructions. Prints, per source, how many of the old checkout's
+same instructions. A kernel in an anonymous namespace is named without
+the hashes nvcc puts in that namespace's name, which change from one
+build to the next (``_ZN47_GLOBAL__N__<hash>_14_packet_walk_cu_<hash>13
+packet_kernel...`` becomes ``_ZN26_GLOBAL__N__packet_walk_cu13
+packet_kernel...``). Prints, per source, how many of the old checkout's
 kernels the new one compiles to the same instructions, those found under
 another name, and which differ, and exits 1 if any differ. ``--only``
 holds only the instances of the named kernel templates (e.g.
@@ -33,9 +37,12 @@ comparable from one compiler). ``raytpu_torch/tools/sass_digests.json``
 holds the instructions of walk_kernel's 6 instances without an option
 (strand and ribbon rows one record a step, closest / any-hit / mixed,
 no stats) and of block_kernel's 2, as the commit before walk_kernel's
-K-wide fetch and stats counters were redesigned compiled them, for
-chip_smoke.py's check that those instances kept their code. Needs nvcc
-and cuobjdump (the CUDA toolkit), not a GPU.
+K-wide fetch and stats counters were redesigned compiled them, and of
+packet_kernel's 3 storage-order instances without stats and
+binned_kernel, as the commit before packet_kernel's near-first order and
+stats counters were redesigned compiled them, for chip_smoke.py's check
+that those instances kept their code. Needs nvcc and cuobjdump (the CUDA
+toolkit), not a GPU.
 """
 
 from __future__ import annotations
@@ -56,6 +63,21 @@ DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "sass_digests.json")
 
 
+def canonical(name: str) -> str:
+    """The mangled kernel ``name`` with its anonymous namespace (if any)
+    named by its source file alone, without nvcc's per-build hashes."""
+    m = re.search(r"(\d+)_GLOBAL__N__", name)
+    if m is None:
+        return name
+    end = m.end(1) + int(m.group(1))
+    ident = name[m.end(1):end]
+    f = re.match(r"_GLOBAL__N__[0-9a-f]+_(\d+)_", ident)
+    if f is None:
+        return name
+    ns = "_GLOBAL__N__" + ident[f.end():f.end() + int(f.group(1))]
+    return f"{name[:m.start(1)]}{len(ns)}{ns}{name[end:]}"
+
+
 def kernel_sass(root: str, source: str, cubin: str) -> dict:
     """{mangled kernel name: [instruction, ...]} of ``root``'s
     ``csrc/<source>.cu``, compiled to the file ``cubin``."""
@@ -69,7 +91,7 @@ def kernel_sass(root: str, source: str, cubin: str) -> dict:
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1)
+            name = canonical(m.group(1))
             kernels[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
             kernels[name].append(re.sub(r"/\*.*?\*/", "", line).strip())

@@ -5,6 +5,7 @@ or in several, in turns.
     python -m raytpu_torch.tools.sched_times              # this checkout
     python raytpu_torch/tools/sched_times.py --roots A B --order ABBA
     python raytpu_torch/tools/sched_times.py --forms options --roots A B
+    python raytpu_torch/tools/sched_times.py --forms packet --roots A B
 
 A root is the top of a checkout (the directory that holds ``chip_smoke.py``,
 ``raytpu_torch/`` and ``tests/tools/``). The waves are captured once, by
@@ -41,7 +42,22 @@ mixed query only (each form held to the default instance as above; the
 counters are left to chip_smoke.py's phases 3g and 11a), and each process
 reports every walk_kernel instance's registers, spills and static shared
 memory from ptxas's report (``kernels/_build.py:kernel_resources``, where
-the checkout has it). Needs a GPU; refuses to run without one.
+the checkout has it).
+
+``--forms packet`` times packet_walk's 12 instances (``PACKET``: closest,
+any-hit and mixed, each in storage and near-first order, each without and
+with stats) over the gallery's BVH8 and leaf rows: closest and any-hit on
+the primary wave (phase 6c's 1080p flat wave; any-hit with tmax F32_MAX),
+mixed on the mixed query, in turns, each held first to the storage-order
+instance without stats of its form (t bits and the tie key on closest
+lanes, the blocked bit on shadow lanes); the command then prints each
+root's near-first ÷ storage order and stats ÷ twin ratios and every
+packet instance's registers, spills and static shared memory (the
+counters and bits against the plain version are chip_smoke.py's phases
+3h and 11b). The capture then also counts the hit interior children and
+hit leaves of every node the plain storage-order walk pops on the primary
+wave (``kernels/packet.py:packet_query_torch``'s "hits" count). Needs a
+GPU; refuses to run without one.
 """
 
 from __future__ import annotations
@@ -72,6 +88,11 @@ OPTIONS = {
     **{f"ribbon K {k}{' stats' if st else ''}": dict(ribbon_k=k, stats=st)
        for k in (1, 4, 8) for st in (False, True)},
 }
+# packet_walk's instances (--forms packet), named as chip_smoke.py's
+# instance_name names them: name -> (form, ordered, stats)
+PACKET = {f"{form}{' near-first' if near else ''}{' stats' if st else ''}":
+          (form, near, st) for form in ("closest", "any", "mixed")
+          for near in (False, True) for st in (False, True)}
 DEFER = dict(defer=True, groups=16, skip_done=True)
 WAVES = "waves.pt"
 # the small wave: the primary wave's first rays, as many as chip_smoke.py's
@@ -79,9 +100,10 @@ WAVES = "waves.pt"
 SMALL_RAYS = 245760
 
 
-def _capture(root: str, out: str) -> None:
+def _capture(root: str, out: str, forms: str = "schedule") -> None:
     """The tables and the waves, from ``root``'s package, saved to
-    ``out``/WAVES."""
+    ``out``/WAVES; with ``forms`` "packet" also the primary wave's hit
+    children per pop (the plain walk's "hits" count), printed."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -114,11 +136,26 @@ def _capture(root: str, out: str) -> None:
     mro, mrd, mtmax, msmask, mtmin, mshadow = max(
         mixed, key=lambda q: q[0].shape[0])[:6]
     bvh = pack.bvh
+    tmax = torch.full((ro.shape[0],), c.F32_MAX, device="cuda")
+    if forms == "packet":
+        from raytpu_torch.kernels.packet import packet_query_torch
+
+        work = {"hits": {}}
+        packet_query_torch(bvh.node8_rows, bvh.leaf_tris, bvh.first_slots,
+                           ro, rd, tmax, 0.001, False, work, ordered=False)
+        pops, groups = work["hits"]["pops"], work["hits"]["groups"]
+        print(json.dumps(dict(
+            hit_children=f"{ro.shape[0]} rays, {int(pops.sum())} pops of "
+                         "the plain storage-order walk; pops by (hit "
+                         "interior children, hit leaves)",
+            pops={f"{a},{b}": int(pops[a, b]) for a in range(9)
+                  for b in range(9) if pops[a, b]},
+            sortless_pops=int(pops[:2, :2].sum()),
+            groups_of_32=groups[0], sortless_groups=groups[1])), flush=True)
     torch.save(dict(
         rows=bvh.strand_rows, ribbon=bvh.ribbon_rows, leaf=bvh.leaf_tris,
-        first=bvh.first_slots,
-        primary=(ro, rd, torch.full((ro.shape[0],), c.F32_MAX,
-                                    device="cuda"), 0.001),
+        first=bvh.first_slots, node8=bvh.node8_rows,
+        primary=(ro, rd, tmax, 0.001),
         bounce=(bro, brd, btmax, float(btmin)),
         mixed=(mro, mrd, mtmax, msmask, float(mtmin), float(mshadow))),
         os.path.join(out, WAVES))
@@ -141,10 +178,13 @@ def _time_root(root: str, waves: str, reps: int, forms: str) -> dict:
     )
 
     t0 = time.perf_counter()
-    for name in ("strand_walk", "strand_block"):
+    for name in (("packet_walk",) if forms == "packet"
+                 else ("strand_walk", "strand_block")):
         _build.load_library(name)
     build_s = time.perf_counter() - t0
     d = torch.load(os.path.join(waves, WAVES))
+    if forms == "packet":
+        return _time_packet(root, d, reps, dict(build_s=round(build_s, 2)))
     rows, ribbon, leaf, first = d["rows"], d["ribbon"], d["leaf"], d["first"]
     rpo = ribbon.shape[0] // 8
 
@@ -207,6 +247,68 @@ def _time_root(root: str, waves: str, reps: int, forms: str) -> dict:
                 resources=regs)
 
 
+def _time_packet(root: str, d: dict, reps: int, notes: dict) -> dict:
+    """--forms packet in one root's process: each PACKET instance in turns
+    on its wave (closest and any-hit: the primary wave; mixed: the mixed
+    query), held first to its form's storage-order instance without
+    stats."""
+    import torch
+
+    import chip_smoke as c
+    from raytpu_torch.kernels import _build
+    from raytpu_torch.kernels.packet import packet_query_cuda
+
+    node8, leaf, first = d["node8"], d["leaf"], d["first"]
+    ro, rd, tmax, tmin = d["primary"]
+    mro, mrd, mtmax, smask, mtmin, shadow = d["mixed"]
+    waves = {"closest": ((node8, leaf, first, ro, rd, tmax, tmin, False),
+                         {}),
+             "any": ((node8, leaf, first, ro, rd, tmax, 0.0, True), {}),
+             "mixed": ((node8, leaf, first, mro, mrd, mtmax, mtmin, False),
+                       dict(smask=smask, shadow_tmin=shadow))}
+    sets = {"primary": {}, "mixed": {}}
+    for name, (form, near, st) in PACKET.items():
+        args, kw = waves[form]
+        sets["mixed" if form == "mixed" else "primary"][name] = (
+            lambda args=args, kw=kw, near=near, st=st: packet_query_cuda(
+                *args, **kw, ordered=near, with_stats=st))
+    for label, calls in sets.items():
+        for name, fn in calls.items():
+            form = PACKET[name][0]
+            bad = c.agree("any-hit" if form == "any" else form,
+                          fn()[:2], calls[form]()[:2], first,
+                          smask if form == "mixed" else None)
+            if bad:
+                raise SystemExit(f"sched_times {root} {label} {name}: {bad} "
+                                 "lanes differ from the storage-order "
+                                 "instance")
+    out = {label: c.in_turns(calls, reps=reps)
+           for label, calls in sets.items()}
+    # the instances by their PACKET names, in checkouts that report them
+    res = getattr(_build, "kernel_resources", None)
+    name = getattr(c, "instance_name", lambda k: k)
+    regs = {name(k)[len("packet_kernel "):]: v
+            for k, v in res("packet_walk").items()
+            if name(k).startswith("packet_kernel ")} if res else {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    return dict(root=root, card=smi, **notes, reps=reps,
+                rays={"primary": int(ro.shape[0]),
+                      "mixed": int(mro.shape[0])}, ms=out, resources=regs)
+
+
+def _packet_ratios(ms: dict) -> str:
+    """Near-first ÷ storage order and stats ÷ twin, per form, from one
+    root's mean ms."""
+    both = {**ms["primary"], **ms["mixed"]}
+    near = ", ".join(f"{f} {both[f + ' near-first'] / both[f]:.3f}"
+                     for f in ("closest", "any", "mixed"))
+    stats = ", ".join(f"{n} {both[n + ' stats'] / both[n]:.3f}"
+                      for n in PACKET if not PACKET[n][2])
+    return f"near ÷ storage: {near}; stats ÷ twin: {stats}"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -222,15 +324,16 @@ def main(argv=None) -> int:
     ap.add_argument("--capture", action="store_true",
                     help="only capture the waves (with --root's package)")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--forms", choices=("schedule", "options"),
+    ap.add_argument("--forms", choices=("schedule", "options", "packet"),
                     default="schedule",
-                    help="the schedule and deferral forms (default) or "
-                         "walk_kernel's option forms")
+                    help="the schedule and deferral forms (default), "
+                         "walk_kernel's option forms or packet_walk's "
+                         "instances")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     if args.capture:
-        _capture(args.root or here, args.waves)
+        _capture(args.root or here, args.waves, args.forms)
         return 0
     if args.waves is not None:
         return _run(args, args.waves, here)
@@ -241,10 +344,11 @@ def main(argv=None) -> int:
 def _run(args, waves: str, here: str) -> int:
     """Capture the waves into ``waves`` if missing, then time the roots."""
     roots = args.roots or [args.root or here]
+    os.makedirs(waves, exist_ok=True)
     if not os.path.exists(os.path.join(waves, WAVES)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--capture", "--root", roots[0], "--waves",
-                               waves])
+                               waves, "--forms", args.forms])
         if proc.returncode != 0:
             return proc.returncode
     if args.roots is None:
@@ -273,8 +377,15 @@ def _run(args, waves: str, here: str) -> int:
             print(f"{root} {label} ({mine[0]['rays'][label]} rays): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in mean.items())
                   + f" ms ({len(mine)} processes; {mine[0]['card']})")
+        if args.forms == "packet":
+            mean = {label: {k: sum(r["ms"][label][k] for r in mine)
+                            / len(mine) for k in calls}
+                    for label, calls in mine[0]["ms"].items()}
+            print(f"{root} {_packet_ratios(mean)}")
         if mine[0].get("resources"):
-            print(f"{root} walk_kernel registers / spill stores / smem: "
+            kernel = ("packet_kernel" if args.forms == "packet"
+                      else "walk_kernel")
+            print(f"{root} {kernel} registers / spill stores / smem: "
                   + ", ".join(f"{k} {v['registers']}/{v['spill_stores']}/"
                               f"{v['smem']}" for k, v in
                               sorted(mine[0]["resources"].items())))

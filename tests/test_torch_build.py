@@ -247,3 +247,70 @@ def test_sass_diff_holds_named_templates_to_stored_digests(
                            "strand_walk", "--only", "walk_kernel"]) == 1
     assert sass_diff.held(wide, ["walk_kernel"])
     assert not sass_diff.held(wide, [walk, "block_kernel"])
+
+
+def test_sass_diff_names_anonymous_namespaces_without_build_hashes(
+        monkeypatch, capsys):
+    """A kernel in an anonymous namespace (packet_walk.cu's, binned_walk.cu's)
+    carries hashes that nvcc draws anew at each build: tools/sass_diff names
+    it by its source file alone, so two builds of one source compare by
+    name and a stored digest names the instance for good."""
+    from raytpu_torch.tools import sass_diff
+
+    build = ["_ZN47_GLOBAL__N__ad0c6d20_14_packet_walk_cu_29ada66013packet_"
+             "kernelILb0ELb1ELb0ELb0EEEvNS_4ArgsE",
+             "_ZN47_GLOBAL__N__33eba951_14_binned_walk_cu_6a00846d13binned_"
+             "kernelENS_4ArgsE"]
+    assert [sass_diff.canonical(n) for n in build] == [
+        "_ZN26_GLOBAL__N__packet_walk_cu13packet_kernelILb0ELb1ELb0ELb0EEEv"
+        "NS_4ArgsE", "_ZN26_GLOBAL__N__binned_walk_cu13binned_kernelENS_4"
+        "ArgsE"]
+    walk = "_ZN6strand11walk_kernelILi128ELb0ELb0ELi0ELb0EEEvNS_4ArgsE"
+    assert sass_diff.canonical(walk) == walk
+    hashes = iter(["47bc7db5", "d95bb9c4"])
+
+    def run(cmd, **kwargs):
+        if cmd[0] == "nvcc":
+            return subprocess.CompletedProcess(cmd, 0, "", "")
+        name = (f"_ZN47_GLOBAL__N__{next(hashes)}_14_packet_walk_cu_29ada66013"
+                "packet_kernelILb0ELb0ELb0ELb0EEEvNS_4ArgsE")
+        return subprocess.CompletedProcess(
+            cmd, 0, f"\t\tFunction : {name}\n        /*0000*/  EXIT ;", "")
+
+    monkeypatch.setattr(sass_diff, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(sass_diff.subprocess, "run", run)
+    assert sass_diff.main(["--old", "a", "--new", "b", "--sources",
+                           "packet_walk"]) == 0
+    out = capsys.readouterr().out
+    assert "1 of the old checkout's 1 kernels" in out
+    assert "another name: {}" in out
+
+
+def test_stored_digests_hold_the_option_free_instances():
+    """raytpu_torch/tools/sass_digests.json, which chip_smoke.py's phase 2b
+    holds the build to, names walk_kernel's 6 instances without an option,
+    block_kernel's 2, packet_kernel's 3 storage-order instances without
+    stats (closest, any-hit, mixed) and binned_kernel, each with a digest,
+    and holds exactly those."""
+    from raytpu_torch.tools import sass_diff
+
+    with open(sass_diff.DIGESTS) as f:
+        stored = json.load(f)
+    walk = [f"_ZN6strand11walk_kernelILi128ELb{a}ELb{m}ELi{k}ELb0EEEvNS_4"
+            "ArgsE" for a, m in ((0, 0), (1, 0), (0, 1)) for k in (0, 1)]
+    pk = [f"_ZN26_GLOBAL__N__packet_walk_cu13packet_kernelILb{a}ELb{m}ELb0E"
+          "Lb0EEEvNS_4ArgsE" for a, m in ((0, 0), (1, 0), (0, 1))]
+    binned_k = "_ZN26_GLOBAL__N__binned_walk_cu13binned_kernelENS_4ArgsE"
+    block = [f"_ZN6strand12block_kernelILi128ELb{a}EEEvNS_4ArgsE"
+             for a in (0, 1)]
+    assert sorted(stored["only"]) == sorted(walk + pk + [binned_k,
+                                                         "block_kernel"])
+    src = stored["sources"]
+    assert sorted(src) == ["binned_walk", "packet_walk", "strand_block",
+                           "strand_walk"]
+    assert sorted(src["strand_walk"]) == sorted(walk)
+    assert sorted(src["strand_block"]) == sorted(block)
+    assert sorted(src["packet_walk"]) == sorted(pk)
+    assert list(src["binned_walk"]) == [binned_k]
+    assert all(len(d) == 64 for s in src.values() for d in s.values())
+    assert stored["nvcc"].startswith("Build cuda_")
