@@ -53,7 +53,8 @@ launch count can be read:
   its binned mixed queries sampled against the brute sweep, and fault
   3.5's lost rays counted on every closest-hit lane of each;
 * phase 8, the per-step probe (``raytpu_torch.tools.step_bench``): every
-  arm on the card against its plain replay, then the full table;
+  arm on the card against its plain replay at W 8, 40, 128 and 1024 (1
+  and 16 iterations, each launch's grid printed), then the full table;
 * phase 9, the rest of raytpu's surface: (a) the threaded-BVH route
   (``intersector="bvh"``, plain torch ops) on a 2.6k-triangle gallery,
   one wave's tri and t bits equal to the CPU's and a 64x64 frame; (b)
@@ -3785,33 +3786,48 @@ def phase_schedule_route(main_rec: dict, block_rec: dict, mixed_rec: dict,
 
 
 def phase_step_bench(errs: list) -> dict:
-    """Phase 8: the per-step probe. Every arm at W = 8, 16 iterations on
-    the card against its plain replay (the final scratch and the last
-    carry bit-equal); then ``measure`` over every arm at W = 128, 2000
-    iterations (raytpu's defaults), the table printed, and the full arm's
-    plain replay at that size on the card, bit-equal and timed once."""
+    """Phase 8: the per-step probe. Every arm on the card against its
+    plain replay (the final scratch and the last carry bit-equal) at W =
+    8, 40, 128 and 1024 and 1 and 16 iterations, each launch's grid
+    printed; then ``measure`` over every arm at W = 128, 2000 iterations
+    (raytpu's defaults), the table printed, and the full arm's plain
+    replay at that size on the card, bit-equal and timed once."""
     import torch
 
     from raytpu_torch.tools import step_bench as sb
 
     tree = sb.make_tree("cuda")
-    for arm in sb.ARMS:
-        out_k, acc_k, _ = sb.step_bench_cuda(tree, arm, 16, 8)
-        out_p, acc_p = sb.step_bench_torch(tree, arm, 16, 8)
-        torch.cuda.synchronize()
-        if not (same_bits(out_k, out_p) and same_bits(acc_k, acc_p)):
-            fail(f"step_bench {arm}: kernel != plain replay at W 8, 16 "
-                 f"iterations ({int((out_k != out_p).sum())} scratch, "
-                 f"{int((acc_k != acc_p).sum())} carry elements differ)")
-        errs.append(max(t_err(out_k, out_p), t_err(acc_k, acc_p)))
+    for walkers in (8, 40, 128, 1024):
+        shapes = []
+        for arm in sb.ARMS:
+            geo = sb.launch_geometry(arm, walkers)
+            shapes.append(f"{arm} {geo['grid']}x{geo['warps']}x"
+                          f"{geo['rows']}")
+            for iters in (1, 16):
+                out_k, acc_k, cycles = sb.step_bench_cuda(tree, arm, iters,
+                                                          walkers)
+                out_p, acc_p = sb.step_bench_torch(tree, arm, iters, walkers)
+                torch.cuda.synchronize()
+                if not (same_bits(out_k, out_p) and same_bits(acc_k, acc_p)
+                        and int(cycles) > 0):
+                    fail(f"step_bench {arm}: kernel != plain replay at W "
+                         f"{walkers}, {iters} iterations "
+                         f"({int((out_k != out_p).sum())} scratch, "
+                         f"{int((acc_k != acc_p).sum())} carry elements "
+                         f"differ; {int(cycles)} cycles)")
+                errs.append(max(t_err(out_k, out_p), t_err(acc_k, acc_p)))
+        print(f"phase 8 step_bench W {walkers}: {len(sb.ARMS)} arms "
+              "bit-equal to their plain replays at 1 and 16 iterations; "
+              "blocks x warps x rows: " + ", ".join(shapes))
     walkers, iters = 128, 2000
     reset_launches()
     rows = sb.measure(sb.ARMS, walkers, iters, repeats=5)
     torch.cuda.synchronize()
     launches = read_launches()["step"]
-    print(f"phase 8 step_bench: {len(sb.ARMS)} arms bit-equal to their plain "
-          f"replays at W 8, 16 iterations; W {walkers}, {iters} iterations, "
-          f"{launches} launches, launch floor {rows[0]['floor_ms']:.4f} ms:")
+    print(f"phase 8 step_bench: W {walkers}, {iters} iterations, "
+          f"{launches} launches, launch floors "
+          f"{min(r['floor_ms'] for r in rows):.4f}-"
+          f"{max(r['floor_ms'] for r in rows):.4f} ms:")
     print(sb.format_table(rows))
     full = rows[0]
     plain_ms = cuda_ms(lambda: sb.step_bench_torch(tree, "full", iters,
@@ -3821,8 +3837,8 @@ def phase_step_bench(errs: list) -> dict:
     if not (same_bits(out_k, out_p) and same_bits(acc_k, acc_p)):
         fail("step_bench full: kernel != plain replay at W 128")
     errs.append(max(t_err(out_k, out_p), t_err(acc_k, acc_p)))
-    print(f"phase 8 full arm: kernel {full['ms']:.4f} ms, plain replay "
-          f"{plain_ms:.1f} ms, bit-equal")
+    print(f"phase 8 full arm: kernel {full['ms']:.4f} ms "
+          f"({full['shape']}), plain replay {plain_ms:.1f} ms, bit-equal")
     return dict(launches=launches, ms=full["ms"], plain_ms=plain_ms,
                 **bound(nbytes(tree, out_k, acc_k),
                         iters * walkers * 128 * STEP_FULL_OPS))

@@ -78,9 +78,11 @@ def canonical(name: str) -> str:
     return f"{name[:m.start(1)]}{len(ns)}{ns}{name[end:]}"
 
 
-def kernel_sass(root: str, source: str, cubin: str) -> dict:
+def kernel_sass(root: str, source: str, cubin: str,
+                addresses: bool = False) -> dict:
     """{mangled kernel name: [instruction, ...]} of ``root``'s
-    ``csrc/<source>.cu``, compiled to the file ``cubin``."""
+    ``csrc/<source>.cu``, compiled to the file ``cubin``; with
+    ``addresses``, [(address, instruction), ...]."""
     src = os.path.join(root, "raytpu_torch", "kernels", "csrc", source + ".cu")
     flags = [f for f in NVCC_FLAGS if f not in _SHARED]
     subprocess.run([_nvcc(), *flags, "-cubin", "-o", cubin, src], check=True)
@@ -93,8 +95,10 @@ def kernel_sass(root: str, source: str, cubin: str) -> dict:
         if m:
             name = canonical(m.group(1))
             kernels[name] = []
-        elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
-            kernels[name].append(re.sub(r"/\*.*?\*/", "", line).strip())
+        elif name and (m := re.match(r"\s*/\*([0-9a-f]{4,})\*/", line)):
+            ins = re.sub(r"/\*.*?\*/", "", line).strip()
+            kernels[name].append((int(m.group(1), 16), ins) if addresses
+                                 else ins)
     return kernels
 
 

@@ -2,6 +2,7 @@
 
     python -m raytpu_torch.tools.step_bench [--walkers 128] [--iters 2000]
         [--repeats 5] [--arms full noroll ...]
+    python -m raytpu_torch.tools.step_bench --sass
 
 Port of ``benchmarks/step_bench.py`` (``_kernel`` and ``main``). Each arm
 runs ``iters`` iterations of one structural piece of a walk step (roll
@@ -12,23 +13,32 @@ first W rows of a fixed ``(1024, 128)`` tree
 through ``scratch[0][0]``. The arms do not trace real rays: this is a cost
 model.
 
-``step_bench_cuda`` launches ``kernels/csrc/step_bench.cu`` (one thread
-block, the scratch in shared memory); ``step_bench_torch`` is its plain
-version, a replay of raytpu's arithmetic in torch ops; ``step_bench``
-dispatches on the tree's device. Both return the final scratch ``(W,
-128)`` and the last iteration's per-row carry ``acc`` ``(W,)``.
+``step_bench_cuda`` launches ``kernels/csrc/step_bench.cu``: the walker
+rows spread over the card, W / 4 blocks of 4 warps, a warp holding its
+row in registers (``ctl``, whose decision reads all W rows, one block
+with a lane a row: ``launch_shape``);
+``step_bench_torch`` is its plain version, a replay of raytpu's arithmetic
+in torch ops; ``step_bench`` dispatches on the tree's device. Both return
+the final scratch ``(W, 128)`` and the last iteration's per-row carry
+``acc`` ``(W,)``.
 
 ``main`` needs a CUDA device (it measures the card and nothing else). It
 times every arm with CUDA events, subtracts the launch floor of an empty
-kernel, and prints ms, ns per iteration and cycles per walker-step, the
-cycles read from the SM's own cycle counter inside the kernel.
+kernel of the same shape, and prints ms, ns per iteration and cycles per
+walker-step: the slowest block's SM cycles of its loop (each block reads
+its SM's cycle counter) an iteration, over W. ``--sass`` prints each
+kernel instance's registers, loop instruction counts and dependent-chain
+floor from ``cuobjdump -sass`` (nvcc only, no GPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import os
+import re
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -39,7 +49,10 @@ DEFAULT_ARMS = ("full", "noroll", "roll2", "slab", "rollq", "ctl", "fetch",
                 "mt", "install")  # raytpu's default list
 TREE_ROWS = 1024
 LANES = 128
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use (sm_90)
+ROW_WARPS = 4  # warps a block of the row arms, one row a warp
+CTL_ROWS = (1, 2, 4)  # rows a lane ctl's kernel is built for
+# the arms whose warps carry their own copy of row 0's chain
+ROW0_ARMS = ("fetch", "fetchdep", "fetchmir", "mt", "install")
 
 
 def make_tree(device="cuda") -> torch.Tensor:
@@ -193,13 +206,11 @@ def _library():
             lib = load_library("step_bench")
             lib.step_bench_launch.restype = ctypes.c_int
             lib.step_bench_launch.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                 + [ctypes.c_void_p])
             lib.step_bench_empty_launch.restype = ctypes.c_int
-            lib.step_bench_empty_launch.argtypes = [ctypes.c_int,
-                                                    ctypes.c_void_p]
-            lib.step_bench_smem_bytes.restype = ctypes.c_int
-            lib.step_bench_smem_bytes.argtypes = [ctypes.c_int]
+            lib.step_bench_empty_launch.argtypes = (
+                [ctypes.c_int] * 3 + [ctypes.c_void_p])
             lib.step_bench_error_string.restype = ctypes.c_char_p
             lib.step_bench_error_string.argtypes = [ctypes.c_int]
             _LIB = lib
@@ -218,10 +229,45 @@ def _check_walkers(walkers: int):
                          f"{TREE_ROWS}], got {walkers}")
 
 
+def _check_arm(arm: str):
+    if arm not in ARMS:
+        raise ValueError(f"unknown arm {arm!r}; arms: {' '.join(ARMS)}")
+
+
+def launch_shape(arm: str, walkers: int) -> tuple:
+    """The shape the kernel launches ``arm`` with at W = ``walkers``:
+    (rows a warp, warps a block); for ``ctl``, (rows a lane, warps) of its
+    one block."""
+    _check_arm(arm)
+    _check_walkers(walkers)
+    if arm == "ctl":
+        if walkers > 128:  # 4 rows a lane, as many warps as that takes
+            return 4, -(-walkers // 128)
+        return next(r for r in CTL_ROWS if 32 * r >= walkers), 1
+    return 1, ROW_WARPS
+
+
+def launch_geometry(arm: str, walkers: int) -> dict:
+    """The launch of ``arm`` at W = ``walkers`` (``launch_shape``): blocks,
+    threads a block, the dynamic shared memory a block needs in bytes
+    (``smem``), and the int32 slots of fetchmir's index buffer (``idx``).
+    """
+    rows, warps = launch_shape(arm, walkers)
+    slots = rows + (arm in ROW0_ARMS)
+    grid = 1 if arm == "ctl" else walkers // warps
+    mirror = (warps * slots + 3) // 4 * 4
+    smem = {"fetchdep": warps * 2 * slots * 4, "fetchmir": mirror * 4,
+            "ctl": 2 * warps * 5 * 4, "install": warps * LANES * 4,
+            "mt": 2 * 4}.get(arm, 0)
+    return dict(rows=rows, warps=warps, grid=grid,
+                threads=32 * (warps + (arm == "mt")),
+                smem=smem, idx=grid * mirror if arm == "fetchmir" else 1)
+
+
 def step_bench_cuda(tree, arm: str, iters: int, walkers: int):
     """Launch ``csrc/step_bench.cu`` for one arm on the current stream:
-    (scratch (W, 128), acc (W,), SM cycles of the loop as a 1-element
-    int64 tensor). Raises on bad inputs or a failed launch.
+    (scratch (W, 128), acc (W,), the slowest block's SM cycles of its loop
+    as a 1-element int64 tensor). Raises on bad inputs or a failed launch.
     ``step_bench_cuda.launches`` counts the launches."""
     if tree.device.type != "cuda":
         raise ValueError(f"step_bench_cuda needs a CUDA tensor, got "
@@ -231,25 +277,21 @@ def step_bench_cuda(tree, arm: str, iters: int, walkers: int):
         raise ValueError(f"tree: want a contiguous float32 [{TREE_ROWS}, "
                          f"{LANES}] tensor, got {tree.dtype} "
                          f"{tuple(tree.shape)}")
-    if arm not in ARMS:
-        raise ValueError(f"unknown arm {arm!r}; arms: {' '.join(ARMS)}")
-    _check_walkers(walkers)
+    geo = launch_geometry(arm, walkers)
     lib = _library()
-    if lib.step_bench_smem_bytes(walkers) > SMEM_LIMIT:
-        raise ValueError(f"walkers={walkers}: the scratch does not fit one "
-                         "block's shared memory")
     dev = tree.device
     out = torch.empty((walkers, LANES), dtype=torch.float32, device=dev)
     acc = torch.empty(walkers, dtype=torch.float32, device=dev)
-    idx = torch.empty(walkers, dtype=torch.int32, device=dev)
+    idx = torch.empty(geo["idx"], dtype=torch.int32, device=dev)
     cycles = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.step_bench_launch(tree.data_ptr(), out.data_ptr(),
                                    acc.data_ptr(), idx.data_ptr(),
                                    cycles.data_ptr(), ARMS.index(arm),
-                                   iters, walkers, stream)
-    _check(lib, rc, f"step_bench launch ({arm})")
+                                   iters, walkers, geo["rows"], geo["warps"],
+                                   geo["grid"], geo["smem"], stream)
+    _check(lib, rc, f"step_bench launch ({arm}, W {walkers})")
     step_bench_cuda.launches += 1
     return out, acc, cycles
 
@@ -275,14 +317,16 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def launch_floor_ms(walkers: int, repeats: int = 6) -> float:
+def launch_floor_ms(arm: str, walkers: int, repeats: int = 6) -> float:
     """The smallest event-timed span of one empty-kernel launch with the
-    same block and shared memory."""
+    arm's grid, block and shared memory."""
+    geo = launch_geometry(arm, walkers)
     lib = _library()
     stream = torch.cuda.current_stream().cuda_stream
 
     def empty():
-        _check(lib, lib.step_bench_empty_launch(walkers, stream),
+        _check(lib, lib.step_bench_empty_launch(geo["grid"], geo["threads"],
+                                                geo["smem"], stream),
                "empty launch")
 
     empty()
@@ -290,15 +334,17 @@ def launch_floor_ms(walkers: int, repeats: int = 6) -> float:
 
 
 def measure(arms, walkers: int, iters: int, repeats: int) -> list:
-    """Every arm on the card: a list of dicts with the arm, ms (the
-    fastest of ``repeats`` event-timed launches less the launch floor),
-    ns per iteration, SM cycles per iteration and per walker-step (from
+    """Every arm on the card: a list of dicts with the arm, its launch
+    shape, ms (the fastest of ``repeats`` event-timed launches less the
+    launch floor of an empty kernel of the same shape), ns per iteration,
+    SM cycles per iteration and per walker-step (the slowest block's, from
     the kernel's own cycle counter), the implied SM clock in MHz, and the
     launch floor."""
     tree = make_tree("cuda")
-    floor = launch_floor_ms(walkers)
     rows = []
     for arm in arms:
+        geo = launch_geometry(arm, walkers)
+        floor = launch_floor_ms(arm, walkers)
         step_bench_cuda(tree, arm, iters, walkers)  # warm-up
         times, cycles = [], []
         for _ in range(repeats):
@@ -309,7 +355,9 @@ def measure(arms, walkers: int, iters: int, repeats: int) -> list:
         best = int(np.argmin(times))
         ms = max(times[best] - floor, 1e-9)
         cyc_iter = cycles[best] / iters
-        rows.append(dict(arm=arm, ms=ms, ns_per_iter=ms * 1e6 / iters,
+        rows.append(dict(arm=arm, shape=f"{geo['grid']}x{geo['warps']}x"
+                         f"{geo['rows']}", ms=ms,
+                         ns_per_iter=ms * 1e6 / iters,
                          cycles_per_iter=cyc_iter,
                          cycles_per_walker_step=cyc_iter / walkers,
                          sm_mhz=cycles[best] / (times[best] * 1e3),
@@ -318,12 +366,144 @@ def measure(arms, walkers: int, iters: int, repeats: int) -> list:
 
 
 def format_table(rows) -> str:
-    lines = ["| arm | ms | ns/iter | cycles/iter | cycles/walker-step | "
-             "SM MHz |", "|---|---|---|---|---|---|"]
+    lines = ["| arm | blocks x warps x rows | ms | ns/iter | cycles/iter | "
+             "cycles/walker-step | SM MHz |", "|---|---|---|---|---|---|---|"]
     for r in rows:
-        lines.append(f"| {r['arm']} | {r['ms']:.4f} | {r['ns_per_iter']:.1f} "
-                     f"| {r['cycles_per_iter']:.1f} | "
-                     f"{r['cycles_per_walker_step']:.3f} | {r['sm_mhz']:.0f} |")
+        lines.append(f"| {r['arm']} | {r['shape']} | {r['ms']:.4f} | "
+                     f"{r['ns_per_iter']:.1f} | {r['cycles_per_iter']:.1f} | "
+                     f"{r['cycles_per_walker_step']:.3f} | "
+                     f"{r['sm_mhz']:.0f} |")
+    return "\n".join(lines)
+
+
+# Latencies in cycles assumed for the dependent-chain floor (not measured
+# here): fixed-latency ALU 4, conversions 6, MUFU 16, shuffles and shared
+# loads 24, warp reductions 30, loads that hit L1 33, barriers 20.
+_LATENCY = {"F2I": 6, "I2F": 6, "F2F": 6, "MUFU": 16, "SHFL": 24,
+            "LDS": 24, "REDUX": 30, "LDG": 33, "LD": 33, "BAR": 20,
+            "DEPBAR": 33}
+_NO_DEST = {"STG", "STS", "ST", "RED", "BAR", "BRA", "EXIT", "WARPSYNC",
+            "NOP", "CALL", "RET", "BSSY", "BSYNC", "DEPBAR", "LDGDEPBAR",
+            "LDGSTS", "YIELD"}
+_COUNTED = ("SHFL", "VOTE", "REDUX", "FSETP", "FMNMX", "FSEL", "FMUL",
+            "FADD", "FFMA", "MUFU", "F2I", "LOP3", "LDG", "LDS", "STS",
+            "LDGSTS", "BAR", "LDL", "STL")
+
+
+def _regs(token: str) -> list:
+    """The registers a SASS operand names (``R4.64`` is R4 and R5)."""
+    out = []
+    for m in re.finditer(r"\b(U?R|U?P)(\d+)(\.64)?", token):
+        n = int(m.group(2))
+        out.append(f"{m.group(1)}{n}")
+        if m.group(3):
+            out.append(f"{m.group(1)}{n + 1}")
+    return out
+
+
+def loop_body(lines: list) -> list:
+    """The instructions of the iteration loop: those from the earliest
+    target of a backward branch to the last branch back to it (blocks the
+    compiler moved past that branch, as a division's slow path, are not
+    counted). ``lines`` are (address, instruction) pairs."""
+    best = None
+    for addr, ins in lines:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            span = (int(m.group(1), 16), addr)
+            if best is None or span[0] < best[0] or (
+                    span[0] == best[0] and span[1] > best[1]):
+                best = span
+    if best is None:
+        return []
+    return [ins for addr, ins in lines if best[0] <= addr <= best[1]]
+
+
+def chain_floor(body: list) -> int:
+    """The longest dependent chain through one pass of ``body`` in cycles,
+    each instruction taking ``_LATENCY`` (4 if absent) after the last of
+    its sources is ready: a floor for one iteration that ignores issue."""
+    ready, longest = {}, 0
+    for ins in body:
+        guard = re.match(r"@!?(U?P\d+)\s+", ins)
+        text = ins[guard.end():] if guard else ins
+        op, _, rest = text.rstrip(" ;").partition(" ")
+        base = op.split(".")[0]
+        ops = [o.strip() for o in rest.split(",")] if rest else []
+        if base in _NO_DEST or not ops:
+            dests, srcs = [], ops
+        elif base.endswith("SETP") or base == "PLOP3":
+            dests, srcs = ops[:2], ops[2:]
+        elif re.match(r"U?P(\d|T)", ops[0]) and len(ops) > 1 and re.match(
+                r"U?R", ops[1]):
+            dests, srcs = ops[:2], ops[2:]
+        else:
+            dests, srcs = ops[:1], ops[1:]
+        sources = [r for o in srcs for r in _regs(o)]
+        if guard:
+            sources.append(guard.group(1))
+        start = max((ready.get(r, 0) for r in sources), default=0)
+        done = start + _LATENCY.get(base, 4)
+        width = 4 if ".128" in op else (2 if ".64" in op or "WIDE" in op
+                                        else 1)
+        for d in dests:
+            regs = _regs(d)
+            if regs and regs[0].startswith(("R", "UR")) and width > 1:
+                pre = "UR" if regs[0].startswith("UR") else "R"
+                n = int(regs[0][len(pre):])
+                regs = [f"{pre}{n + i}" for i in range(width)]
+            for r in regs:
+                ready[r] = done
+        longest = max(longest, done)
+    return longest
+
+
+def sass_counts() -> list:
+    """Each kernel instance of ``csrc/step_bench.cu`` (built with the
+    port's flags, then compiled to an sm_90a cubin and disassembled by
+    ``tools/sass_diff.py:kernel_sass``): its arm, rows (a lane's, for
+    ctl), registers (ptxas's report), the iteration loop's instruction
+    count, the count of each opcode in ``_COUNTED`` there, and its
+    dependent-chain floor (``chain_floor``). Needs nvcc and cuobjdump,
+    not a GPU."""
+    from ..kernels._build import kernel_resources
+    from .sass_diff import canonical, kernel_sass
+
+    _library()  # the build keeps ptxas's report
+    registers = {canonical(k): r["registers"]
+                 for k, r in kernel_resources("step_bench").items()}
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels = kernel_sass(root, "step_bench",
+                              os.path.join(tmp, "step_bench.cubin"),
+                              addresses=True)
+    out = []
+    for name, lines in kernels.items():
+        m = re.search(r"row_kernelILi(\d+)EE", name)
+        c = re.search(r"ctl_kernelILi(\d+)EE", name)
+        if not (m or c):
+            continue
+        body = loop_body(lines)
+        ops = [re.sub(r"^@!?U?P\d+\s+", "", i).split(" ")[0].split(".")[0]
+               for i in body]
+        out.append(dict(arm=ARMS[int(m.group(1))] if m else "ctl",
+                        rows=1 if m else int(c.group(1)),
+                        registers=registers.get(name, 0), loop=len(body),
+                        counts={k: ops.count(k) for k in _COUNTED},
+                        chain=chain_floor(body)))
+    return sorted(out, key=lambda r: (ARMS.index(r["arm"]), r["rows"]))
+
+
+def format_sass(rows) -> str:
+    lines = ["| arm | rows | registers | loop instructions | "
+             + " | ".join(_COUNTED) + " | chain floor (cycles) |",
+             "|---" * (len(_COUNTED) + 5) + "|"]
+    for r in rows:
+        lines.append(f"| {r['arm']} | {r['rows']} | {r['registers']} | "
+                     f"{r['loop']} | "
+                     + " | ".join(str(r["counts"][k]) for k in _COUNTED)
+                     + f" | {r['chain']} |")
     return "\n".join(lines)
 
 
@@ -335,14 +515,20 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--arms", nargs="*", default=list(DEFAULT_ARMS),
                     choices=ARMS)
+    ap.add_argument("--sass", action="store_true",
+                    help="print each instance's loop instruction counts "
+                         "(nvcc and cuobjdump; no GPU) and exit")
     args = ap.parse_args(argv)
+    if args.sass:
+        print(format_sass(sass_counts()))
+        return 0
     if not torch.cuda.is_available():
         print("step_bench: needs a CUDA device", file=sys.stderr)
         return 1
     rows = measure(args.arms, args.walkers, args.iters, args.repeats)
     print(f"[step] {torch.cuda.get_device_name(0)}, W {args.walkers}, "
-          f"{args.iters} iterations, launch floor {rows[0]['floor_ms']:.4f} "
-          "ms", file=sys.stderr)
+          f"{args.iters} iterations, launch floor "
+          f"{min(r['floor_ms'] for r in rows):.4f} ms", file=sys.stderr)
     print(format_table(rows))
     return 0
 

@@ -174,6 +174,39 @@ def test_sass_diff_compares_kernels_by_instructions(monkeypatch, capsys):
     assert "another name: {'k1': 'k1b'}" in capsys.readouterr().out
 
 
+def test_kernel_sass_reads_addresses(monkeypatch, tmp_path):
+    """tools/sass_diff.kernel_sass (nvcc and cuobjdump stubbed): each
+    kernel's instructions with addresses and comments dropped, or with
+    ``addresses`` (address, instruction) pairs, past 0xffff too, where
+    cuobjdump prints five digits; anonymous namespaces lose their
+    hashes."""
+    from raytpu_torch.tools import sass_diff
+
+    name = ("_ZN46_GLOBAL__N__1a2b3c4d_13_step_bench_cu_5e6f7a8b"
+            "10row_kernelILi0EEEvv")
+    text = "\n".join([f"\t\tFunction : {name}",
+                      "        /*0000*/  MOV R1, c[0x0][0x28] ;  /* 0x0 */",
+                      "        /*fff0*/  FADD R2, R1, R1 ;  /* 0x0 */",
+                      "        /*10000*/  BRA 0xfff0 ;  /* 0x0 */",
+                      "        /*10010*/  EXIT ;  /* 0x0 */"])
+
+    def run(cmd, **kwargs):
+        return subprocess.CompletedProcess(cmd, 0, "" if cmd[0] == "nvcc"
+                                           else text, "")
+
+    monkeypatch.setattr(sass_diff, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(sass_diff.subprocess, "run", run)
+    cubin = str(tmp_path / "k.cubin")
+    plain = sass_diff.kernel_sass("root", "step_bench", cubin)
+    key = "_ZN25_GLOBAL__N__step_bench_cu10row_kernelILi0EEEvv"
+    assert plain == {key: ["MOV R1, c[0x0][0x28] ;", "FADD R2, R1, R1 ;",
+                           "BRA 0xfff0 ;", "EXIT ;"]}
+    pairs = sass_diff.kernel_sass("root", "step_bench", cubin,
+                                  addresses=True)[key]
+    assert [a for a, _ in pairs] == [0, 0xfff0, 0x10000, 0x10010]
+    assert [i for _, i in pairs] == plain[key]
+
+
 def test_sass_diff_holds_named_templates_to_stored_digests(
         monkeypatch, capsys, tmp_path):
     """tools/sass_diff's digest file (nvcc stubbed): ``--write-digests``

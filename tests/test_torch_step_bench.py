@@ -2,7 +2,9 @@
 against raytpu's Pallas kernel ``benchmarks/step_bench.py:_kernel`` run in
 interpret mode, arm by arm, at W = 8 and 3 iterations (rtol 1e-5), and
 on probe trees that make each arm's carried arithmetic visible in the
-kernel's output, at 1 to 3 iterations.
+kernel's output, at 1 to 3 iterations; the property the kernel's row
+split relies on (rows 0-7 the same at every W, in every arm but ctl);
+the wrapper's launch shapes, refusals and SASS helpers.
 
 Importing benchmarks/step_bench.py points JAX's persistent compilation
 cache at RAYTPU_CACHE, so those cases run in a child process
@@ -242,14 +244,162 @@ def test_main_needs_a_card(capsys):
 
 @pytest.mark.cuda
 def test_kernel_bit_equal_replay_on_cuda():
-    """step_bench.cu against the plain replay on the card, every arm."""
+    """step_bench.cu against the plain replay on the card, every arm, at W
+    8, 40 and 1024: the row arms in 2, 10 and 256 blocks of 4 warps, ctl
+    in one block with lanes past W at W 8 and 40 (1 and 2 rows a lane)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py runs this on one)")
     tree = sb.make_tree("cuda")
+    for walkers in (8, 40, 1024):
+        for arm in sb.ARMS:
+            out_k, acc_k, cycles = sb.step_bench_cuda(tree, arm, 16, walkers)
+            out_p, acc_p = sb.step_bench_torch(tree, arm, 16, walkers)
+            torch.cuda.synchronize()
+            assert torch.equal(out_k.view(torch.int32),
+                               out_p.view(torch.int32)), (arm, walkers)
+            assert torch.equal(acc_k.view(torch.int32),
+                               acc_p.view(torch.int32)), (arm, walkers)
+            assert int(cycles) > 0
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+SPLIT_ARMS = [arm for arm in sb.ARMS if arm != "ctl"]
+
+
+@pytest.mark.parametrize("arm", SPLIT_ARMS)
+def test_rows_split_over_blocks(arm):
+    """What the kernel's row split relies on: in every arm but ctl, a
+    row's state and carry depend only on itself, the tree and row 0, so
+    rows 0-7 come out the same whatever W is. Held at W 8 against W 64
+    and 128, at 1 to 5 iterations, on raytpu's tree and on the probes."""
+    trees = {"tree": sb.make_tree("cpu"), **_carry_probes()}
+    for name, tree in trees.items():
+        for iters in range(1, 6):
+            out8, acc8 = sb.step_bench_torch(tree, arm, iters, 8)
+            for walkers in (64, 128):
+                out, acc = sb.step_bench_torch(tree, arm, iters, walkers)
+                assert _same_bits(out[:8], out8), (name, iters, walkers)
+                assert _same_bits(acc[:8], acc8), (name, iters, walkers)
+
+
+def test_ctl_is_not_split():
+    """ctl reduces over all W rows every iteration, so its result depends
+    on W: the carry counts every row's queue (raytpu's tree), and a tree
+    whose first 8 rows have no next link takes the leaf branch at W 8 but
+    not at W 64, where later rows have one. Its kernel is one block."""
+    tree = sb.make_tree("cpu")
+    _, acc8 = sb.step_bench_torch(tree, "ctl", 1, 8)
+    _, acc64 = sb.step_bench_torch(tree, "ctl", 1, 64)
+    assert not _same_bits(acc64[:8], acc8)
+    p = tree.clone()
+    p[:8, 0], p[:8, 1] = 0.0, 1.0  # cur 0 (no next link), queue 3
+    out8, _ = sb.step_bench_torch(p, "ctl", 1, 8)
+    out64, _ = sb.step_bench_torch(p, "ctl", 1, 64)
+    assert float(out8[0, 0]) == 1.0  # do_leaf: scratch[0, 0] + 1
+    assert float(out64[0, 0]) != float(out8[0, 0])
+    assert torch.equal(out64[1:8], out8[1:8])
+    for walkers in (8, 128, 1024):
+        assert sb.launch_geometry("ctl", walkers)["grid"] == 1
+
+
+def test_launch_shape_defaults():
+    """Rows a warp x warps a block for the row arms; ctl one block of 4
+    rows a lane above W 128, one warp up to it."""
+    for arm in SPLIT_ARMS:
+        for walkers in (8, 40, 128, 1024):
+            assert sb.launch_shape(arm, walkers) == (1, 4)
+    assert [sb.launch_shape("ctl", w) for w in (8, 40, 64, 128, 136, 1024)] \
+        == [(1, 1), (2, 1), (2, 1), (4, 1), (4, 2), (4, 8)]
+
+
+@pytest.mark.parametrize("walkers", [8, 40, 128, 1000, 1024])
+def test_launch_geometry_covers_w(walkers):
+    """Every arm's launch covers rows 0..W-1 exactly once: the row arms in
+    W / 4 full blocks of 4 warps, one row a warp, ctl in one block whose
+    last warp holds at least one row."""
     for arm in sb.ARMS:
-        out_k, acc_k, cycles = sb.step_bench_cuda(tree, arm, 16, 8)
-        out_p, acc_p = sb.step_bench_torch(tree, arm, 16, 8)
-        torch.cuda.synchronize()
-        assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
-        assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
-        assert int(cycles) > 0
+        geo = sb.launch_geometry(arm, walkers)
+        per_block = geo["rows"] * geo["warps"] * (32 if arm == "ctl" else 1)
+        assert (geo["grid"] - 1) * per_block < walkers
+        assert geo["grid"] * per_block >= walkers
+        extra = 32 if arm == "mt" else 0  # mt's row-0 warp
+        assert geo["threads"] == 32 * geo["warps"] + extra
+        if arm == "ctl":
+            assert geo["grid"] == 1
+            assert 32 * geo["rows"] * (geo["warps"] - 1) < walkers
+        else:
+            assert geo["grid"] * 4 == walkers and geo["rows"] == 1
+
+
+def test_launch_geometry_shared_memory():
+    """The dynamic shared memory a block needs: fetchdep a warp's slots
+    twice (own rows and row 0's chain), fetchmir the block's index mirror
+    rounded up to 16 bytes, ctl two buffers of five counts a warp, install
+    a 128-float row a warp, mt row 0's cur twice; fetchmir's index buffer
+    holds every block's mirror."""
+    g = sb.launch_geometry
+    assert g("full", 128)["smem"] == 0
+    assert g("fetchdep", 128)["smem"] == 4 * 2 * 2 * 4
+    assert g("fetchmir", 128)["smem"] == 8 * 4
+    assert g("fetchmir", 128)["idx"] == 32 * 8
+    assert g("fetchmir", 8)["idx"] == 2 * 8
+    assert g("full", 128)["idx"] == 1
+    assert g("ctl", 1024)["smem"] == 2 * 8 * 5 * 4
+    assert g("ctl", 128)["smem"] == 2 * 1 * 5 * 4
+    assert g("install", 128)["smem"] == 4 * 128 * 4
+    assert g("mt", 128)["smem"] == 8
+
+
+def test_launch_refusals():
+    """W a multiple of 8 in [8, 1024] and a known arm, from the launch
+    helpers and the wrapper alike."""
+    for walkers in (0, 4, 12, 1025, 1032, 2048):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            sb.launch_geometry("full", walkers)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            sb.launch_shape("ctl", walkers)
+    with pytest.raises(ValueError, match="unknown arm"):
+        sb.launch_geometry("nope", 8)
+    with pytest.raises(ValueError, match="unknown arm"):
+        sb.launch_shape("nope", 8)
+    tree = sb.make_tree("cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sb.step_bench_cuda(tree, "full", 1, 1024)
+
+
+SASS = [(0x10, "MOV R2, R9 ;"),
+        (0x20, "SHFL.IDX PT, R3, R2, RZ, 0x1f ;"),
+        (0x30, "FMUL R4, R3, 1000000 ;"),
+        (0x40, "F2I.TRUNC.NTZ R5, R4 ;"),
+        (0x50, "LDG.E.128.CONSTANT R12, desc[UR4][R6.64] ;"),
+        (0x60, "FADD R8, R15, R5 ;"),
+        (0x70, "FSETP.GEU.AND P0, PT, R8, 0.5, PT ;"),
+        (0x80, "@P0 BRA 0xa0 ;"),
+        (0x90, "BRA 0x10 ;"),
+        (0xa0, "BRA 0x30 ;"),
+        (0xb0, "EXIT ;")]
+
+
+def test_sass_loop_body_and_chain_floor():
+    """The iteration loop is the span back to the earliest target of a
+    backward branch (0x10, from 0x90; the block at 0xa0 that branches back
+    into it is not counted), and the chain floor follows registers through
+    it: MOV 4, SHFL 24, FMUL 4, F2I 6, then the load into R12..R15 (R6
+    and R7 not written before it: 33 from 0) joins at the FADD, 38 + 4,
+    FSETP 4, the branch 4 on P0."""
+    body = sb.loop_body(SASS)
+    assert body == [ins for _, ins in SASS[:9]]
+    assert sb.chain_floor(["MOV R2, R9 ;", "SHFL.IDX PT, R3, R2, RZ, 0x1f ;",
+                           "FMUL R4, R3, 1000000 ;"]) == 4 + 24 + 4
+    assert sb.chain_floor(body) == 4 + 24 + 4 + 6 + 4 + 4 + 4
+    # the 128-bit load writes R4..R7: the FADD waits for it, and the load
+    # has overwritten what the F2I put in R5
+    assert sb.chain_floor(["LDG.E.128.CONSTANT R4, desc[UR4][R6.64] ;",
+                           "FADD R8, R7, R1 ;"]) == 33 + 4
+    assert sb.chain_floor(["F2I.TRUNC.NTZ R5, R4 ;",
+                           "LDG.E.128.CONSTANT R4, desc[UR4][R6.64] ;",
+                           "FADD R8, R5, R5 ;"]) == 33 + 4
+    assert sb.loop_body([(0x10, "EXIT ;")]) == []
