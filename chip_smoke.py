@@ -92,7 +92,22 @@ launch count can be read:
   ``RAYTPU_STRAND_GROUPS=16 RAYTPU_STRAND_SKIP_DONE=1`` (the deferral
   form), its PNG equal to 5b's; every form timed in turns with the default
   instance on the primary wave, bounce 1's wave and 10a's largest mixed
-  query, and held to its plain version there.
+  query, and held to its plain version there;
+* phase 13, raytpu's own bench scene, its procedural atrium
+  (``raytpu_torch/tools/scenes.py``): (a) bench.py's config 5, the
+  300,702-triangle atrium at 1920x1080, 1 spp, 4 bounces, chunk 8 through
+  ``render_frame`` (fused wave mode), a cold and two warm frames with
+  Mrays/s and a profile, every wave sampled against the brute sweep,
+  fault 3.4's lost rays counted on the primary wave and every bounce
+  lane, query mode's and the block walk's PNGs equal to it, card against
+  CPU at 64x36; (b) config 6, the 3,555,630-triangle atrium packed
+  ``tables="auto"`` (it must stream) at 640x360, the same figures, the
+  primary wave against the plain version and the brute sweep, and
+  bench.py's ``RAYTPU_STREAM_BINNED`` arm; (c) raytpu's four captured
+  waves through ``tools/strand_ab.py`` (``--block --check``) and
+  ``tools/waves.py`` (``stats``, ``ab``), the launches of ``stats`` and
+  ``ab`` held to one plain replay each, one table, and the port's capture
+  of raytpu's fixture tile against the committed bands.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record (each kernel, and each form:
@@ -620,19 +635,23 @@ def differ_vs_brute(pack, hit_a, hit_b, ro, rd, tmax, tmin) -> tuple:
 
 @contextlib.contextmanager
 def unrepaired_box_test():
-    """raytpu's plain slab test, ``near <= far``, in the plain packet and
-    treelet walks and the binned select for the block (FAR_SCALE 1: a
-    multiply by 1 is exact). With identity tie keys (``arange``) in place
-    of ``first_slots`` a walk also keeps the raw-slot tie rule: the walks
-    as they were before ROADMAP fault 3.5 was repaired."""
-    from raytpu_torch.kernels import binned, packet
+    """raytpu's plain slab test, ``near <= far``, in the plain packet,
+    treelet and strand walks and the binned select for the block
+    (FAR_SCALE 1: a multiply by 1 is exact). With identity tie keys
+    (``arange``) in place of ``first_slots`` a walk also keeps the raw-slot
+    tie rule: the walks as they were before ROADMAP faults 3.4 (the strand
+    walks) and 3.5 (the others) were repaired."""
+    from raytpu_torch.kernels import binned, packet, strand
 
-    saved = packet.FAR_SCALE, binned.FAR_SCALE
-    packet.FAR_SCALE = binned.FAR_SCALE = 1.0
+    mods = (packet, binned, strand)
+    saved = [m.FAR_SCALE for m in mods]
+    for m in mods:
+        m.FAR_SCALE = 1.0
     try:
         yield
     finally:
-        packet.FAR_SCALE, binned.FAR_SCALE = saved
+        for m, v in zip(mods, saved):
+            m.FAR_SCALE = v
 
 
 def f32_hex(x) -> str:
@@ -644,9 +663,10 @@ LOST_SHOWN = 16  # lost rays of one wave printed with their bits
 
 
 def lost_hits(label: str, pack, ro, rd, right, run, tmax=None,
-              tmin: float = 0.001) -> dict:
-    """ROADMAP fault 3.5 on a closest-hit wave: the rays the unrepaired
-    rules lose, and why. ``run(idx, first, repaired_box)`` is the plain walk
+              tmin: float = 0.001, fault: str = "3.5") -> dict:
+    """ROADMAP fault 3.5 (or ``fault``: 3.4 for the strand walks) on a
+    closest-hit wave: the rays the unrepaired rules lose, and why.
+    ``run(idx, first, repaired_box)`` is the plain walk
     (or query) on rays ``idx`` with tie keys ``first``; ``right`` the
     repaired kernel's (t, tri) on the whole wave; ``tmax`` the rays' bounds
     (F32_MAX when None). The unrepaired walk (identity keys, unrepaired box
@@ -700,14 +720,14 @@ def lost_hits(label: str, pack, ro, rd, right, run, tmax=None,
     by_class = ", ".join(f"{v} {k}" for k, v in classes.items())
     shown = ("" if lost.numel() <= LOST_SHOWN
              else f" (the first {LOST_SHOWN} printed)")
-    print(f"phase {label} fault 3.5: the unrepaired rules lose "
+    print(f"phase {label} fault {fault}: the unrepaired rules lose "
           f"{lost.numel()} of {n} rays ({by_class}){shown}; "
           f"the repaired kernel is wrong on {right_wrong} of the "
           f"{idx.numel()} rays where the two differ (unrepaired plain run "
           f"{run_s:.1f} s, brute checks {check_s:.1f} s)")
     if right_wrong:
         fail(f"phase {label}: the repaired kernel disagrees with the brute "
-             f"sweep on {right_wrong} rays (ROADMAP fault 3.5)")
+             f"sweep on {right_wrong} rays (ROADMAP fault {fault})")
     return dict(rays=n, lost=lost.numel(), differ=idx.numel(),
                 wrong=right_wrong, **classes)
 
@@ -768,36 +788,24 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_times(calls: list) -> list:
-    """Device ms of each call in ``calls``, in order: all are queued behind
-    a sleep kernel, so the card runs them back to back and CUDA events
-    between them time the launches alone, not the host time between small
-    launches. Fails if the host took longer to queue them than the card
-    slept."""
-    import torch
+    """Device ms of each call in ``calls``, in order
+    (``raytpu_torch/tools/timing.py:queued_events``: all are queued behind
+    a sleep kernel, so CUDA events between them time the launches alone,
+    not the host time between small launches). Fails if the host took
+    longer to queue them than the card slept."""
+    from raytpu_torch.tools.timing import queued_events
 
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True)
-          for _ in range(len(calls) + 2)]
-    ev[0].record()
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's 1.98 GHz
-    ev[1].record()
-    t0 = time.perf_counter()
-    for call, e in zip(calls, ev[2:]):
-        call()
-        e.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if host_ms >= ev[0].elapsed_time(ev[1]):
-        fail(f"queueing {len(calls)} launches took {host_ms:.1f} ms, longer "
-             "than the card slept: the launch times would include the host")
-    return [a.elapsed_time(b) for a, b in zip(ev[1:], ev[2:])]
+    try:
+        return queued_events(calls)
+    except RuntimeError as e:
+        fail(str(e))
 
 
-def profile_frame(render) -> str:
+def profile_frame(render, top: int = 6) -> str:
     """One call of ``render`` under torch.profiler: wall ms, device busy
     ms (the union of the device's kernel and copy intervals) and its
-    share, the number of device events, and the six torch ops with the
-    most device time."""
+    share, the number of device events, and the ``top`` torch ops with
+    the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -819,7 +827,7 @@ def profile_frame(render) -> str:
     busy /= 1e3
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:6]
+                 key=lambda e: -e.self_device_time_total)[:top]
     top = ", ".join(f"{e.key[6:]} {e.self_device_time_total / 1e3:.2f}"
                     for e in ops)
     return (f"wall {wall:.1f} ms, device busy {busy:.2f} ms "
@@ -4311,6 +4319,352 @@ def phase_pack_options(tmp: str, glb: str, bvh_frame) -> None:
         fail("phase 9g: the pure-Python builder's frame is off 9d's")
 
 
+# bench.py's configs 5 (:402-409) and 6 (:412-440) on raytpu's atrium
+ATRIUM_TRIS = 250_000
+STREAM_TRIS = 2_900_000
+ATRIUM_ARGS = dict(width=1920, height=1080, seed=1, samples=1, bounces=4,
+                   chunk_size=8)
+STREAM_ARGS = dict(ATRIUM_ARGS, width=640, height=360)
+# pack_scene's steps, timed apart (phase 13)
+PACK_STEPS = ("flatten_world_triangles", "build_bvh", "bvh8_depth",
+              "build_treelets", "build_strand_tree", "build_ribbon_tree",
+              "first_slots")
+# 13c's timing: launches queued together, and repeats of that
+WAVE_INNER, WAVE_REPEATS = 32, 3
+
+
+def pack_in_steps(scene, **kw) -> tuple:
+    """``pack_scene(scene, "cuda", **kw)`` with each of PACK_STEPS timed:
+    (pack, seconds, {step: seconds}, build_treelets's arguments)."""
+    import torch
+
+    from raytpu_torch.scene.pack import pack_scene
+
+    tl_args = []
+    with contextlib.ExitStack() as stack:
+        steps = {n: stack.enter_context(timed_treelets(
+            n, args=tl_args if n == "build_treelets" else None))
+            for n in PACK_STEPS}
+        t0 = time.perf_counter()
+        pack = pack_scene(scene, "cuda", **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return pack, secs, {n: sum(v) for n, v in steps.items()}, tl_args
+
+
+def steps_note(steps: dict) -> str:
+    return ", ".join(f"{k} {v:.2f} s" for k, v in steps.items() if v)
+
+
+def bench_frames(label: str, pack, cam, cfg, want: tuple) -> dict:
+    """bench.py's timing of one config: a cold frame, then two warm frames
+    (its ``repeats=2``), through ``render_frame``, every launch count set
+    to 0 just before and read just after (``want`` the kernels that must
+    launch, and no other); ``count_rays`` and Mrays/s per warm frame, the
+    PNG's non-black share. Prints one line; returns the figures."""
+    import torch
+
+    from raytpu_torch.engine.render import WAVE_STATS, count_rays, render_frame
+    from raytpu_torch.io.png import quantize_rgba32f
+
+    reset_launches()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame = render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = read_launches()
+    waves = dict(WAVE_STATS)
+    note = launched(label, counts, want)
+    rays = count_rays(pack, cam, cfg)
+    lit = float((quantize_rgba32f(frame).max(-1) > 0).mean())
+    mrays = [rays / s / 1e6 for s in secs[1:]]
+    print(f"phase {label} frames: {cfg.width}x{cfg.height} {cfg.samples}spp "
+          f"{cfg.bounces} bounces chunk {cfg.chunk_size} "
+          f"intersector='{cfg.intersector}': cold {secs[0]:.3f} s, warm "
+          f"{secs[1]:.4f} / {secs[2]:.4f} s; count_rays {rays}: "
+          f"{mrays[0]:.2f} / {mrays[1]:.2f} Mrays/s; wave mode "
+          f"'{waves['mode']}', work width per bounce {waves['widths']}; "
+          f"{note} in the 3 frames; {lit:.3f} of PNG pixels non-black")
+    if not np.isfinite(frame).all() or lit <= 0.10:
+        fail(f"phase {label}: the frame is not finite or mostly black")
+    return dict(frame=frame, secs=secs, rays=rays, mrays=mrays, counts=counts,
+                waves=waves, lit=lit)
+
+
+def strand_primary(label: str, pack, cam, cfg, errs: list) -> None:
+    """The frame's primary wave through strand_walk and its plain version
+    (bit-equal, ``wave_check``, with a SAMPLE held to the brute sweep), and
+    fault 3.4's lost rays over the whole wave (``lost_hits``: the plain
+    walk with the unrepaired box test and identity keys on every ray, the
+    brute sweep wherever it differs)."""
+    import torch
+
+    from raytpu_torch.kernels.strand import strand_query_cuda, strand_query_torch
+
+    tables = (pack.bvh.strand_rows, pack.bvh.leaf_tris, pack.bvh.first_slots)
+    ro, rd = primary_wave(cam, cfg.width, cfg.height, cfg.chunk_size,
+                          cfg.seed)
+    ms, plain_ms, bad, bnd = wave_check("strand", tables, pack, ro, rd, errs)
+    print(f"phase {label} primary wave {ro.shape[0]} rays: strand_walk "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bit-equal; vs brute on "
+          f"{SAMPLE} rays: {bad} mismatches; plain-walk work {bnd['boxes']} "
+          f"box / {bnd['tris']} triangle tests, bound {bnd['bound_ms']:.4f} "
+          f"ms ({bnd['bound_by']})")
+    if bad:
+        fail(f"phase {label}: strand_walk disagrees with the brute sweep")
+    tmax = torch.full((ro.shape[0],), F32_MAX, device="cuda")
+    right = strand_query_cuda(*tables, ro, rd, tmax, 0.001, False)
+
+    def run(idx, keys, box):
+        with contextlib.nullcontext() if box else unrepaired_box_test():
+            return strand_query_torch(tables[0], tables[1], keys, ro[idx],
+                                      rd[idx], tmax[idx], 0.001, False)
+
+    lost_hits(f"{label} primary wave", pack, ro, rd, right, run, fault="3.4")
+
+
+def strand_bounce_lost_hits(label: str, pack, calls: list) -> dict:
+    """Fault 3.4 (``lost_hits``) on every live lane of every recorded
+    closest-hit strand query of a frame after the primary one
+    (``recorded_queries``), as one wave: strand_walk's results against the
+    plain walk with the unrepaired box test and identity keys."""
+    import torch
+
+    from raytpu_torch.kernels.strand import strand_query_cuda, strand_query_torch
+
+    bounce = [a for a in calls[1:] if not a[7]]
+    if {a[6] for a in bounce} != {0.001}:
+        fail(f"phase {label}: a bounce query with another tmin")
+    lanes = [(a[5] > 0.0).nonzero().squeeze(1) for a in bounce]
+    ro, rd, tmax = (torch.cat([a[k][i] for a, i in zip(bounce, lanes)])
+                    for k in (3, 4, 5))
+    tree, leaf, first = pack.bvh.strand_rows, pack.bvh.leaf_tris, \
+        pack.bvh.first_slots
+    right = strand_query_cuda(tree, leaf, first, ro, rd, tmax, 0.001, False)
+
+    def run(idx, keys, box):
+        with contextlib.nullcontext() if box else unrepaired_box_test():
+            return strand_query_torch(tree, leaf, keys, ro[idx], rd[idx],
+                                      tmax[idx], 0.001, False)
+
+    sizes = ", ".join(str(i.numel()) for i in lanes)
+    return lost_hits(f"{label} bounce waves ({len(bounce)} closest-hit "
+                     f"queries, live lanes {sizes})", pack, ro, rd, right,
+                     run, tmax=tmax, fault="3.4")
+
+
+def phase_atrium(errs: dict) -> dict:
+    """Phase 13a: BASELINE config 5 as bench.py runs it (bench.py:402-409):
+    raytpu's atrium, ``build_atrium(250_000)`` (``tools/scenes.py``, the
+    port's copy), packed on the card with its own camera, 1920x1080, 1 spp,
+    4 bounces, chunk 8, seed 1, ``intersector="auto"``: the strand route in
+    fused wave mode. A cold and two warm frames (Mrays/s by count_rays),
+    one profiled warm frame; every wave of a frame held to the brute sweep
+    on a SAMPLE, the primary wave to strand_walk's plain version, fault
+    3.4's lost rays counted on the primary wave and on every closest-hit
+    lane of the bounces; the frame in query mode and on the block walk
+    (``RAYTPU_STRAND_PERSISTENT=0``) must give the same PNG; the same host
+    pack moved to the card and the CPU renders 64x36 within
+    tests/imgdiff.py's bar."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.kernels.strand import strand_query_cuda
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.tools.scenes import build_atrium
+    from raytpu_torch.types import RenderConfig
+
+    t0 = time.perf_counter()
+    scene = build_atrium(ATRIUM_TRIS)
+    build_s = time.perf_counter() - t0
+    pack, pack_s, steps, _ = pack_in_steps(scene)
+    n_tris = int(scene.indices.shape[0]) // 3
+    cam = pack_camera(scene.camera, "cuda")
+    cfg = RenderConfig(**ATRIUM_ARGS)
+    print(f"phase 13a atrium: build_atrium({ATRIUM_TRIS}) {n_tris} "
+          f"triangles ({pack.n_triangles} slots, {len(scene.prim_material)} "
+          f"primitives, {len(scene.mat_color)} materials, "
+          f"{len(scene.light_power)} lights) in {build_s:.2f} s; pack "
+          f"{pack_s:.2f} s ({pack_s - steps['build_treelets']:.2f} s "
+          f"treelets apart; {steps_note(steps)}); BVH8 rows kept: "
+          f"{pack.bvh.node8_rows is not None}, strand rows: "
+          f"{pack.bvh.strand_rows is not None}")
+    rec = bench_frames("13a", pack, cam, cfg, ("strand",))
+    if rec["waves"]["mode"] != "fused":
+        fail("phase 13a: the 1080p frame did not run fused wave mode")
+    print("phase 13a profile, warm frame: " + profile_frame(
+        lambda: render_frame(pack, cam, cfg), top=5))
+    with recorded_queries("strand_query") as calls:
+        render_frame(pack, cam, cfg)
+        torch.cuda.synchronize()
+    bad, checked, notes = waves_vs_brute(pack, calls, strand_query_cuda, 130)
+    print(f"phase 13a strand_walk vs brute on a {SAMPLE}-ray sample of each "
+          f"of the frame's {len(calls)} waves ({checked} rays): mismatches "
+          f"per wave {', '.join(notes)}")
+    if bad:
+        fail(f"phase 13a: strand_walk disagrees with the brute sweep on {bad} "
+             "sampled rays")
+    strand_primary("13a", pack, cam, cfg, errs["strand"])
+    strand_bounce_lost_hits("13a", pack, calls)
+    notes = []
+    for arm, kw, want in (("query", dict(RAYTPU_WAVE_MODE="query"),
+                           ("strand",)),
+                          ("block walk", dict(RAYTPU_STRAND_PERSISTENT="0"),
+                           ("block",))):
+        with env(**kw):
+            reset_launches()
+            t0 = time.perf_counter()
+            other = render_frame(pack, cam, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            note = launched(f"13a {arm}", read_launches(), want)
+        n_diff = png_pixels_differ(rec["frame"], other)
+        notes.append(f"{arm} ({', '.join(f'{k}={v}' for k, v in kw.items())}"
+                     f"): {secs:.3f} s, {note}, {n_diff} PNG pixels differ")
+        if n_diff:
+            fail(f"phase 13a: the {arm} frame's PNG is not the fused frame's")
+    print("phase 13a arms: " + "; ".join(notes))
+    # card against CPU: the same host pack on both devices
+    host = pack_scene(scene, as_numpy=True)
+    small = RenderConfig(**dict(ATRIUM_ARGS, width=64, height=36))
+    frames, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        frames[dev] = render_frame(host.to(dev), pack_camera(scene.camera,
+                                                             dev), small)
+        counts[dev] = read_launches()
+    n_diff, frac, s = png_diff(frames["cuda"], frames["cpu"])
+    lit = float((frames["cuda"][..., :3].max(-1) > 0).mean())
+    print(f"phase 13a card vs cpu: one as_numpy pack on both, 64x36 1spp 4 "
+          f"bounces chunk 8: {n_diff} PNG pixels differ ({frac:.4f}), SSIM "
+          f"{s:.5f}, {lit:.3f} non-black; card {counts['cuda']['strand']} "
+          f"strand_walk launches, cpu {counts['cpu']['strand']}")
+    if frac > 0.02 or s < 0.99 or lit < 0.1 or not counts["cuda"]["strand"] \
+            or counts["cpu"]["strand"]:
+        fail("phase 13a: card and CPU atrium frames disagree")
+    return dict(pack=pack, cam=cam, scene=scene)
+
+
+def phase_atrium_stream(errs: dict) -> None:
+    """Phase 13b: BASELINE config 6 as bench.py runs it (bench.py:412-440):
+    ``build_atrium(2_900_000)`` packed ``tables="auto"``, which must stream
+    (bench.py's check: no BVH8 rows, a strand tree); 640x360, 1 spp, 4
+    bounces, chunk 8, ``intersector="auto"``: the strand route's
+    while-while walk over tables past 100 MiB. A cold and two warm frames,
+    one profiled warm frame; the primary wave against the plain version and
+    the brute sweep, fault 3.4's lost rays; bench.py's own arm,
+    ``RAYTPU_STREAM_BINNED`` (``intersector="binned"``), one cold and one
+    warm frame, its PNG against auto's."""
+    import dataclasses as dc
+
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.scene.pack import ROW_BYTES, pack_camera
+    from raytpu_torch.tools.scenes import build_atrium
+    from raytpu_torch.types import RenderConfig
+
+    t0 = time.perf_counter()
+    scene = build_atrium(STREAM_TRIS)
+    build_s = time.perf_counter() - t0
+    pack, pack_s, steps, tl_args = pack_in_steps(scene, tables="auto")
+    n_tris = int(scene.indices.shape[0]) // 3
+    ((bvh8, _),) = tl_args
+    mib = dict(bvh8=bvh8.node_rows.shape[0] * ROW_BYTES / 2**20,
+               leaf=nbytes(pack.bvh.leaf_tris) / 2**20,
+               strand=nbytes(pack.bvh.strand_rows) / 2**20)
+    print(f"phase 13b atrium: build_atrium({STREAM_TRIS}) {n_tris} triangles "
+          f"({pack.n_triangles} slots) in {build_s:.2f} s; pack_scene("
+          f"tables='auto') {pack_s:.2f} s ({pack_s - steps['build_treelets']:.2f}"
+          f" s treelets apart; {steps_note(steps)}); BVH8 rows "
+          f"{mib['bvh8']:.1f} MiB (at 512 bytes a row), leaf rows "
+          f"{mib['leaf']:.1f} MiB, strand rows {mib['strand']:.1f} MiB; "
+          f"node8_rows is None: {pack.bvh.node8_rows is None}, strand_rows "
+          f"is not None: {pack.bvh.strand_rows is not None} (bench.py "
+          "config 6's check)")
+    if pack.bvh.node8_rows is not None or pack.bvh.strand_rows is None:
+        fail("phase 13b: the auto pack did not stream (bench.py config 6's "
+             "check: node8_rows is None, strand_rows is not None)")
+    cam = pack_camera(scene.camera, "cuda")
+    cfg = RenderConfig(**STREAM_ARGS)
+    rec = bench_frames("13b", pack, cam, cfg, ("strand",))
+    print("phase 13b profile, warm frame: " + profile_frame(
+        lambda: render_frame(pack, cam, cfg), top=5))
+    strand_primary("13b", pack, cam, cfg, errs["strand"])
+    # bench.py's RAYTPU_STREAM_BINNED arm
+    binned = dc.replace(cfg, intersector="binned")
+    reset_launches()
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        frame = render_frame(pack, cam, binned)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    note = launched("13b binned", read_launches(), ("binned",))
+    n_diff, frac, s = png_diff(rec["frame"], frame)
+    print(f"phase 13b RAYTPU_STREAM_BINNED arm (intersector='binned'): cold "
+          f"{secs[0]:.3f} s, warm {secs[1]:.4f} s ({rec['rays'] / secs[1] / 1e6:.2f}"
+          f" Mrays/s), {note}; {n_diff} PNG pixels differ from auto's "
+          f"({frac:.4f}), SSIM {s:.5f}")
+    if frac > 0.02 or s < 0.99:
+        fail("phase 13b: the binned arm's PNG is off auto's past the bar")
+
+
+def phase_captured_waves(atrium: dict) -> None:
+    """Phase 13c: raytpu's captured-wave A/Bs on 13a's pack, through the
+    port's tools: the four committed waves (``benchmarks/waves/``, read
+    as data) engine-sorted; on each, ``strand_ab --block --check``
+    (strand_walk's default instance and strand_block, held to each other by
+    raytpu's check), ``waves stats`` (packet_walk in both child orders,
+    each order's launch and its stats launch at every packet size held to
+    one plain replay) and ``waves ab`` (packet_walk, strand_walk,
+    strand_block, raytpu's agreement rule; each one's timed launch and its
+    stats launch held to one plain replay; strand_ab times the same two
+    strand instances on the same waves and replays nothing), the launch
+    counts set to 0 just before and read just after; one table. Then the port's own capture of raytpu's fixture
+    tile (tile 0 at 1920x1080) against the committed bands: lanes, live
+    masks and the largest f16 difference of ro and rd, printed."""
+    from raytpu_torch.tools import strand_ab, waves
+
+    pack = atrium["pack"]
+    if pack.bvh.node8_rows is None:
+        fail("phase 13c: 13a's pack has no BVH8 rows")
+    sorted_ = waves.sorted_waves(pack, waves.COMMIT_WAVES, prefer_full=False)
+    live = {k: float((w["tmax"] >= 0).float().mean())
+            for k, w in sorted_.items()}
+    reset_launches()
+    try:
+        rows = (strand_ab.measure(pack, sorted_, block=True, check=True,
+                                  inner=WAVE_INNER, repeats=WAVE_REPEATS)
+                + waves.stats(pack, sorted_, inner=WAVE_INNER,
+                              repeats=WAVE_REPEATS, plain=True)
+                + waves.ab(pack, sorted_, inner=WAVE_INNER,
+                           repeats=WAVE_REPEATS, plain=True))
+    except (AssertionError, RuntimeError) as e:
+        fail(f"phase 13c: {e}")
+    note = launched("13c", read_launches(),
+                    ("strand", "packet", "packet_near", "block"))
+    print(f"phase 13c captured waves ({', '.join(f'{k} {v:.3f} live' for k, v in live.items())}"
+          f" of {sorted_['b1c']['ro'].shape[0]} rays each), ms per launch of "
+          f"{WAVE_INNER} queued (median of {WAVE_REPEATS}), {note}:")
+    waves.print_table(rows)
+    if any(x["agree"] is False for x in rows):
+        fail("phase 13c: a walk disagrees with the packet walk (raytpu's rule)")
+    t0 = time.perf_counter()
+    capture = waves.capture(pack, atrium["cam"])
+    agree = waves.band_agreement(capture)
+    print(f"phase 13c capture: tile 0 at 1920x1080 ({len(capture)} waves, "
+          f"{time.perf_counter() - t0:.1f} s) against raytpu's bands: " +
+          "; ".join(f"{a['name']} {a['rays']} lanes (full wave's lanes as "
+                    f"raytpu's: {a['same_rays']}), live mask agrees on "
+                    f"{a['live_agree']:.6f}, largest |d| ro {a['ro']:.6g} rd "
+                    f"{a['rd']:.6g}" for a in agree))
+    if not all(a["same_rays"] for a in agree):
+        fail("phase 13c: the capture's tile is not raytpu's fixture tile")
+
+
 @contextlib.contextmanager
 def timed(secs: dict, label: str):
     """The block's host seconds into ``secs[label]``."""
@@ -4398,6 +4752,12 @@ def main() -> int:
                                          recs["strand_mixed"],
                                          sched_launches, errs)
             recs.update({k: v for k, v in forms.items() if k in KERNELS})
+        with timed(secs, "13a"):
+            atrium = phase_atrium(errs)
+        with timed(secs, "13b"):
+            phase_atrium_stream(errs)
+        with timed(secs, "13c"):
+            phase_captured_waves(atrium)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in secs.items()))
     print("bounds: " + "; ".join(
