@@ -107,7 +107,20 @@ launch count can be read:
   waves through ``tools/strand_ab.py`` (``--block --check``) and
   ``tools/waves.py`` (``stats``, ``ab``), the launches of ``stats`` and
   ``ab`` held to one plain replay each, one table, and the port's capture
-  of raytpu's fixture tile against the committed bands.
+  of raytpu's fixture tile against the committed bands;
+* phase 14, raytpu's measurement drivers (``raytpu_torch/tools/``): (a)
+  ``headline_ab`` in a child process an arm (the atrium at 1920x1080,
+  best of 3; the multi-mesh, pbr+nee and cube stand-in configs; the atrium
+  with ``RAYTPU_WAVE_MODE=query``), the atrium PNGs equal to 13a's; (b)
+  ``frame_profile`` on 13a's frame, its groups summing to the device
+  total and its strand kernel group holding the frame's 8 strand_walk
+  launches; (c) ``sort_bench`` and ``gather_bench`` with ``--check``; (d)
+  ``profile_atrium`` at 2^20 rays a set, each set's launch held to the
+  plain packet walk on a 16,384-ray sample; (e) ``strand_sim`` on wave
+  b2c beside strand_block's own counters (a child process beside a-g);
+  (f) ``multichip_report`` on
+  eight shards of the card, its asserts; (g) ``bgemm_sim`` with the
+  card's cost model.
 
 Every phase prints its result; a failed phase exits non-zero. The last
 two lines are the per-kernel JSON record (each kernel, and each form:
@@ -802,37 +815,14 @@ def device_times(calls: list) -> list:
 
 
 def profile_frame(render, top: int = 6) -> str:
-    """One call of ``render`` under torch.profiler: wall ms, device busy
-    ms (the union of the device's kernel and copy intervals) and its
-    share, the number of device events, and the ``top`` torch ops with
-    the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One call of ``render`` under torch.profiler
+    (``raytpu_torch/tools/frame_profile.py``): wall ms, device busy ms (the
+    union of the device's kernel and copy intervals) and its share, the
+    device events, each group's ms, and the ``top`` ops with the most
+    device time."""
+    from raytpu_torch.tools import frame_profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy /= 1e3
-    ops = sorted((e for e in prof.key_averages()
-                  if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:top]
-    top = ", ".join(f"{e.key[6:]} {e.self_device_time_total / 1e3:.2f}"
-                    for e in ops)
-    return (f"wall {wall:.1f} ms, device busy {busy:.2f} ms "
-            f"({busy / wall:.1%}), {len(spans)} device events; most device "
-            f"ms: {top}")
+    return frame_profile.summary_line(frame_profile.profile(render), top)
 
 
 def phase_device():
@@ -2580,44 +2570,6 @@ class timed_treelets:
         setattr(self.mod, self.name, self.real)
 
 
-def write_pbr_nee(path: str):
-    """bench.py's pbr+nee layout (bench.py:240-262, BASELINE config 4): a
-    diffuse backdrop, metal/glass/diffuse boxes, an emissive panel, one
-    light and a glTF camera; 40 triangles."""
-    GlbBuilder, box, quad = _writer()
-    b = GlbBuilder()
-    diffuse = b.add_material(color=(0.7, 0.7, 0.7, 1), ior=1.1)
-    metal = b.add_material(color=(0.9, 0.8, 0.6, 1), metallic=1.0)
-    glass = b.add_material(color=(0.9, 0.9, 1.0, 1), ior=1.5)
-    glow = b.add_material(color=(1.0, 0.5, 0.2, 1), emission=6.0)
-    pos, nrm, uv, idx = quad(size=10.0)
-    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, diffuse, np.uint16)]),
-               translation=[0, 0, -4])
-    bp, bn, bu, bi = box()
-    for m, x in ((metal, -3.0), (glass, 0.0), (diffuse, 3.0)):
-        b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, m, np.uint32)]),
-                   translation=[x, 0, -1.5])
-    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, glow, np.uint16)]),
-               matrix=[0.2, 0, 0, 0, 0, 0.2, 0, 0, 0, 0, 0.2, 0, 0, 4, 0, 1])
-    b.add_node(light=b.add_light(intensity=50.0), translation=[0, 5, 8])
-    b.add_node(camera=b.add_camera(1.0, 0.8), translation=[0, 0, 12])
-    b.write(path)
-
-
-def write_cube(path: str):
-    """A stand-in for the reference cube.glb (ROADMAP 1.1's values): one
-    box, colour 0.8, metallic 0, roughness 0.5, and a point light at
-    (4.0762, 5.9039, -1.0055); 12 triangles."""
-    GlbBuilder, box, _ = _writer()
-    b = GlbBuilder()
-    m = b.add_material(color=(0.8, 0.8, 0.8, 1), metallic=0.0, roughness=0.5)
-    bp, bn, bu, bi = box()
-    b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, m, np.uint16)]))
-    b.add_node(light=b.add_light(intensity=54351.41),
-               translation=[4.0762, 5.9039, -1.0055])
-    b.write(path)
-
-
 def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
                 min_lit: float, tmp: str, errs: list) -> dict:
     """One packet-route cell: the CLI run (launch counts, PNG), then two
@@ -2745,13 +2697,14 @@ def packet_cell(label: str, glb: str, cam_json, args: dict, mode: str,
 
 def phase_packet_route(tmp: str, main_rec: dict, errs: list) -> dict:
     """Phase 6: the packet route through the CLI at bench.py's settings."""
+    from raytpu_torch.tools import scenes
+
     pbr = os.path.join(tmp, "pbr_nee.glb")
-    write_pbr_nee(pbr)
+    scenes.build_pbr_nee_glb(pbr)
     cube = os.path.join(tmp, "cube.glb")
-    write_cube(cube)
+    scenes.write_cube(cube)
     cube_cam = os.path.join(tmp, "cube_camera.json")
-    with open(cube_cam, "w") as f:
-        json.dump({"origin": [0, 0, -20], "at": [0, 0, 0], "fov": 0.3}, f)
+    scenes.write_cube_camera(cube_cam)
     cells = [
         packet_cell("a", pbr, None, dict(width=256, height=256, seed=1,
                                          chunk_size=32, samples=4, bounces=4),
@@ -4544,7 +4497,7 @@ def phase_atrium(errs: dict) -> dict:
     if frac > 0.02 or s < 0.99 or lit < 0.1 or not counts["cuda"]["strand"] \
             or counts["cpu"]["strand"]:
         fail("phase 13a: card and CPU atrium frames disagree")
-    return dict(pack=pack, cam=cam, scene=scene)
+    return dict(pack=pack, cam=cam, scene=scene, frame=rec["frame"])
 
 
 def phase_atrium_stream(errs: dict) -> None:
@@ -4665,6 +4618,181 @@ def phase_captured_waves(atrium: dict) -> None:
         fail("phase 13c: the capture's tile is not raytpu's fixture tile")
 
 
+# phase 14: raytpu's measurement drivers (raytpu_torch/tools/)
+HEADLINE_ARMS = (("atrium", {}), ("multi", {}), ("pbr", {}), ("cube", {}),
+                 ("atrium", dict(RAYTPU_WAVE_MODE="query")))
+SORT_SAMPLE = 16384  # 14d: rays of each set held to the plain packet walk
+
+
+def run_tool(label: str, tool: str, argv: list, env_extra=None,
+             timeout: int = 300) -> tuple:
+    """``python -m raytpu_torch.tools.<tool> argv`` in a child process from
+    the checkout, as a user runs it: (seconds, stdout lines). Fails the
+    phase on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"raytpu_torch.tools.{tool}",
+                        *argv], cwd=root, capture_output=True, text=True,
+                       timeout=timeout, env=dict(os.environ,
+                                                 **(env_extra or {})))
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"phase {label}: {tool} {' '.join(argv)} exited {r.returncode}:"
+             f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    return secs, r.stdout.splitlines()
+
+
+def in_process(label: str, main, argv: list) -> str:
+    """A tool's ``main(argv)`` in this process, its standard output
+    captured and echoed: the output. A non-zero exit, an assertion or a
+    RuntimeError (a tool's own check) fails the phase."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    except (AssertionError, RuntimeError, SystemExit) as e:
+        sys.stdout.write(buf.getvalue())
+        fail(f"phase {label}: {main.__module__} {' '.join(argv)}: {e!r}")
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    if rc != 0:
+        fail(f"phase {label}: {main.__module__} returned {rc}")
+    return out
+
+
+def phase_headline(atrium: dict, tmp: str) -> None:
+    """Phase 14a: ``tools/headline_ab.py``, one child process per arm as
+    raytpu runs its tool: the atrium (bench.py config 5 at 1920x1080, 4
+    bounces, best of 3), the multi-mesh, pbr+nee and cube stand-in configs,
+    and the atrium with ``RAYTPU_WAVE_MODE=query``; each with Mrays/s from
+    count_rays. The atrium arms' PNGs must equal 13a's frame's."""
+    from raytpu_torch.io.png import quantize_rgba32f
+
+    want = quantize_rgba32f(atrium["frame"])[..., :3]
+    notes = []
+    for scene, kw in HEADLINE_ARMS:
+        arm = scene + "".join(f" {k}={v}" for k, v in kw.items())
+        png = os.path.join(tmp, f"headline_{scene}_{len(notes)}.png")
+        secs, lines = run_tool("14a", "headline_ab",
+                               ["--scene", scene, "--repeats", "3",
+                                "--count-rays", "--output", png], kw)
+        steady = [ln for ln in lines if ln.startswith("steady frame")]
+        if len(steady) != 1 or "Mrays/s" not in steady[0]:
+            fail(f"phase 14a {arm}: no steady-frame line in {lines}")
+        note = f"{arm}: {lines[0]}; {steady[0]} ({secs:.1f} s of process)"
+        if scene == "atrium":
+            n_diff = int(np.any(read_png_rgb(png) != want, axis=-1).sum())
+            note += f"; {n_diff} PNG pixels differ from 13a's frame"
+            if n_diff:
+                fail(f"phase 14a {arm}: the frame's PNG is not 13a's")
+        notes.append(note)
+    print("phase 14a headline_ab (a child process an arm):\n  "
+          + "\n  ".join(notes))
+
+
+def phase_frame_profile(atrium: dict, tmp: str) -> None:
+    """Phase 14b: ``tools/frame_profile.py`` on 13a's atrium frame (its
+    pack, a warm-up, a timed and a profiled frame): the groups must sum to
+    the device total within 0.1%, the strand kernel group must hold the
+    frame's strand_walk launches (13a's 8), and the total must be above
+    0."""
+    from raytpu_torch.tools import frame_profile
+    from raytpu_torch.types import RenderConfig
+
+    cfg = RenderConfig(**ATRIUM_ARGS)
+    reset_launches()
+    rep = frame_profile.capture(atrium["pack"], atrium["cam"], cfg,
+                                os.path.join(tmp, "frame_trace"))
+    per_frame = read_launches()["strand"] / 3
+    print("phase 14b frame_profile, 13a's warm atrium frame:")
+    frame_profile.print_report(rep, 15)
+    total = rep["total_ms"]
+    groups = sum(ms for ms, _ in rep["groups"].values())
+    strand = rep["groups"]["strand kernel"][1]
+    print(f"phase 14b: groups sum {groups:.3f} of device total {total:.3f} "
+          f"ms; strand kernel group {strand} events, {per_frame:g} "
+          "strand_walk launches a frame (13a: 8)")
+    if not total > 0 or abs(groups - total) > 1e-3 * total:
+        fail("phase 14b: the groups do not sum to the device total")
+    if strand != per_frame or per_frame != 8:
+        fail("phase 14b: the strand kernel group is not the frame's 8 "
+             "strand_walk launches")
+
+
+def phase_sort_gather() -> None:
+    """Phase 14c: ``tools/sort_bench.py`` and ``tools/gather_bench.py`` at
+    their defaults (2,088,960 rows; the gather from the atrium's 398,336
+    slots), each with ``--check``: every sort's permutation and payload
+    equal a stable argsort plus gathers, every gathered table numpy's."""
+    from raytpu_torch.tools import gather_bench, sort_bench
+
+    print("phase 14c sort_bench:")
+    in_process("14c", sort_bench.main, ["--check"])
+    print("phase 14c gather_bench:")
+    in_process("14c", gather_bench.main, ["--check"])
+
+
+def phase_profile_atrium() -> None:
+    """Phase 14d: ``tools/profile_atrium.py`` at 2^20 rays a set, each
+    set's launch held to the plain packet walk on a SORT_SAMPLE-ray
+    sample, bit for bit."""
+    from raytpu_torch.tools import profile_atrium
+
+    print("phase 14d profile_atrium:")
+    in_process("14d", profile_atrium.main, ["--plain", str(SORT_SAMPLE)])
+
+
+STRAND_SIM_ARGS = ["--waves", "b2c", "--max-rays", "16384", "--strand", "32",
+                   "128"]
+
+
+def start_strand_sim():
+    """Start phase 14e, ``tools/strand_sim.py`` on wave b2c, the first
+    16,384 sorted rays, strands of 32 (the port's block walk) and 128
+    (raytpu's), in a child process of its own: its numpy replay takes one
+    of the host's cores for 30-55 s, so it runs beside 14a-14g (their
+    frames take one or two cores; every other time there is a device
+    time)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "raytpu_torch.tools.strand_sim",
+         *STRAND_SIM_ARGS], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_strand_sim(proc) -> None:
+    """Phase 14e: the strand_sim child's report, the sim's steps and leaf
+    visits a strand beside strand_block's own counters on the same rays.
+    No gate but its exit: raytpu calls the sim a slightly tight lower
+    bound by design."""
+    out, err = proc.communicate(timeout=600)
+    print(f"phase 14e strand_sim {' '.join(STRAND_SIM_ARGS)} (a child "
+          "process beside 14a-14g):")
+    sys.stdout.write(out)
+    if proc.returncode != 0:
+        fail(f"phase 14e: strand_sim exited {proc.returncode}:\n"
+             f"{err[-2000:]}")
+
+
+def phase_multichip() -> None:
+    """Phase 14f: ``tools/multichip_report.py`` on eight shards of the
+    card; its asserts are the gate."""
+    from raytpu_torch.tools import multichip_report
+
+    print("phase 14f multichip_report:")
+    in_process("14f", multichip_report.main, [])
+
+
+def phase_bgemm() -> None:
+    """Phase 14g: ``tools/bgemm_sim.py`` on the four captured waves at the
+    default budgets, with the card's cost-model line."""
+    from raytpu_torch.tools import bgemm_sim
+
+    print("phase 14g bgemm_sim:")
+    in_process("14g", bgemm_sim.main, [])
+
+
 @contextlib.contextmanager
 def timed(secs: dict, label: str):
     """The block's host seconds into ``secs[label]``."""
@@ -4758,6 +4886,26 @@ def main() -> int:
             phase_atrium_stream(errs)
         with timed(secs, "13c"):
             phase_captured_waves(atrium)
+        sim = start_strand_sim()
+        try:
+            with timed(secs, "14a"):
+                phase_headline(atrium, tmp)
+            with timed(secs, "14b"):
+                phase_frame_profile(atrium, tmp)
+            with timed(secs, "14c"):
+                phase_sort_gather()
+            with timed(secs, "14d"):
+                phase_profile_atrium()
+            with timed(secs, "14f"):
+                phase_multichip()
+            with timed(secs, "14g"):
+                phase_bgemm()
+            with timed(secs, "14e (its wait)"):
+                phase_strand_sim(sim)
+        finally:
+            if sim.poll() is None:
+                sim.kill()
+                sim.wait()
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in secs.items()))
     print("bounds: " + "; ".join(

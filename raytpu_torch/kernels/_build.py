@@ -38,6 +38,10 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 LOCK = threading.RLock()
+# per source name, the libraries this process built (nvcc runs) and loaded
+# (``load_library`` calls), under LOCK
+BUILDS: dict = {}
+LOADS: dict = {}
 
 
 def _nvcc() -> str:
@@ -89,6 +93,8 @@ def load_library(name: str) -> ctypes.CDLL:
             with open(so_path + ".log", "w") as f:
                 f.write(proc.stdout + proc.stderr)
             os.replace(tmp, so_path)
+            BUILDS[name] = BUILDS.get(name, 0) + 1
+        LOADS[name] = LOADS.get(name, 0) + 1
         return ctypes.CDLL(so_path)
 
 

@@ -14,12 +14,22 @@ raytpu's module imports raytpu, and with it JAX.
 
 ``cached_atrium(tris, device)`` is the port's ``bench.py:_cached_atrium``:
 the scene's host pack (``pack_scene(as_numpy=True)``) pickled under the
-checkout's ``.bench_cache/`` and moved to ``device``."""
+checkout's ``.bench_cache/`` and moved to ``device``.
+
+bench.py's two GLB configs are here too, line for line on
+``tests/tools/glb_writer.py`` (numpy only): ``build_multi_mesh_glb``
+(BASELINE config 3) and ``build_pbr_nee_glb`` (config 4). The reference's
+``cube.glb`` and ``camera.json`` (config 2) are not in the repository:
+``write_cube`` writes a stand-in with ROADMAP 1.1's values and
+``CUBE_CAMERA`` holds the camera.json's."""
 
 from __future__ import annotations
 
+import itertools
+import json
 import os
 import pickle
+import sys
 
 import numpy as np
 
@@ -247,13 +257,13 @@ SCHEMA = 1
 
 
 def cached_atrium(tris: int, device="cuda", tables: str = "auto",
-                  cache: str | None = None):
+                  cache: str | None = None, as_numpy: bool = False):
     """(scene, pack) for ``build_atrium(tris)``: the host pack
     (``pack_scene(scene, as_numpy=True, tables=tables)``) is read from its
     pickle under ``cache`` or built and pickled there, then moved to
-    ``device``; ``cache`` defaults to ``CACHE``, the checkout's
-    ``.bench_cache/``. The pickles are the port's own
-    (``atrium_torch_<tris>_<tables>_v<SCHEMA>.pkl``); raytpu's hold its
+    ``device`` (kept on the host with ``as_numpy``); ``cache`` defaults to
+    ``CACHE``, the checkout's ``.bench_cache/``. The pickles are the port's
+    own (``atrium_torch_<tris>_<tables>_v<SCHEMA>.pkl``); raytpu's hold its
     types, and reading them would import raytpu."""
     scene = build_atrium(tris)
     cache = CACHE if cache is None else cache
@@ -268,4 +278,115 @@ def cached_atrium(tris: int, device="cuda", tables: str = "auto",
         with open(tmp, "wb") as f:
             pickle.dump(host, f)
         os.replace(tmp, key)
-    return scene, host.to(device)
+    return scene, host if as_numpy else host.to(device)
+
+
+def _writer():
+    """``tests/tools/glb_writer.py``'s builder and shapes (numpy only),
+    imported from the checkout as bench.py imports them."""
+    repo = os.path.dirname(CACHE)
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from tests.tools.glb_writer import GlbBuilder, box, quad
+
+    return GlbBuilder, box, quad
+
+
+def build_multi_mesh_glb(path):
+    """BASELINE config 3 fixture: a multi-mesh GLB (instanced boxes over a
+    floor) rendered through the real loader + BVH path."""
+    GlbBuilder, box, quad = _writer()
+
+    b = GlbBuilder()
+    floor_m = b.add_material(color=(0.6, 0.6, 0.6, 1))
+    mats = [
+        b.add_material(color=(0.8, 0.3, 0.3, 1)),
+        b.add_material(color=(0.3, 0.8, 0.3, 1), metallic=1.0),
+        b.add_material(color=(0.3, 0.3, 0.9, 1), ior=1.5),
+    ]
+    pos, nrm, uv, idx = quad(size=20.0)
+    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, floor_m, np.uint16)]),
+               translation=[0, 0, -8])
+    bp, bn, bu, bi = box()
+    meshes = [b.add_mesh([(bp, bn, bu, bi, m, np.uint32)]) for m in mats]
+    for i, (x, y) in enumerate(itertools.product(range(-4, 5), range(-3, 4))):
+        b.add_node(mesh=meshes[i % 3], translation=[x * 2.5, y * 2.5, 0.0],
+                   scale=[0.8, 0.8, 0.8])
+    b.add_node(light=b.add_light(intensity=60.0), translation=[0, 6, 10])
+    b.add_node(light=b.add_light(color=(1.0, 0.8, 0.6), intensity=40.0),
+               translation=[-6, -6, 10])
+    b.add_node(camera=b.add_camera(1.0, 0.8), translation=[0, 0, 18])
+    b.write(path)
+
+
+def build_pbr_nee_glb(path):
+    """BASELINE config 4 fixture: PBR metallic-roughness materials +
+    emissive panels, exercising all four material branches and NEE
+    (40 triangles)."""
+    GlbBuilder, box, quad = _writer()
+
+    b = GlbBuilder()
+    diffuse = b.add_material(color=(0.7, 0.7, 0.7, 1), ior=1.1)
+    metal = b.add_material(color=(0.9, 0.8, 0.6, 1), metallic=1.0)
+    glass = b.add_material(color=(0.9, 0.9, 1.0, 1), ior=1.5)
+    glow = b.add_material(color=(1.0, 0.5, 0.2, 1), emission=6.0)
+    pos, nrm, uv, idx = quad(size=10.0)
+    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, diffuse, np.uint16)]),
+               translation=[0, 0, -4])
+    bp, bn, bu, bi = box()
+    for m, x in ((metal, -3.0), (glass, 0.0), (diffuse, 3.0)):
+        b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, m, np.uint32)]),
+                   translation=[x, 0, -1.5])
+    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, glow, np.uint16)]),
+               matrix=[0.2, 0, 0, 0, 0, 0.2, 0, 0, 0, 0, 0.2, 0, 0, 4, 0, 1])
+    b.add_node(light=b.add_light(intensity=50.0), translation=[0, 5, 8])
+    b.add_node(camera=b.add_camera(1.0, 0.8), translation=[0, 0, 12])
+    b.write(path)
+
+
+# the reference's camera.json (ROADMAP 1.1), for the cube stand-in
+CUBE_CAMERA = {"origin": [0, 0, -20], "at": [0, 0, 0], "fov": 0.3}
+CUBE_NOTE = ("the cube stand-in (ROADMAP 1.1's values; the reference's "
+             "cube.glb and camera.json are not in the repository)")
+
+
+def write_cube(path: str):
+    """A stand-in for the reference cube.glb (ROADMAP 1.1's values): one
+    box, colour 0.8, metallic 0, roughness 0.5, and a point light at
+    (4.0762, 5.9039, -1.0055); 12 triangles."""
+    GlbBuilder, box, _ = _writer()
+    b = GlbBuilder()
+    m = b.add_material(color=(0.8, 0.8, 0.8, 1), metallic=0.0, roughness=0.5)
+    bp, bn, bu, bi = box()
+    b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, m, np.uint16)]))
+    b.add_node(light=b.add_light(intensity=54351.41),
+               translation=[4.0762, 5.9039, -1.0055])
+    b.write(path)
+
+
+def write_cube_camera(path: str):
+    """``CUBE_CAMERA`` as a camera.json file."""
+    with open(path, "w") as f:
+        json.dump(CUBE_CAMERA, f)
+
+
+def cached_glb(name: str, cache: str | None = None) -> str:
+    """The path of one of this module's GLB scenes under ``cache``
+    (``CACHE`` by default), written there when missing: ``multi_mesh.glb``
+    (``build_multi_mesh_glb``), ``pbr_nee.glb`` (``build_pbr_nee_glb``)
+    or ``cube_standin.glb`` (``write_cube``, with ``cube_camera.json``
+    beside it)."""
+    writers = {"multi_mesh.glb": build_multi_mesh_glb,
+               "pbr_nee.glb": build_pbr_nee_glb,
+               "cube_standin.glb": write_cube}
+    cache = CACHE if cache is None else cache
+    path = os.path.join(cache, name)
+    if not os.path.exists(path):
+        os.makedirs(cache, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}"
+        writers[name](tmp)
+        os.replace(tmp, path)
+    cam = os.path.join(cache, "cube_camera.json")
+    if name == "cube_standin.glb" and not os.path.exists(cam):
+        write_cube_camera(cam)
+    return path

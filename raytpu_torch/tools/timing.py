@@ -15,17 +15,20 @@ import numpy as np
 import torch
 
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's 1.98 GHz
+# ~50 ms: enough for the launches of one of the drivers' chains
+SHORT_SLEEP_CYCLES = 100_000_000
 
 
-def queued_events(calls: list) -> list:
+def queued_events(calls: list, sleep_cycles: int = SLEEP_CYCLES) -> list:
     """Device ms of each call in ``calls``, in order, all queued behind a
-    sleep kernel with a CUDA event after each; raises RuntimeError if the
-    host took longer to queue them than the card slept."""
+    sleep kernel of ``sleep_cycles`` with a CUDA event after each; raises
+    RuntimeError if the host took longer to queue them than the card
+    slept."""
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True)
           for _ in range(len(calls) + 2)]
     ev[0].record()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     ev[1].record()
     t0 = time.perf_counter()
     for call, e in zip(calls, ev[2:]):
@@ -41,7 +44,7 @@ def queued_events(calls: list) -> list:
 
 
 def queued_ms(fn, inner: int = 32, repeats: int = 5,
-              cuda: bool = True) -> float:
+              cuda: bool = True, sleep_cycles: int = SLEEP_CYCLES) -> float:
     """ms per call of ``fn`` (after one warm-up call): the median over
     ``repeats`` of ``inner`` calls timed by ``queued_events``. Without
     ``cuda`` (the plain versions on the CPU), host ms around the calls."""
@@ -49,7 +52,8 @@ def queued_ms(fn, inner: int = 32, repeats: int = 5,
     times = []
     for _ in range(repeats):
         if cuda:
-            times.append(sum(queued_events([fn] * inner)) / inner)
+            times.append(sum(queued_events([fn] * inner, sleep_cycles))
+                         / inner)
             continue
         t0 = time.perf_counter()
         for _ in range(inner):

@@ -33,11 +33,11 @@ from raytpu_torch.kernels.strand import strand_query_cuda
 from raytpu_torch.scene.camera import camera_from_lookat, load_camera_json
 from raytpu_torch.scene.gltf import load_scene
 from raytpu_torch.scene.pack import pack_camera, pack_scene
+from raytpu_torch.tools.scenes import build_pbr_nee_glb
 from raytpu_torch.types import RenderConfig
 
 from .imgdiff import assert_images_equiv
 from .test_torch_host import AT, EYE, FOV, scene_path
-from .tools.glb_writer import GlbBuilder, box, quad
 
 CFG = dict(width=48, height=32, seed=11, samples=2, bounces=4,
            chunk_size=16)
@@ -187,35 +187,11 @@ def test_unported_routes_raise(which):
                            8)
 
 
-def write_pbr_nee(path):
-    """bench.py's pbr+nee layout (BASELINE config 4): a diffuse backdrop,
-    metal/glass/diffuse boxes, an emissive panel and one light, viewed
-    through its glTF camera: all four material branches and NEE, 40
-    triangles."""
-    b = GlbBuilder()
-    diffuse = b.add_material(color=(0.7, 0.7, 0.7, 1), ior=1.1)
-    metal = b.add_material(color=(0.9, 0.8, 0.6, 1), metallic=1.0)
-    glass = b.add_material(color=(0.9, 0.9, 1.0, 1), ior=1.5)
-    glow = b.add_material(color=(1.0, 0.5, 0.2, 1), emission=6.0)
-    pos, nrm, uv, idx = quad(size=10.0)
-    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, diffuse, np.uint16)]),
-               translation=[0, 0, -4])
-    bp, bn, bu, bi = box()
-    for m, x in ((metal, -3.0), (glass, 0.0), (diffuse, 3.0)):
-        b.add_node(mesh=b.add_mesh([(bp, bn, bu, bi, m, np.uint32)]),
-                   translation=[x, 0, -1.5])
-    b.add_node(mesh=b.add_mesh([(pos, nrm, uv, idx, glow, np.uint16)]),
-               matrix=[0.2, 0, 0, 0, 0, 0.2, 0, 0, 0, 0, 0.2, 0, 0, 4, 0, 1])
-    b.add_node(light=b.add_light(intensity=50.0), translation=[0, 5, 8])
-    b.add_node(camera=b.add_camera(1.0, 0.8), translation=[0, 0, 12])
-    b.write(path)
-
-
 def test_pbr_nee_frame_matches_raytpu(tmp_path):
     """The packet route through all four material branches and NEE,
     against raytpu's default CPU route, at 32x32, 2 spp, 4 bounces."""
     path = str(tmp_path / "pbr_nee.glb")
-    write_pbr_nee(path)
+    build_pbr_nee_glb(path)
     scene = load_scene(path)
     pack = pack_scene(scene, "cpu")
     assert pack.n_triangles <= 256 and pack.bvh.strand_rows is None
