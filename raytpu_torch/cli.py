@@ -14,8 +14,9 @@ GPU the run stops with status 1 and does not fall back. As raytpu's
 ``main`` does, the render is ``--gui``'s live preview, else row shards
 over ``--devices`` N > 1 (N cards, or N CPU shards with ``--device
 cpu``), else a checkpointed render with ``--checkpoint``, else one
-``render_frame``; ``--profile`` wraps whichever runs in a torch.profiler
-trace."""
+``render_frame``; ``--profile`` wraps the scene's load and pack and
+whichever render runs in a torch.profiler trace, the program's
+``raytpu::`` spans among its events (README.md)."""
 
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ def main(argv=None) -> int:
 
     from .engine.render import render_frame
     from .io.png import write_png
+    from .obs import span
     from .scene.camera import load_camera_json
     from .scene.gltf import GltfError, load_scene
     from .scene.pack import pack_camera, pack_scene
@@ -87,38 +89,40 @@ def main(argv=None) -> int:
         print("ray tracer error: no CUDA device is available; pass "
               "--device cpu to render on the CPU", file=sys.stderr)
         return 1
-    try:
-        scene = load_scene(args.scene)
-    except (OSError, GltfError) as e:
-        print(f"ray tracer error: failed to load scene file {args.scene}",
-              file=sys.stderr)
-        print(f" caused by: {e}", file=sys.stderr)
-        return 1
-
-    if args.camera is not None:
-        camera = load_camera_json(args.camera, args.width, args.height)
-    elif scene.camera is not None:
-        camera = scene.camera
-    else:
-        print("ray tracer error: failed to load camera from scene",
-              file=sys.stderr)
-        return 1
-
-    config = RenderConfig(
-        width=args.width,
-        height=args.height,
-        seed=args.seed,
-        samples=args.samples,
-        bounces=args.bounces,
-        chunk_size=args.chunk_size,
-        mode=args.mode,
-    )
-    pack = pack_scene(scene, args.device)
-    cam = pack_camera(camera, args.device)
-
+    # the trace holds the scene's load and pack too (the scene.* spans)
     profile_ctx = (nullcontext() if args.profile is None
                    else _profiled(args.profile, args.device))
     with profile_ctx:  # exceptions must still close the trace
+        try:
+            with span("raytpu::scene.load"):
+                scene = load_scene(args.scene)
+        except (OSError, GltfError) as e:
+            print(f"ray tracer error: failed to load scene file {args.scene}",
+                  file=sys.stderr)
+            print(f" caused by: {e}", file=sys.stderr)
+            return 1
+
+        if args.camera is not None:
+            camera = load_camera_json(args.camera, args.width, args.height)
+        elif scene.camera is not None:
+            camera = scene.camera
+        else:
+            print("ray tracer error: failed to load camera from scene",
+                  file=sys.stderr)
+            return 1
+
+        config = RenderConfig(
+            width=args.width,
+            height=args.height,
+            seed=args.seed,
+            samples=args.samples,
+            bounces=args.bounces,
+            chunk_size=args.chunk_size,
+            mode=args.mode,
+        )
+        pack = pack_scene(scene, args.device)
+        cam = pack_camera(camera, args.device)
+
         if args.gui:
             from .gui import run_gui
 

@@ -61,6 +61,7 @@ from ..kernels import packet as packetk
 from ..kernels.packet import make_packet_intersectors
 from ..kernels.strand import make_strand_intersectors, make_strand_mixed_query
 from ..kernels.texture import sample_bilinear
+from ..obs import span, spanned
 from ..scene.pack import _sort_min_tris
 from ..types import CameraPack, RenderConfig, ScenePack
 
@@ -239,7 +240,8 @@ def _compact_prefix(r: int, alive) -> int:
         return r
     tiers = [p for p in (-(-(r // 4) // 128) * 128, -(-(r // 2) // 128) * 128)
              if 0 < p < r]
-    n = int(alive.sum())
+    with span("raytpu::engine.sync.compact"):
+        n = int(alive.sum())
     return next((p for p in tiers if n <= p), r)
 
 
@@ -259,6 +261,7 @@ def _unsort(out, idx, n: int, returns_hit):
     return blocked
 
 
+@spanned("raytpu::engine.sort")
 def _sorted_query(fn, pack, ro, rd, tmin, tmax, alive, returns_hit):
     """Run an intersector on coherence-sorted rays and unsort the result.
     Per-ray results never depend on the order (ties break on the tie keys)
@@ -319,6 +322,7 @@ def _sorted_query(fn, pack, ro, rd, tmin, tmax, alive, returns_hit):
                    r, returns_hit)
 
 
+@spanned("raytpu::engine.sort")
 def _mixed_bounce_query(mixed_fn, pack, ro, rd, alive, s_ro, s_rd, s_dist,
                         s_on):
     """One sorted mixed query serving a bounce's continuation rays AND the
@@ -345,6 +349,7 @@ def _mixed_bounce_query(mixed_fn, pack, ro, rd, alive, s_ro, s_rd, s_dist,
     return hit, tri_u[r:] >= 0
 
 
+@spanned("raytpu::engine.shade")
 def _shade_core(pack: ScenePack, ro, rd, hit, rng, active):
     """The megakernel's per-bounce shading body (src/shader.wgsl:339-374
     up to the shadow query): face-forward + hit point + base colour +
@@ -504,6 +509,7 @@ def _wave_mode(r: int, fusable: bool) -> str:
 WAVE_STATS = dict(mode=None, widths=[])
 
 
+@spanned("raytpu::engine.paths")
 def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
                  bounces: int, mask=None, sort_bounced=False,
                  bounce_pair=None, count_mask=None, mixed_fn=None):
@@ -552,13 +558,17 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
         closest, any_hit)
     if os.environ.get("RAYTPU_B0_STRAND", "1") != "0":
         closest, any_hit = b_closest, b_any
-    n_rays = int(count_mask.sum()) if count_mask is not None else None
+    n_rays = None
+    if count_mask is not None:
+        with span("raytpu::engine.sync.count"):
+            n_rays = int(count_mask.sum())
     r = ro.shape[0]
     dev = ro.device
     radiance = torch.zeros((r, 4), dtype=torch.float32, device=dev)
-    attenuation = torch.tensor(
-        [1.0, 1.0, 1.0, 0.0], device=dev
-    ).expand(r, 4)
+    with span("raytpu::engine.sync.attenuation"):  # a copy from the host
+        attenuation = torch.tensor(
+            [1.0, 1.0, 1.0, 0.0], device=dev
+        ).expand(r, 4)
     alive = torch.ones(r, dtype=torch.bool, device=dev)
     if mask is not None:
         alive = alive & mask
@@ -572,59 +582,67 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
                        compact=_compact_bounces)[mode]
             return run(pack, b_closest, b_any, ro, rd, rng, radiance,
                        attenuation, alive, bounces, count_mask, n_rays)
-        if not bool(alive.any()):
-            break
-        WAVE_STATS["widths"].append(r)
-        if mixed_fn is None:
-            # immediate NEE: the bounce's query, shading, shadow query and
-            # continuation (:339-377); dead lanes get tmax = -inf, so no
-            # query may produce hits for them
-            query, shadow = (closest, any_hit) if b == 0 else (b_closest,
-                                                               b_any)
-            if sort_bounced and b > 0:
-                def query(o, d, tmin, tmax, alive=alive):
-                    return _sorted_query(b_closest, pack, o, d, tmin, tmax,
-                                         alive, True)
-            sort_shadow = sort_bounced and not (
-                b == 0 and os.environ.get("RAYTPU_B0S_NOSORT"))
-            delta, mult, ro, rd, bounce_on, rng = _bounce_work(
-                pack, query, shadow, ro, rd, rng, alive, sort_shadow)
-            radiance = radiance + delta
-        else:
-            if pend is None:
-                hit = closest(ro, rd, 0.001,
-                              torch.where(alive, F32_MAX, NEG_INF))
+        with span("raytpu::engine.bounce"):
+            with span("raytpu::engine.sync.alive"):
+                any_alive = bool(alive.any())
+            if not any_alive:
+                break
+            WAVE_STATS["widths"].append(r)
+            if mixed_fn is None:
+                # immediate NEE: the bounce's query, shading, shadow query and
+                # continuation (:339-377); dead lanes get tmax = -inf, so no
+                # query may produce hits for them
+                query, shadow = (closest, any_hit) if b == 0 else (b_closest,
+                                                                   b_any)
+                if sort_bounced and b > 0:
+                    def query(o, d, tmin, tmax, alive=alive):
+                        return _sorted_query(b_closest, pack, o, d, tmin, tmax,
+                                             alive, True)
+                sort_shadow = sort_bounced and not (
+                    b == 0 and os.environ.get("RAYTPU_B0S_NOSORT"))
+                delta, mult, ro, rd, bounce_on, rng = _bounce_work(
+                    pack, query, shadow, ro, rd, rng, alive, sort_shadow)
+                radiance = radiance + delta
             else:
-                # continuation + the previous bounce's shadow rays in ONE
-                # query; the deferred NEE lands BEFORE this bounce's
-                # emissive term (reference order)
-                p_p, p_dir, p_dist, p_contrib, p_on = pend
-                hit, blocked = _mixed_bounce_query(
-                    mixed_fn, pack, ro, rd, alive, p_p, p_dir, p_dist, p_on)
-                radiance = radiance + torch.where(
-                    (p_on & ~blocked)[:, None], p_contrib, 0.0
-                )
-            sh = _shade_core(pack, ro, rd, hit, rng, alive & hit.valid)
-            rng = sh["rng"]
-            bounce_on = sh["bounce_on"]
-            mult = sh["att_mult"]
-            radiance = radiance + sh["emissive_delta"]
-            # the contribution is fixed here; only its visibility test
-            # waits for the next query
-            pend = (sh["p"], sh["ldir"], sh["dist"], sh["contrib"],
-                    bounce_on)
-            # continue the path (:376-377)
-            ro = torch.where(bounce_on[:, None], sh["p"], ro)
-            rd = torch.where(bounce_on[:, None], sh["scattered"], rd)
-        attenuation = torch.where(
-            bounce_on[:, None], attenuation * mult, attenuation
-        )
-        alive = bounce_on
-        if n_rays is not None:
-            n_rays += 2 * int((alive & count_mask).sum())
-    if pend is not None and bool(pend[4].any()):
-        # the last bounce's shadow wave, alone (raytpu's resolve_last)
-        radiance = radiance + _nee(pack, b_any, *pend, sort_bounced)
+                if pend is None:
+                    hit = closest(ro, rd, 0.001,
+                                  torch.where(alive, F32_MAX, NEG_INF))
+                else:
+                    # continuation + the previous bounce's shadow rays in ONE
+                    # query; the deferred NEE lands BEFORE this bounce's
+                    # emissive term (reference order)
+                    p_p, p_dir, p_dist, p_contrib, p_on = pend
+                    hit, blocked = _mixed_bounce_query(
+                        mixed_fn, pack, ro, rd, alive, p_p, p_dir, p_dist,
+                        p_on)
+                    radiance = radiance + torch.where(
+                        (p_on & ~blocked)[:, None], p_contrib, 0.0
+                    )
+                sh = _shade_core(pack, ro, rd, hit, rng, alive & hit.valid)
+                rng = sh["rng"]
+                bounce_on = sh["bounce_on"]
+                mult = sh["att_mult"]
+                radiance = radiance + sh["emissive_delta"]
+                # the contribution is fixed here; only its visibility test
+                # waits for the next query
+                pend = (sh["p"], sh["ldir"], sh["dist"], sh["contrib"],
+                        bounce_on)
+                # continue the path (:376-377)
+                ro = torch.where(bounce_on[:, None], sh["p"], ro)
+                rd = torch.where(bounce_on[:, None], sh["scattered"], rd)
+            attenuation = torch.where(
+                bounce_on[:, None], attenuation * mult, attenuation
+            )
+            alive = bounce_on
+            if n_rays is not None:
+                with span("raytpu::engine.sync.count"):
+                    n_rays += 2 * int((alive & count_mask).sum())
+    if pend is not None:
+        with span("raytpu::engine.sync.pending"):
+            any_pending = bool(pend[4].any())
+        if any_pending:
+            # the last bounce's shadow wave, alone (raytpu's resolve_last)
+            radiance = radiance + _nee(pack, b_any, *pend, sort_bounced)
     if n_rays is not None:
         return radiance * attenuation, rng, n_rays
     return radiance * attenuation, rng
@@ -645,22 +663,28 @@ def _resort_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
     if n_rays is not None:
         state["cm"] = count_mask
     for _ in range(1, bounces):
-        if not bool(state["alive"].any()):
-            break  # a bounce over dead lanes changes nothing
-        WAVE_STATS["widths"].append(r)
-        key = _ray_sort_key(pack, state["ro"], state["rd"], state["alive"])
-        perm = torch.sort((key.long() << 32) | state["pxi"].long())[1]
-        state = {k: x[perm] for k, x in state.items()}
-        delta, mult, nro, nrd, bounce_on, rng_b = _bounce_work(
-            pack, closest, any_hit, state["ro"], state["rd"], state["rng"],
-            state["alive"], sort_shadow=False)
-        state.update(
-            ro=nro, rd=nrd, rng=rng_b, rad=state["rad"] + delta,
-            att=torch.where(bounce_on[:, None], state["att"] * mult,
-                            state["att"]),
-            alive=bounce_on)
-        if n_rays is not None:
-            n_rays += 2 * int((bounce_on & state["cm"]).sum())
+        with span("raytpu::engine.bounce"):
+            with span("raytpu::engine.sync.alive"):
+                any_alive = bool(state["alive"].any())
+            if not any_alive:
+                break  # a bounce over dead lanes changes nothing
+            WAVE_STATS["widths"].append(r)
+            with span("raytpu::engine.sort"):
+                key = _ray_sort_key(pack, state["ro"], state["rd"],
+                                    state["alive"])
+                perm = torch.sort((key.long() << 32) | state["pxi"].long())[1]
+                state = {k: x[perm] for k, x in state.items()}
+            delta, mult, nro, nrd, bounce_on, rng_b = _bounce_work(
+                pack, closest, any_hit, state["ro"], state["rd"], state["rng"],
+                state["alive"], sort_shadow=False)
+            state.update(
+                ro=nro, rd=nrd, rng=rng_b, rad=state["rad"] + delta,
+                att=torch.where(bounce_on[:, None], state["att"] * mult,
+                                state["att"]),
+                alive=bounce_on)
+            if n_rays is not None:
+                with span("raytpu::engine.sync.count"):
+                    n_rays += 2 * int((bounce_on & state["cm"]).sum())
     # one scatter back to pixel order, radiance * attenuation first
     pxi = state["pxi"].long()
     out = torch.empty((r, 4), dtype=torch.float32, device=ro.device)
@@ -687,32 +711,37 @@ def _compact_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
     dev = ro.device
     tiers = _compact_tiers(r)
     for _ in range(1, bounces):
-        n_alive = int(alive.sum())
-        if n_alive == 0:
-            break  # a bounce over dead lanes changes nothing
-        perm = torch.sort(_ray_sort_key(pack, ro, rd, alive), stable=True)[1]
-        p = next((t for t in tiers if n_alive <= t), r)
-        WAVE_STATS["widths"].append(p)
-        live = perm[:p]
-        delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
-            pack, closest, any_hit, ro[live], rd[live], rng[live],
-            alive[live])
-        # the dead lanes beyond the tier keep their state: zero delta,
-        # no bounce
-        d3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-        m3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-        on = torch.zeros(r, dtype=torch.bool, device=dev)
-        ro, rd, rng = ro.clone(), rd.clone(), rng.clone()
-        d3[live], m3[live], on[live] = delta[:, :3], mult[:, :3], bounce_on
-        ro[live], rd[live], rng[live] = nro, nrd, rng_p
-        zero = torch.zeros((r, 1), dtype=torch.float32, device=dev)
-        radiance = radiance + torch.cat([d3, zero], dim=1)
-        attenuation = torch.where(
-            on[:, None], attenuation * torch.cat([m3, zero + 1.0], dim=1),
-            attenuation)
-        alive = on
-        if n_rays is not None:
-            n_rays += 2 * int((alive & count_mask).sum())
+        with span("raytpu::engine.bounce"):
+            with span("raytpu::engine.sync.alive"):
+                n_alive = int(alive.sum())
+            if n_alive == 0:
+                break  # a bounce over dead lanes changes nothing
+            with span("raytpu::engine.sort"):
+                perm = torch.sort(_ray_sort_key(pack, ro, rd, alive),
+                                  stable=True)[1]
+            p = next((t for t in tiers if n_alive <= t), r)
+            WAVE_STATS["widths"].append(p)
+            live = perm[:p]
+            delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
+                pack, closest, any_hit, ro[live], rd[live], rng[live],
+                alive[live])
+            # the dead lanes beyond the tier keep their state: zero delta,
+            # no bounce
+            d3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+            m3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+            on = torch.zeros(r, dtype=torch.bool, device=dev)
+            ro, rd, rng = ro.clone(), rd.clone(), rng.clone()
+            d3[live], m3[live], on[live] = delta[:, :3], mult[:, :3], bounce_on
+            ro[live], rd[live], rng[live] = nro, nrd, rng_p
+            zero = torch.zeros((r, 1), dtype=torch.float32, device=dev)
+            radiance = radiance + torch.cat([d3, zero], dim=1)
+            attenuation = torch.where(
+                on[:, None], attenuation * torch.cat([m3, zero + 1.0], dim=1),
+                attenuation)
+            alive = on
+            if n_rays is not None:
+                with span("raytpu::engine.sync.count"):
+                    n_rays += 2 * int((alive & count_mask).sum())
     if n_rays is not None:
         return radiance * attenuation, rng, n_rays
     return radiance * attenuation, rng
@@ -734,32 +763,37 @@ def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
         state["cm"] = count_mask.clone()
     wsz = r  # the first sort window: every lane may be alive
     for _ in range(1, bounces):
-        # the live lanes lie in the window (the tier that holds them is
-        # the smallest at or above n_alive); the count is read once
-        n_alive = int(state["alive"][:wsz].sum())
-        if n_alive == 0:
-            break  # a bounce over dead lanes changes nothing
-        key = _ray_sort_key(pack, state["ro"][:wsz], state["rd"][:wsz],
-                            state["alive"][:wsz])
-        # (key, pixel) is unique, so this is raytpu's two-level sort
-        perm = torch.sort((key.long() << 32) | state["pxi"][:wsz].long())[1]
-        for x in state.values():
-            x[:wsz] = x[:wsz][perm]
-        p = next((t for t in tiers if n_alive <= t), r)
-        WAVE_STATS["widths"].append(p)
-        s = {k: x[:p] for k, x in state.items()}
-        delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
-            pack, closest, any_hit, s["ro"], s["rd"], s["rng"], s["alive"])
-        s["att"].copy_(torch.where(bounce_on[:, None], s["att"] * mult[:, :3],
-                                   s["att"]))
-        s["rad"].copy_(s["rad"] + delta[:, :3])
-        s["ro"].copy_(nro)
-        s["rd"].copy_(nrd)
-        s["rng"].copy_(rng_p)
-        s["alive"].copy_(bounce_on)
-        if n_rays is not None:
-            n_rays += 2 * int((bounce_on & s["cm"]).sum())
-        wsz = p  # the next sort window: this bounce's work tier
+        with span("raytpu::engine.bounce"):
+            # the live lanes lie in the window (the tier that holds them is
+            # the smallest at or above n_alive); the count is read once
+            with span("raytpu::engine.sync.alive"):
+                n_alive = int(state["alive"][:wsz].sum())
+            if n_alive == 0:
+                break  # a bounce over dead lanes changes nothing
+            with span("raytpu::engine.sort"):
+                key = _ray_sort_key(pack, state["ro"][:wsz], state["rd"][:wsz],
+                                    state["alive"][:wsz])
+                # (key, pixel) is unique, so this is raytpu's two-level sort
+                perm = torch.sort(
+                    (key.long() << 32) | state["pxi"][:wsz].long())[1]
+                for x in state.values():
+                    x[:wsz] = x[:wsz][perm]
+            p = next((t for t in tiers if n_alive <= t), r)
+            WAVE_STATS["widths"].append(p)
+            s = {k: x[:p] for k, x in state.items()}
+            delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
+                pack, closest, any_hit, s["ro"], s["rd"], s["rng"], s["alive"])
+            s["att"].copy_(torch.where(bounce_on[:, None],
+                                       s["att"] * mult[:, :3], s["att"]))
+            s["rad"].copy_(s["rad"] + delta[:, :3])
+            s["ro"].copy_(nro)
+            s["rd"].copy_(nrd)
+            s["rng"].copy_(rng_p)
+            s["alive"].copy_(bounce_on)
+            if n_rays is not None:
+                with span("raytpu::engine.sync.count"):
+                    n_rays += 2 * int((bounce_on & s["cm"]).sum())
+            wsz = p  # the next sort window: this bounce's work tier
     # one scatter back to pixel order, radiance * attenuation first
     pxi = state["pxi"].long()
     out = torch.zeros((r, 4), dtype=torch.float32, device=ro.device)
@@ -771,6 +805,7 @@ def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
     return out, rng_out
 
 
+@spanned("raytpu::engine.nee")
 def _nee(pack, any_hit, p, ldir, dist, contrib, on, sort_bounced):
     """Next-event radiance: ``contrib`` where the shadow ray from ``p``
     towards the light reaches it (an any-hit query over [0, dist])."""
@@ -783,6 +818,7 @@ def _nee(pack, any_hit, p, ldir, dist, contrib, on, sort_bounced):
     return torch.where((on & ~blocked)[:, None], contrib, 0.0)
 
 
+@spanned("raytpu::engine.flat")
 def _flat_shade(pack: ScenePack, closest, ro, rd):
     """raytpu extension: primary-hit base colour (BASELINE config 1)."""
     hit = closest(ro, rd, 0.001, F32_MAX)
@@ -924,8 +960,12 @@ def _pixel_layout(w: int, tile_h: int, packet_mode: bool, device):
     def order(a):
         return a.reshape(hp // B, B, wp // B, B).transpose(0, 2, 1, 3).reshape(-1)
 
-    px = torch.as_tensor(order(pxg), dtype=torch.int32, device=device)
-    py = torch.as_tensor(order(pyg), dtype=torch.int32, device=device)
+    px, py = order(pxg), order(pyg)
+    # each a copy from the host, which waits for the device
+    with span("raytpu::entry.sync.layout"):
+        px = torch.as_tensor(px, dtype=torch.int32, device=device)
+    with span("raytpu::entry.sync.layout"):
+        py = torch.as_tensor(py, dtype=torch.int32, device=device)
 
     def unpermute(img):
         img = img.reshape(hp // B, wp // B, B, B, 4)
@@ -947,6 +987,7 @@ def placed(pack: ScenePack, camera: CameraPack, device=None) -> tuple:
     return pack.to(device), camera.to(device)
 
 
+@spanned("raytpu::entry.tile")
 def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
                 config: RenderConfig, tile_h: int, seed=None,
                 device=None) -> torch.Tensor:
@@ -1065,16 +1106,21 @@ def render_frame_tiles(pack: ScenePack, camera: CameraPack,
         if y0 + rows <= first_row:
             continue
         tile = render_tile(pack, camera, y0, config, tile_h)
-        yield y0, rows, tile[:rows].cpu().numpy()
+        with span("raytpu::entry.sync.readback"):
+            host = tile[:rows].cpu().numpy()
+        yield y0, rows, host
 
 
+@spanned("raytpu::entry.frame")
 def render_frame(pack: ScenePack, camera: CameraPack,
                  config: RenderConfig, device=None) -> np.ndarray:
     """Full frame, stitched from tiles on the host; returns [H, W, 4] f32
     (the SAMPLES texture contents, src/state.rs:691-696). The device is
     ``placed``'s: the pack's, or the card for an ``as_numpy`` pack."""
-    out = np.zeros((config.height, config.width, 4), np.float32)
+    with span("raytpu::entry.alloc"):
+        out = np.zeros((config.height, config.width, 4), np.float32)
     for y0, rows, tile in render_frame_tiles(pack, camera, config,
                                              device=device):
-        out[y0 : y0 + rows] = tile
+        with span("raytpu::entry.stitch"):
+            out[y0 : y0 + rows] = tile
     return out

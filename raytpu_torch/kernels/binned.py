@@ -62,6 +62,7 @@ import ctypes
 
 import torch
 
+from ..obs import span, spanned
 from .intersect import F32_MAX, Hit, moller_trumbore
 from .strand import (
     ANY_TMIN,
@@ -274,6 +275,7 @@ def _library():
     return _LIB
 
 
+@spanned("raytpu::kernels.binned")
 def binned_walk_cuda(tl_nodes, tl_leaves, first, tid, ro, rd, tmax, smask,
                      tri0, tmin: float, shadow_tmin: float):
     """Launch ``csrc/binned_walk.cu`` on the current stream (one thread per
@@ -396,8 +398,11 @@ def make_binned_query(pack, max_rounds: int | None = None):
         sel, sel_t, valid = select(rays)
         rounds = 0
         while max_rounds is None or rounds < max_rounds:
-            # rays without a treelet never get one back: drop them
-            rays, sel, sel_t = rays[valid], sel[valid], sel_t[valid]
+            # rays without a treelet never get one back: drop them (the
+            # host waits for the count of those that stay)
+            with span("raytpu::kernels.sync.binned_rays"):
+                keep = valid.nonzero()[:, 0]
+            rays, sel, sel_t = rays[keep], sel[keep], sel_t[keep]
             if rays.numel() == 0:
                 break
             order = torch.sort(sel, stable=True)[1]

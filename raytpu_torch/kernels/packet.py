@@ -92,6 +92,7 @@ import os
 
 import torch
 
+from ..obs import spanned
 from .intersect import F32_MAX, Hit, moller_trumbore
 from .strand import (
     ANY_TMIN,
@@ -376,6 +377,7 @@ def _library():
     return _LIB
 
 
+@spanned("raytpu::kernels.packet")
 def packet_query_cuda(node8_rows, leaf_tris, first, ro, rd, tmax,
                       tmin: float, any_hit: bool, smask=None,
                       shadow_tmin: float = 0.0, *, ordered=None,

@@ -181,6 +181,7 @@ import os
 
 import torch
 
+from ..obs import span, spanned
 from .intersect import F32_MAX, Hit, moller_trumbore
 
 TINY = 1e-36
@@ -955,6 +956,7 @@ def _zero_counts(fn, names) -> None:
         setattr(fn, name, 0)
 
 
+@spanned("raytpu::kernels.strand")
 def strand_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
                       tmin: float, any_hit: bool, *, rpo: int = 0,
                       ribbon_k: int = 4, stats: bool = False, **schedule):
@@ -989,6 +991,7 @@ def strand_query(strand_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
               rpo=rpo, ribbon_k=ribbon_k, stats=stats, **schedule)
 
 
+@spanned("raytpu::kernels.strand")
 def strand_mixed_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
                             smask, tmin: float, shadow_tmin: float, *,
                             rpo: int = 0, ribbon_k: int = 4,
@@ -1272,6 +1275,7 @@ def _defer_torch(strand_rows, leaf_tris, first, ro, rd, tmax, tmin: float,
     return t, tri, st_out[:n_str]
 
 
+@spanned("raytpu::kernels.strand")
 def strand_block_query_cuda(strand_rows, leaf_tris, first, ro, rd, tmax,
                             tmin: float, any_hit: bool,
                             with_stats: bool = False, *,
@@ -1323,8 +1327,14 @@ def _check_baked_tmin(tmin, baked: float, what: str):
 
 
 def _per_ray(tmax, ro):
-    """tmax (a scalar or [R]) as a contiguous float32 [R] on ro's device."""
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=ro.device)
+    """tmax (a scalar or [R]) as a contiguous float32 [R] on ro's device;
+    a scalar is copied there from the host, which waits for the device."""
+    if torch.is_tensor(tmax):
+        tmax = tmax.to(device=ro.device, dtype=torch.float32)
+    else:
+        with span("raytpu::kernels.sync.tmax"):
+            tmax = torch.as_tensor(tmax, dtype=torch.float32,
+                                   device=ro.device)
     return tmax.expand(ro.shape[0]).contiguous()
 
 

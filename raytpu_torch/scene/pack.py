@@ -45,6 +45,7 @@ from ..accel.strandtree import build_ribbon_tree, build_strand_tree
 from ..accel.treelets import build_treelets
 from ..kernels.packet import STACK_DEPTH
 from ..kernels.strand import first_slots
+from ..obs import span, spanned
 from ..types import BvhPack, CameraPack, ScenePack
 from .camera import CameraData
 from .gltf import SceneData
@@ -136,6 +137,7 @@ def _bitcast_i32_to_f32(x: np.ndarray) -> np.ndarray:
     return x.astype(np.int32).view(np.float32)
 
 
+@spanned("raytpu::scene.pack")
 def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
                treelets: str = "auto", tables: str = "auto",
                as_numpy: bool = False) -> ScenePack:
@@ -171,9 +173,11 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
     if tables not in ("auto", "stream", "all"):
         raise ValueError(f"tables={tables!r}: want 'auto', 'stream' or "
                          "'all'")
-    p0, e1, e2, vi, mat, obj = flatten_world_triangles(scene)
+    with span("raytpu::scene.flatten"):
+        p0, e1, e2, vi, mat, obj = flatten_world_triangles(scene)
 
-    bvh, bvh8 = build_bvh(p0, e1, e2, leaf_size=leaf_size)
+    with span("raytpu::scene.bvh"):  # the SBVH and the BVH8
+        bvh, bvh8 = build_bvh(p0, e1, e2, leaf_size=leaf_size)
 
     # the packet walk's per-ray stack must provably hold the deepest
     # traversal (<= 8 pushes per level); reject pathological trees here
@@ -289,7 +293,8 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
     tl = None
     if treelets == "always" or (treelets == "auto"
                                 and n_slots > TREELET_MIN_SLOTS):
-        tl = build_treelets(bvh8, leaf_tris)
+        with span("raytpu::scene.treelets"):
+            tl = build_treelets(bvh8, leaf_tris)
     leaf_bytes = leaf_tris.shape[0] * ROW_BYTES
     stream = tables == "stream" or (
         tables == "auto" and tl is not None
@@ -297,48 +302,53 @@ def pack_scene(scene: SceneData, device="cuda", leaf_size: int = LEAF_SIZE,
     strand_fits = -(-bvh.n_nodes // 2) * ROW_BYTES + leaf_bytes <= TABLE_BUDGET
     strand_rows = ribbon_rows = None
     if n_slots > _sort_min_tris() and (strand_fits or stream):
-        strand_rows = build_strand_tree(bvh).rows
+        with span("raytpu::scene.strand"):
+            strand_rows = build_strand_tree(bvh).rows
         # the same node budget in another numbering; stream packs walk the
         # strand layout only
         if strand_fits and not stream:
-            ribbon_rows = build_ribbon_tree(bvh).rows
+            with span("raytpu::scene.ribbon"):
+                ribbon_rows = build_ribbon_tree(bvh).rows
 
-    def conv(x):
-        if x is None:
-            return None
-        x = np.ascontiguousarray(x)
-        return x if as_numpy else torch.from_numpy(x).to(device)
+    with span("raytpu::scene.upload"):
+        def conv(x):
+            if x is None:
+                return None
+            x = np.ascontiguousarray(x)
+            return x if as_numpy else torch.from_numpy(x).to(device)
 
-    tri_row_t = conv(tri_row)
-    first = first_slots(torch.as_tensor(tri_row_t))
-    return ScenePack(
-        tri_row=tri_row_t,
-        object_linear=conv(obj_linear),
-        mat_table=conv(mat_table),
-        light_table=conv(light_table),
-        n_lights_f=(np.float32(n_lights) if as_numpy
-                    else torch.tensor(np.float32(n_lights), device=device)),
-        scene_bmin=conv(bvh.bmin[0]),
-        scene_bmax=conv(bvh.bmax[0]),
-        tex_atlas=conv(atlas),
-        tex_size=conv(np.asarray(sizes, np.int32)),
-        bvh=BvhPack(
-            nodes=conv(nodes),
-            node8_rows=None if stream else conv(bvh8.node_rows),
-            leaf_tris=(None if stream and strand_rows is None
-                       else conv(leaf_tris)),
-            first_slots=first.numpy() if as_numpy else first,
-            strand_rows=conv(strand_rows),
-            ribbon_rows=conv(ribbon_rows),
-        ),
-        has_textures=len(scene.textures) > 0,
-        tl_nodes=None if tl is None else conv(tl.tnodes),
-        tl_leaves=None if tl is None else conv(tl.tleaves),
-        tl_bmin=None if tl is None else conv(tl.tbox_min),
-        tl_bmax=None if tl is None else conv(tl.tbox_max),
-    )
+        tri_row_t = conv(tri_row)
+        first = first_slots(torch.as_tensor(tri_row_t))
+        pack = ScenePack(
+            tri_row=tri_row_t,
+            object_linear=conv(obj_linear),
+            mat_table=conv(mat_table),
+            light_table=conv(light_table),
+            n_lights_f=(np.float32(n_lights) if as_numpy else
+                        torch.tensor(np.float32(n_lights), device=device)),
+            scene_bmin=conv(bvh.bmin[0]),
+            scene_bmax=conv(bvh.bmax[0]),
+            tex_atlas=conv(atlas),
+            tex_size=conv(np.asarray(sizes, np.int32)),
+            bvh=BvhPack(
+                nodes=conv(nodes),
+                node8_rows=None if stream else conv(bvh8.node_rows),
+                leaf_tris=(None if stream and strand_rows is None
+                           else conv(leaf_tris)),
+                first_slots=first.numpy() if as_numpy else first,
+                strand_rows=conv(strand_rows),
+                ribbon_rows=conv(ribbon_rows),
+            ),
+            has_textures=len(scene.textures) > 0,
+            tl_nodes=None if tl is None else conv(tl.tnodes),
+            tl_leaves=None if tl is None else conv(tl.tleaves),
+            tl_bmin=None if tl is None else conv(tl.tbox_min),
+            tl_bmax=None if tl is None else conv(tl.tbox_max),
+        )
+    return pack
 
 
+@spanned("raytpu::scene.camera")
 def pack_camera(camera: CameraData, device="cuda") -> CameraPack:
     return CameraPack(
         world=torch.as_tensor(np.asarray(camera.world, np.float32),

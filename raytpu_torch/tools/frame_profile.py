@@ -26,10 +26,14 @@ the launching thread when the runtime call was made, outermost first):
 
 The report: the device total (the events' durations summed; the groups
 sum to it), the frame's wall ms, device-busy ms (the union of the device
-intervals) and busy share, a table of groups (ms, %, events) and the top
+intervals) and busy share, a table of groups (ms, %, events), the top
 ``--top`` device ops (the outermost launching ``aten::`` op, or the
-kernel's name where no op launched it). raytpu subtracts nothing here and
-neither does the port. A trace without device events is an error (a CPU
+kernel's name where no op launched it), and the device's idle ms by
+program span: every idle microsecond of the trace put down to the
+innermost ``raytpu::`` span (``raytpu_torch/obs.py``) open at that
+instant on the thread that renders the frame (the one holding
+``raytpu::entry.frame``), ``outside`` where none is. raytpu subtracts
+nothing here and neither does the port. A trace without device events is an error (a CPU
 run has none): ``parse`` raises and the command exits non-zero; it never
 prints a table of zeros.
 
@@ -52,6 +56,7 @@ import time
 
 import torch
 
+from ..obs import PREFIX
 from . import scenes
 
 GROUPS = ("strand kernel", "packet kernel", "binned kernel", "sort",
@@ -83,6 +88,8 @@ DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy",
 RUNTIME_CATS = {"cuda_runtime", "cuda_driver", "runtime"}
 OP_CATS = {"cpu_op", "operator"}
 TRACE_NAME = "frame.pt.trace.json"
+FRAME_SPAN = PREFIX + "entry.frame"
+OUTSIDE = "outside"
 
 
 class NoDeviceEvents(RuntimeError):
@@ -153,10 +160,68 @@ def _short(name: str) -> str:
     return (base.split(" ")[-1] if "::" in base else base) or name[:60]
 
 
+def idle_by_span(events: list, busy: list, lo: float, hi: float) -> dict:
+    """{span name or ``OUTSIDE``: ms}: the idle time of [lo, hi) (the
+    complement of ``busy``, sorted disjoint [start, end] µs) under the
+    innermost program span open on the frame's thread at each instant;
+    {} where the trace holds no ``raytpu::entry.frame``."""
+    spans = [e for e in events if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith(PREFIX)]
+    frame = next((e for e in spans if e["name"] == FRAME_SPAN), None)
+    if frame is None:
+        return {}
+    thread = (frame.get("pid"), frame.get("tid"))
+    # the span's edges in time order (a start before an end at one
+    # instant, outer starts first); between two edges the top of the
+    # stack holds
+    edges = []
+    for e in spans:
+        if (e.get("pid"), e.get("tid")) == thread:
+            a = float(e["ts"])
+            b = a + float(e.get("dur", 0))
+            edges += [(a, 0, -b, e["name"]), (b, 1, 0.0, e["name"])]
+    edges.sort()
+    idle, edge = [], lo
+    for a, b in list(busy) + [[hi, hi]]:
+        if a > edge:
+            idle.append((edge, min(a, hi)))
+        edge = max(edge, b)
+    out, stack, t, i = {}, [], lo, 0
+
+    def charge(t0, t1):
+        """Idle ms of [t0, t1) to the span on top of the stack."""
+        nonlocal i
+        name = stack[-1] if stack else OUTSIDE
+        while i < len(idle) and idle[i][1] <= t0:
+            i += 1
+        k = i
+        while k < len(idle) and idle[k][0] < t1:
+            ms = (min(t1, idle[k][1]) - max(t0, idle[k][0])) / 1e3
+            if ms > 0:
+                out[name] = out.get(name, 0.0) + ms
+            k += 1
+
+    for ts, end, _, name in edges:
+        if ts > t:
+            charge(t, min(ts, hi))
+            t = ts
+        if end:
+            # the innermost open span of this name closes
+            for j in range(len(stack) - 1, -1, -1):
+                if stack[j] == name:
+                    del stack[j]
+                    break
+        else:
+            stack.append(name)
+    if hi > t:
+        charge(t, hi)
+    return out
+
+
 def parse_events(events: list) -> dict:
     """The report of a Chrome trace's events: dict(total_ms, busy_ms,
     span_ms, n_events, groups {group: [ms, events]} in GROUPS' order,
-    ops {(op, group): [ms, events]})."""
+    ops {(op, group): [ms, events]}, idle {program span: idle ms})."""
     stacks = _launching_ops(events)
     groups = {g: [0.0, 0] for g in GROUPS}
     ops, spans = {}, []
@@ -185,14 +250,17 @@ def parse_events(events: list) -> dict:
     if not spans:
         raise NoDeviceEvents("the trace holds no device events (no kernel, "
                              "memcpy or memset): nothing ran on a card")
-    busy, end = 0.0, float("-inf")
+    union = []  # the device's busy intervals
     for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
     return dict(total_ms=sum(v[0] for v in groups.values()),
-                busy_ms=busy / 1e3, span_ms=(hi - lo) / 1e3,
-                n_events=len(spans), groups=groups, ops=ops)
+                busy_ms=sum(b - a for a, b in union) / 1e3,
+                span_ms=(hi - lo) / 1e3,
+                n_events=len(spans), groups=groups, ops=ops,
+                idle=idle_by_span(events, union, lo, hi))
 
 
 def parse(path: str) -> dict:
@@ -249,10 +317,14 @@ def summary_line(rep: dict, top: int = 6) -> str:
     ops = sorted(rep["ops"].items(), key=lambda kv: -kv[1][0])[:top]
     top_ops = ", ".join(f"{op.removeprefix('aten::')} ({g}) {v[0]:.2f}"
                         for (op, g), v in ops)
+    idle = ", ".join(f"{name.removeprefix(PREFIX)} {ms:.2f}"
+                     for name, ms in sorted(rep["idle"].items(),
+                                            key=lambda kv: -kv[1])[:top])
     return (f"wall {wall:.1f} ms, device busy {rep['busy_ms']:.2f} ms "
             f"({rep['busy_ms'] / wall:.1%}), {rep['n_events']} device "
             f"events, device total {rep['total_ms']:.2f} ms; groups (ms, "
-            f"events): {groups}; most device ms: {top_ops}")
+            f"events): {groups}; most device ms: {top_ops}; device idle ms "
+            f"by program span: {idle or 'no program span'}")
 
 
 def print_report(rep: dict, top: int) -> None:
@@ -271,6 +343,12 @@ def print_report(rep: dict, top: int) -> None:
     for (name, g), (ms, n) in sorted(rep["ops"].items(),
                                      key=lambda kv: -kv[1][0])[:top]:
         print(f"| {name[:90]} | {g} | {n} | {ms:8.3f} |")
+    if rep["idle"]:
+        print("\ndevice idle by program span (innermost open span):")
+        print("| span | idle ms |")
+        print("|---|---|")
+        for name, ms in sorted(rep["idle"].items(), key=lambda kv: -kv[1]):
+            print(f"| {name} | {ms:8.3f} |")
     wall = rep.get("wall_ms")
     print(f"\nwall {'not measured' if wall is None else f'{wall:.1f} ms'}, "
           f"trace span {rep['span_ms']:.1f} ms, device busy "
