@@ -955,17 +955,15 @@ def _pixel_layout(w: int, tile_h: int, packet_mode: bool, device):
     B = 32
     wp = -(-w // B) * B
     hp = -(-tile_h // B) * B
-    pxg, pyg = np.meshgrid(np.arange(wp), np.arange(hp))
 
     def order(a):
-        return a.reshape(hp // B, B, wp // B, B).transpose(0, 2, 1, 3).reshape(-1)
+        return a.reshape(hp // B, B, wp // B, B).permute(0, 2, 1, 3).reshape(-1)
 
-    px, py = order(pxg), order(pyg)
-    # each a copy from the host, which waits for the device
-    with span("raytpu::entry.sync.layout"):
-        px = torch.as_tensor(px, dtype=torch.int32, device=device)
-    with span("raytpu::entry.sync.layout"):
-        py = torch.as_tensor(py, dtype=torch.int32, device=device)
+    # built where the rays are: no host array, no copy, no sync
+    cols = torch.arange(wp, dtype=torch.int32, device=device)
+    rows = torch.arange(hp, dtype=torch.int32, device=device)
+    px = order(cols.expand(hp, wp))
+    py = order(rows[:, None].expand(hp, wp))
 
     def unpermute(img):
         img = img.reshape(hp // B, wp // B, B, B, 4)
