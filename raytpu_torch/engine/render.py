@@ -1008,20 +1008,21 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
     pyf = py.to(torch.float32)
     acc = torch.zeros((px.shape[0], 4), dtype=torch.float32, device=dev)
     for _ in range(config.samples):
-        # per-pixel jitter: + vec2(rand(), rand()) (src/shader.wgsl:413)
-        rng, jx = rngk.rand(rng)
-        rng, jy = rngk.rand(rng)
-        ro, rd = cast_rays(pxf + jx, pyf + jy, camera.world,
-                           camera.projection, w, h)
-        if config.mode == "flat":
-            color = _flat_shade(pack, closest, ro, rd)
-        else:
-            color, rng = _trace_paths(
-                pack, closest, any_hit, ro, rd, rng, config.bounces,
-                mask=in_grid, sort_bounced=sort_bounced,
-                bounce_pair=bounce_pair, mixed_fn=mixed_fn,
-            )
-        acc = acc + color
+        with span("raytpu::entry.sample"):
+            # per-pixel jitter: + vec2(rand(), rand()) (src/shader.wgsl:413)
+            rng, jx = rngk.rand(rng)
+            rng, jy = rngk.rand(rng)
+            ro, rd = cast_rays(pxf + jx, pyf + jy, camera.world,
+                               camera.projection, w, h)
+            if config.mode == "flat":
+                color = _flat_shade(pack, closest, ro, rd)
+            else:
+                color, rng = _trace_paths(
+                    pack, closest, any_hit, ro, rd, rng, config.bounces,
+                    mask=in_grid, sort_bounced=sort_bounced,
+                    bounce_pair=bounce_pair, mixed_fn=mixed_fn,
+                )
+            acc = acc + color
     img = acc / float(config.samples)
     img = torch.where(in_grid[:, None], img, 0.0)
     return unpermute(img)

@@ -1,10 +1,11 @@
 """The program's spans (``raytpu_torch/obs.py``) in a torch.profiler
-trace: a small atrium frame (path and flat, two tiles, two samples) and
-``pack_scene`` under the profiler name every layer's work with
-``raytpu::<layer>.<what>`` spans that nest on one thread; with no
-profiler running no span is made and the frame is bit-equal. On the
-card (``cuda`` marker), the ``.sync`` spans of a frame are its host syncs
-and every walk kernel is launched inside a ``raytpu::kernels.*`` span.
+trace: a small atrium frame (path and flat, two tiles, two samples), a
+4-spp frame of the cube stand-in (one tile) and ``pack_scene`` under the
+profiler name every layer's work with ``raytpu::<layer>.<what>`` spans
+that nest on one thread; with no profiler running no span is made and
+the frame is bit-equal. On the card (``cuda`` marker), the ``.sync``
+spans of a frame are its host syncs and every walk kernel is launched
+inside a ``raytpu::kernels.*`` span.
 
 Nothing here imports JAX or raytpu: on a machine with the card,
 ``python -m pytest --noconftest tests/test_torch_spans.py -m cuda``."""
@@ -25,7 +26,10 @@ import torch
 from raytpu_torch import obs
 from raytpu_torch.engine.render import render_frame
 from raytpu_torch.scene.pack import pack_camera, pack_scene
-from raytpu_torch.tools.scenes import build_atrium
+from raytpu_torch.scene.camera import load_camera_json
+from raytpu_torch.scene.gltf import load_scene
+from raytpu_torch.tools.scenes import (build_atrium, write_cube,
+                                       write_cube_camera)
 from raytpu_torch.types import RenderConfig
 
 TRIS = 5000
@@ -128,6 +132,7 @@ def test_one_frame_span_and_every_span_in_a_layer(mode):
     _, _, spans = _frames(mode)
     assert _count(spans, "raytpu::entry.frame") == 1
     assert _count(spans, "raytpu::entry.tile") == 2
+    assert _count(spans, "raytpu::entry.sample") == 2 * FRAME["samples"]
     assert _count(spans, "raytpu::entry.sync.readback") == 2
     assert _count(spans, "raytpu::entry.stitch") == 2
     assert {_layer(s[2]) for s in spans} <= set(LAYERS)
@@ -144,8 +149,10 @@ def test_spans_nest_inside_the_frame_on_one_thread(mode):
         if s[2] in ("raytpu::entry.tile", "raytpu::entry.alloc",
                     "raytpu::entry.stitch", "raytpu::entry.sync.readback"):
             assert p[2] == "raytpu::entry.frame", s
-        if s[2] in ("raytpu::engine.paths", "raytpu::engine.flat"):
+        if s[2] == "raytpu::entry.sample":
             assert p[2] == "raytpu::entry.tile", s
+        if s[2] in ("raytpu::engine.paths", "raytpu::engine.flat"):
+            assert p[2] == "raytpu::entry.sample", s
         if s[2] == "raytpu::engine.bounce":
             assert p[2] == "raytpu::engine.paths", s
 
@@ -277,6 +284,47 @@ def test_frame_profile_reads_idle_by_innermost_span():
     assert frame_profile.idle_by_span([], [], 0.0, 1.0) == {}
 
 
+CUBE = dict(width=128, height=128, seed=7, samples=4, bounces=4,
+            chunk_size=64, mode="path")  # one tile
+# a cube frame's host syncs: an attenuation copy a sample, a live-lane read
+# a bounce of each sample (some lane survives to every bounce), the readback
+CUBE_SYNCS = CUBE["samples"] * (1 + CUBE["bounces"]) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _cube(device: str):
+    """(pack, camera) of the cube stand-in, written as a GLB and a
+    camera.json and loaded as a user's files are."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write_cube(os.path.join(tmp, "cube.glb"))
+        write_cube_camera(os.path.join(tmp, "camera.json"))
+        scene = load_scene(os.path.join(tmp, "cube.glb"))
+        cam = load_camera_json(os.path.join(tmp, "camera.json"),
+                               CUBE["width"], CUBE["height"])
+    return pack_scene(scene, device), pack_camera(cam, device)
+
+
+def test_cube_frame_spans_each_sample_and_its_syncs():
+    """A 4-spp frame of one tile: an ``entry.sample`` span a sample, each
+    holding that sample's ``engine.paths``, and 21 ``.sync`` spans."""
+    pack, cam = _cube("cpu")
+    _, events = _traced(lambda: render_frame(pack, cam,
+                                             RenderConfig(**CUBE)))
+    spans = _spans(events)
+    parents = _parents(spans)
+    assert _count(spans, "raytpu::entry.tile") == 1
+    samples = [s for s in spans if s[2] == "raytpu::entry.sample"]
+    assert len(samples) == CUBE["samples"]
+    for sample in samples:
+        assert parents[sample][2] == "raytpu::entry.tile"
+        assert [s[2] for s, p in parents.items() if p == sample] == [
+            "raytpu::engine.paths"]
+    syncs = [s[2] for s in spans if ".sync" in s[2]]
+    assert len(syncs) == CUBE_SYNCS
+    assert syncs.count("raytpu::engine.sync.alive") == (
+        CUBE["samples"] * CUBE["bounces"])
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card: see the module "
@@ -343,3 +391,26 @@ def test_walk_launches_fall_inside_kernel_spans(mode):
         thread = (call.get("pid"), call.get("tid"))
         assert any(a <= ts <= b and t == thread
                    for a, b, _, t in kernel_spans), w["name"]
+
+
+@pytest.mark.cuda
+def test_cube_sync_spans_are_the_frames_host_syncs():
+    """The cube frame's ``.sync`` spans on the card: as many as
+    ``set_sync_debug_mode("warn")`` counts, and the CPU's 21."""
+    dev = _card()
+    pack, cam = _cube(dev)
+    cfg = RenderConfig(**CUBE)
+    render_frame(pack, cam, cfg)  # builds and warms everything
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            render_frame(pack, cam, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if SYNC_WARNING.search(str(w.message))]
+    _, events = _traced(lambda: render_frame(pack, cam, cfg), dev)
+    marked = [s[2] for s in _spans(events) if ".sync" in s[2]]
+    print(f"cube: {len(syncs)} syncs, {len(marked)} .sync spans")
+    assert len(marked) == len(syncs) == CUBE_SYNCS
