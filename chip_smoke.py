@@ -16,7 +16,9 @@ order, and both orders' stats; 3i the strand walk's schedule form in each
 fetch form and the block walk's deferral form, also against the default
 instances, with every counter, then swept over pool sizes, claim sizes,
 the dual and K-wide forms and the deferral form's G and skip_done on a
-ray count that fills no block's warps),
+ray count that fills no block's warps; 3j, after phase 13b, the shading
+kernel on the cube stand-in's and the 3.5M-triangle atrium's first-bounce
+waves),
 renders small frames on the card and on the CPU (phase 4, the packet
 route in path and flat mode; phase 4b, the binned route on a stream
 pack), then drives the entry points in this process, so each kernel's
@@ -251,6 +253,14 @@ KERNELS["block_defer"] = dict(
     source="raytpu_torch/kernels/csrc/strand_block.cu",
     replaces="raytpu/kernels/strand.py:55",
 )
+# the engine's shading body: no Pallas kernel stands behind it (raytpu's
+# _shade_core is jnp that XLA fuses on the TPU)
+KERNELS["shade"] = dict(
+    name="shade_core",
+    route="cuda",
+    source="raytpu_torch/kernels/csrc/shade.cu",
+    replaces="none: XLA fused raytpu/engine/render.py:473 _shade_core",
+)
 # phase 3i's schedule sets (raytpu's keywords): raytpu's factory defaults
 # (strand.py:507-546 at >= 4096 triangles), tests/test_strand.py:150-159's
 # small pool with many refills, and one set per fetch form; the ribbon sets
@@ -304,6 +314,16 @@ TRI_OPS = 53
 # queue move data)
 STEP_FULL_OPS = 24
 F32_MAX = float(np.float32(3.40282347e38))
+# the float operations of one active lane's longest shading path in
+# csrc/shade.cu (a textured glass hit): barycentrics 39, interpolation 42,
+# face-forward 9, texture 50, draws 6, glass 45, hit point 21, light 24
+SHADE_OPS = 236
+# bytes every lane of a shading call moves: RNG state and active flag in
+# (5), the nine outputs out (93); an active lane also reads its direction
+# and tri (16), its origin (12, unless one point serves every lane) and
+# its row
+SHADE_LANE_BYTES = 5 + 93
+SHADE_ACTIVE_BYTES = 12 + 4
 MAIN_ARGS = dict(width=1920, height=1080, seed=1, chunk_size=64, samples=1,
                  bounces=4)
 # rays of phase 5b's frame on which the two strand walks differ, and on
@@ -422,6 +442,7 @@ def _counters() -> dict:
     strand walks' wrappers their launches over ribbon rows."""
     from raytpu_torch.kernels.binned import binned_walk_cuda
     from raytpu_torch.kernels.packet import packet_query_cuda
+    from raytpu_torch.kernels.shade import shade_core_cuda
     from raytpu_torch.kernels.strand import (
         strand_block_query_cuda,
         strand_mixed_query_cuda,
@@ -452,7 +473,8 @@ def _counters() -> dict:
                                           "ribbon_wide_launches"),
                 packet_near=(packet_query_cuda, "ordered_launches"),
                 packet_mixed_near=(packet_query_cuda,
-                                   "mixed_ordered_launches"))
+                                   "mixed_ordered_launches"),
+                shade=(shade_core_cuda, "launches"))
 
 
 def reset_launches() -> None:
@@ -2009,6 +2031,156 @@ def write_gallery(path: str, cells: int):
     b.write(path)
 
 
+def bounce0_wave(pack, cam, cfg):
+    """The first bounce's shading arguments of a one-tile frame on the
+    card, as ``render_tile`` and ``_bounce_work`` make them: the primary
+    wave in the route's pixel layout (its origin one expanded point),
+    seeded and jittered, its closest hits (the strand pair where the route
+    has one, as RAYTPU_B0_STRAND's default), the in-grid hits active."""
+    import torch
+
+    from raytpu_torch.engine import render
+    from raytpu_torch.kernels import rng as rngk
+
+    closest, _, packet_mode, _, _, bounce_pair = render._route(pack, cfg)
+    if bounce_pair is not None:
+        closest = bounce_pair[0]
+    w, h = cfg.width, cfg.height
+    px, py, _ = render._pixel_layout(w, h, packet_mode, pack.device)
+    rng = rngk.seed_pixels(px, py, w, cfg.chunk_size, cfg.seed)
+    in_grid = render._in_chunk_grid(px, py, w, h, cfg.chunk_size)
+    rng, jx = rngk.rand(rng)
+    rng, jy = rngk.rand(rng)
+    ro, rd = render.cast_rays(px.to(torch.float32) + jx,
+                              py.to(torch.float32) + jy, cam.world,
+                              cam.projection, w, h)
+    hit = closest(ro, rd, 0.001, torch.where(in_grid, F32_MAX,
+                                             float("-inf")))
+    return pack, ro, rd, hit, rng, in_grid & hit.valid
+
+
+def shade_differs(got: dict, want: dict) -> dict:
+    """{output: lanes where the kernel's shading differs from the plain
+    version's}: rng, bounce_on and emissive_delta on every lane, the other
+    six in bits where bounce_on holds and from zero where it does not."""
+    import torch
+
+    def bits(x):
+        y = x.contiguous().view(torch.int32)
+        return y if y.dim() > 1 else y[:, None]
+
+    on = want["bounce_on"]
+    out = {k: int((got[k] != want[k]).sum()) for k in ("rng", "bounce_on")}
+    for k, x in got.items():
+        if x.dtype != torch.float32:
+            continue
+        y = want[k] if k == "emissive_delta" else torch.where(
+            on.reshape(-1, *([1] * (x.dim() - 1))), want[k], 0.0)
+        out[k] = int((bits(x) != bits(y)).any(1).sum())
+    return out
+
+
+def phase_shade_kernel(errs: list, stream=None) -> dict:
+    """Phase 3j: ``csrc/shade.cu`` against its plain version
+    (kernels/shade.py) on two first-bounce waves: the cube stand-in's at
+    512x512 (262,144 lanes; 1 material, 1 object, 1 light) and path360's,
+    the 3,555,630-triangle atrium at 640x360 (``stream``, phase 13b's pack
+    and camera, or packed here): 245,760 lanes, its 32x32 pixel layout
+    padding 360 rows to 384. Every output bit-equal where the plain version
+    defines it, one launch a call; each form's device ms a call (calls
+    queued behind a sleep kernel, ``tools/timing.py:queued_ms``: 5 x 32
+    kernel calls, 5 x 2 plain ones: more than ~4 calls of its ~220
+    launches fill the card's launch queue behind the sleep, and the host
+    then waits for the sleep), its host-paced ms (CUDA events around
+    50 and 5 calls back to back) and the kernel's bound: its bytes
+    (every lane's 98, an active lane's ray and tri, each distinct row
+    read) over 3.35 TB/s, its operations (SHADE_OPS an active lane) over
+    67 TFLOP/s. Then one whole frame of each (cube512 at 4 spp, path360)
+    with the launch counts from 0: the kernel's launches a frame. The
+    record's launches are phase 5's main path's, set by the caller.
+    It replaces no Pallas kernel: XLA fuses raytpu's _shade_core
+    (raytpu/engine/render.py:473) on the TPU."""
+    import torch
+
+    from raytpu_torch.engine.render import render_frame
+    from raytpu_torch.kernels.shade import shade_core_cuda, shade_core_torch
+    from raytpu_torch.scene.camera import load_camera_json
+    from raytpu_torch.tools.timing import queued_ms
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.tools.scenes import (build_atrium, write_cube,
+                                           write_cube_camera)
+    from raytpu_torch.types import RenderConfig
+
+    if stream is None:
+        scene = build_atrium(STREAM_TRIS)
+        stream = dict(pack=pack_scene(scene, "cuda", tables="auto"),
+                      cam=pack_camera(scene.camera, "cuda"))
+    with tempfile.TemporaryDirectory() as tmp:
+        glb, cam_json = (os.path.join(tmp, "cube.glb"),
+                         os.path.join(tmp, "camera.json"))
+        write_cube(glb)
+        write_cube_camera(cam_json)
+        cube = dict(pack=pack_scene(load_scene(glb), "cuda"),
+                    cam=pack_camera(load_camera_json(cam_json, 512, 512),
+                                    "cuda"))
+    cfgs = dict(cube512=(cube, RenderConfig(width=512, height=512, seed=3,
+                                            samples=4, bounces=4,
+                                            chunk_size=64)),
+                path360=(stream, RenderConfig(**STREAM_ARGS)))
+    waves = {label: bounce0_wave(scene["pack"], scene["cam"], cfg)
+             for label, (scene, cfg) in cfgs.items()}
+    notes, rec = [], None
+    for label, args in waves.items():
+        pack, ro, rd, hit, _, active = args
+        before = shade_core_cuda.launches
+        got = shade_core_cuda(*args)
+        want = shade_core_torch(*args)
+        torch.cuda.synchronize()
+        if shade_core_cuda.launches != before + 1:
+            fail(f"phase 3j {label}: the call launched "
+                 f"{shade_core_cuda.launches - before} kernels, want 1")
+        differ = shade_differs(got, want)
+        if any(differ.values()):
+            fail(f"phase 3j {label}: shade.cu differs from the plain version "
+                 f"on lanes {differ}")
+        errs.append(0.0)
+        ms = queued_ms(lambda: shade_core_cuda(*args), inner=32)
+        plain_ms = queued_ms(lambda: shade_core_torch(*args), inner=2)
+        host_ms = cuda_ms(lambda: shade_core_cuda(*args), 50)
+        plain_host_ms = cuda_ms(lambda: shade_core_torch(*args), 5)
+        r = ro.shape[0]
+        n_active = int(active.sum())
+        rows = int(torch.unique(hit.tri[active]).numel())
+        multi_obj, multi_mat = pack.n_objects > 1, pack.n_materials > 1
+        row_bytes = 4 * (36 + 4 * multi_obj + 4 * (multi_obj or multi_mat)
+                         + 8 * multi_mat)
+        origin_bytes = 12 if ro.stride(0) == 0 else 12 * n_active
+        b = bound(r * SHADE_LANE_BYTES + n_active * SHADE_ACTIVE_BYTES
+                  + origin_bytes + rows * row_bytes, n_active * SHADE_OPS)
+        rec = dict(b, ms=ms, plain_ms=plain_ms)
+        notes.append(
+            f"{label}: {r} lanes, {n_active} active ({rows} distinct rows, "
+            f"{int(want['bounce_on'].sum())} bounce on), bit-equal; kernel "
+            f"{ms:.4f} ms a call on the card, plain {plain_ms:.3f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: "
+            f"{b['n_bytes'] / 1e6:.1f} MB, {b['n_ops'] / 1e6:.2f} M "
+            f"operations), the kernel at {b['bound_ms'] / ms * 100:.1f}% of "
+            f"it; calls back to back (host-paced): kernel {host_ms:.4f} ms, "
+            f"plain {plain_host_ms:.3f} ms")
+    frames = []
+    for label, (scene, cfg) in cfgs.items():
+        reset_launches()
+        render_frame(scene["pack"], scene["cam"], cfg)
+        torch.cuda.synchronize()
+        frames.append(f"{label} {read_launches()['shade']}")
+    notes.append("kernel launches a frame: " + ", ".join(frames))
+    print("phase 3j shade_core (csrc/shade.cu; replaces no Pallas kernel: "
+          "XLA fused raytpu/engine/render.py:473 _shade_core): "
+          + "; ".join(notes))
+    return rec  # the path360 wave's
+
+
 def phase_card_vs_cpu(tmp: str):
     """A <= 256-slot scene (the packet route) rendered on the card and on
     the CPU, in path and in flat mode: the PNG pixels must agree within
@@ -2268,12 +2440,42 @@ def run_cli(argv) -> tuple:
     return secs, counts
 
 
+def shade_calls_held(draw) -> list:
+    """``draw()`` (a frame on the card) with every ``_shade_core`` call
+    also run through the plain version (kernels/shade.py) on the same live
+    arguments, the fused wave mode's tier slices of its path state as
+    they are: (lanes, ``shade_differs``) a call."""
+    import torch
+
+    from raytpu_torch.engine import render
+    from raytpu_torch.kernels.shade import shade_core_torch
+
+    real, calls = render._shade_core, []
+
+    def held(pack, ro, rd, hit, rng, active):
+        got = real(pack, ro, rd, hit, rng, active)
+        want = shade_core_torch(pack, ro, rd, hit, rng, active)
+        calls.append((ro.shape[0], shade_differs(got, want)))
+        return got
+
+    render._shade_core = held
+    try:
+        draw()
+        torch.cuda.synchronize()
+    finally:
+        render._shade_core = real
+    return calls
+
+
 def phase_main(tmp: str, errs: list) -> dict:
     """Phase 5: the strand route, path mode on the 259k-triangle gallery
     at 1920x1080: two frames in the default schedule (fused wave mode at
     this width), its work tier per bounce, two frames of the same pack
-    with RAYTPU_WAVE_MODE=query (0 PNG pixels may differ), the primary
-    wave through strand_walk and its plain version, then the CLI run."""
+    with RAYTPU_WAVE_MODE=query (0 PNG pixels may differ), a fused frame
+    whose every shading call (the bounce-0 wave and the tier slices) is
+    held bit-equal to the plain version, the primary wave through
+    strand_walk and its plain version, then the CLI run (its kernel
+    launches from 0)."""
     import torch
 
     from raytpu_torch.engine.render import WAVE_STATS, render_frame
@@ -2323,6 +2525,18 @@ def phase_main(tmp: str, errs: list) -> dict:
           "f32 pixels)")
     if waves["mode"] != "fused" or waves_q["mode"] != "query" or n_diff:
         fail("phase 5: the fused frame is not the query frame")
+    calls = shade_calls_held(lambda: render_frame(pack, cam, cfg))
+    lanes = [n for n, _ in calls]
+    print(f"phase 5 shade_core, fused frame: {len(calls)} calls over "
+          f"{lanes} lanes, each against the plain version: differing lanes "
+          + "; ".join(f"{n}: {d}" for n, d in calls))
+    if (not calls or lanes[0] != waves["widths"][0]
+            or min(lanes) >= lanes[0]):
+        fail("phase 5: the fused frame made no bounce-0 and tier shading "
+             f"calls ({lanes})")
+    if any(any(d.values()) for _, d in calls):
+        fail("phase 5: shade.cu differs from the plain version on the "
+             "fused frame's calls")
     print("phase 5 profile, fused: "
           + profile_frame(lambda: render_frame(pack, cam, cfg)))
     with env(RAYTPU_WAVE_MODE="query"):
@@ -2364,14 +2578,16 @@ def phase_main(tmp: str, errs: list) -> dict:
     print(f"phase 5 cli: raytpu_torch.cli.main({' '.join(argv)}) -> "
           f"rc 0 in {cli_s:.2f} s, {img.shape[1]}x{img.shape[0]} PNG, "
           f"{lit:.3f} non-black, {counts['strand']} strand_walk / "
-          f"{counts['packet']} packet_walk launches")
+          f"{counts['packet']} packet_walk / {counts['shade']} shade_core "
+          "launches")
     if img.shape != (h, w, 3) or lit <= 0.10:
         fail("main-path PNG is wrong or mostly black")
     if counts["strand"] == 0 or counts["packet"] or counts["block"]:
         fail("the path waves of a >256-slot scene did not all take strand_walk")
     if pack.bvh.ribbon_rows is None:
         fail("phase 5: the pack has no ribbon rows")
-    return dict(launches=counts["strand"], ms=ms, plain_ms=plain_ms, **bnd,
+    return dict(launches=counts["strand"], shade_launches=counts["shade"],
+                ms=ms, plain_ms=plain_ms, **bnd,
                 glb=glb, cam_json=cam_json, png=png, pack=pack, cam=cam,
                 frame=frame, frame_s=frame_s, ro=ro, rd=rd)
 
@@ -3843,18 +4059,19 @@ def warm_s(render, reps: int = 2) -> list:
 
 
 def launched(label: str, counts: dict, want: tuple) -> str:
-    """Fail unless every kernel in ``want`` launched in the run and no
-    other did; the counts as a note."""
-    used = {k for k, n in counts.items() if n}
+    """Fail unless every walk in ``want`` launched in the run and no other
+    walk did (the shading kernel, which every path-mode frame on the card
+    launches whatever its route, is not a walk); the counts as a note."""
+    used = {k for k, n in counts.items() if n and k != "shade"}
     if used != set(want):
         fail(f"phase {label}: launched {sorted(used)}, want {sorted(want)}")
     return (", ".join(f"{counts[k]} {KERNELS[k]['name']}" for k in want)
-            or "no kernel launches")
+            or "no walk launches")
 
 
 def phase_bvh_route(tmp: str) -> tuple:
-    """Phase 9a: the threaded-BVH route (plain torch ops, no kernel) on the
-    card. One 128x128 primary wave of a 2.6k-triangle gallery (> 2048
+    """Phase 9a: the threaded-BVH route (plain torch ops, no walk kernel)
+    on the card. One 128x128 primary wave of a 2.6k-triangle gallery (> 2048
     slots) through ``intersect_bvh`` on the card and on the CPU: tri and t
     bits equal, closest and any-hit. Then a 64x64 frame with
     ``intersector="bvh"``, card vs CPU within tests/imgdiff.py's bar, and
@@ -4146,7 +4363,7 @@ def phase_pack_options(tmp: str, glb: str, bvh_frame) -> None:
     ``pack_scene(scene, "cuda")`` at 256x256. (3) ``auto`` on a
     ``treelets="never"`` pack with the pack budget and the packet budget
     shrunk to 64 KiB: no stream, no strand tree, and raytpu's TPU branch
-    ends at ``bvh`` (above 2048 slots): 9a's frame, no kernel launched.
+    ends at ``bvh`` (above 2048 slots): 9a's frame, no walk launched.
     (4) The CLI at 9d's settings in a child process under
     ``RAYTPU_NO_NATIVE=1``: the pure-Python builder's pack on the card,
     its PNG within tests/imgdiff.py's bar of 9d's."""
@@ -4500,7 +4717,7 @@ def phase_atrium(errs: dict) -> dict:
     return dict(pack=pack, cam=cam, scene=scene, frame=rec["frame"])
 
 
-def phase_atrium_stream(errs: dict) -> None:
+def phase_atrium_stream(errs: dict) -> dict:
     """Phase 13b: BASELINE config 6 as bench.py runs it (bench.py:412-440):
     ``build_atrium(2_900_000)`` packed ``tables="auto"``, which must stream
     (bench.py's check: no BVH8 rows, a strand tree); 640x360, 1 spp, 4
@@ -4563,6 +4780,7 @@ def phase_atrium_stream(errs: dict) -> None:
           f"({frac:.4f}), SSIM {s:.5f}")
     if frac > 0.02 or s < 0.99:
         fail("phase 13b: the binned arm's PNG is off auto's past the bar")
+    return dict(pack=pack, cam=cam)
 
 
 def phase_captured_waves(atrium: dict) -> None:
@@ -4883,7 +5101,10 @@ def main() -> int:
         with timed(secs, "13a"):
             atrium = phase_atrium(errs)
         with timed(secs, "13b"):
-            phase_atrium_stream(errs)
+            stream = phase_atrium_stream(errs)
+        with timed(secs, "3j"):
+            recs["shade"] = phase_shade_kernel(errs["shade"], stream)
+        recs["shade"]["launches"] = recs["strand"]["shade_launches"]
         with timed(secs, "13c"):
             phase_captured_waves(atrium)
         sim = start_strand_sim()

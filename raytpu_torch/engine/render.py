@@ -29,7 +29,8 @@ frame bit-identical. Every kernel runs
 as CUDA on a CUDA device and as its plain version on the CPU. The
 ``brute`` sweep and the threaded-BVH walk (``bvh``) are plain torch ops on
 either device and run only when asked for. ``_shade_core`` shades the
-hits.
+hits: one ``kernels/csrc/shade.cu`` launch a call on the card, its plain
+version (kernels/shade.py) on the CPU.
 
 Reference quirks reproduced on purpose (as in raytpu):
 
@@ -55,35 +56,19 @@ import numpy as np
 import torch
 
 from ..kernels import rng as rngk
-from ..kernels.intersect import F32_MAX, Hit, barycentrics, make_intersectors
+from ..kernels.intersect import F32_MAX, Hit, make_intersectors
 from ..kernels.binned import make_binned_intersectors, make_binned_query
 from ..kernels import packet as packetk
 from ..kernels.packet import make_packet_intersectors
+from ..kernels.shade import (_normalize, _shade_inputs, shade_core_cuda,
+                             shade_core_torch)
 from ..kernels.strand import make_strand_intersectors, make_strand_mixed_query
 from ..kernels.texture import sample_bilinear
 from ..obs import span, spanned
 from ..scene.pack import _sort_min_tris
 from ..types import CameraPack, RenderConfig, ScenePack
 
-# f32 values held as Python floats (exactly representable, so every torch
-# op sees the same f32 constant raytpu uses)
-PI = float(np.float32(3.1415926))  # src/shader.wgsl:3
-INV_PI = float(np.float32(0.3183098))  # src/shader.wgsl:4
-F32_EPSILON = float(np.float32(1.1920929e-7))  # src/shader.wgsl:2
 NEG_INF = float("-inf")
-
-
-def _dot3(a, b):
-    """Explicitly-associated 3-component dot: (ax*bx + ay*by) + az*bz."""
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
-
-
-def _norm3(v):
-    return torch.sqrt(_dot3(v, v))
-
-
-def _normalize(v):
-    return v / _norm3(v)[..., None]
 
 
 def cast_rays(px_f, py_f, world, projection, width: int, height: int):
@@ -113,65 +98,6 @@ def cast_rays(px_f, py_f, world, projection, width: int, height: int):
     d = _normalize(d)
     o = world[:3, 3].expand(d.shape)
     return o, d
-
-
-def _bits_i32(x):
-    return x.contiguous().view(torch.int32)
-
-
-def _shade_inputs(pack: ScenePack, ro, rd, hit):
-    """Decode the winning triangle from ONE tri_row gather: barycentric
-    recompute, interpolated object-space pos / normal / uv, the material
-    parameters, and the object's linear transform."""
-    tri = torch.clamp(hit.tri, min=0).long()
-    row = pack.tri_row[tri]  # [R,64]
-    u, v = barycentrics(ro, rd, row)
-    w0 = (1.0 - u - v)[:, None]
-    wu = u[:, None]
-    wv = v[:, None]
-    pos = row[:, 9:12] * w0 + row[:, 12:15] * wu + row[:, 15:18] * wv
-    normal = row[:, 18:21] * w0 + row[:, 21:24] * wu + row[:, 24:27] * wv
-    uv = row[:, 27:29] * w0 + row[:, 29:31] * wu + row[:, 31:33] * wv
-    if pack.n_materials == 1:
-        mrow = pack.mat_table[0]
-        r = row.shape[0]
-        mat = dict(
-            metallic=mrow[0].expand(r),
-            emission=mrow[2].expand(r),
-            ior=mrow[3].expand(r),
-            tex_id=_bits_i32(mrow[4:5]).expand(r),
-            has_tex=(_bits_i32(mrow[5:6]) == 1).expand(r),
-            color=mrow[8:12].expand(r, 4),
-        )
-    else:
-        mat = dict(
-            metallic=row[:, 42],
-            emission=row[:, 43],
-            ior=row[:, 44],
-            tex_id=_bits_i32(row[:, 45]),
-            has_tex=_bits_i32(row[:, 46]) == 1,
-            color=row[:, 47:51],
-        )
-    return pos, normal, uv, mat, row
-
-
-def _apply_linear(pack, row, pos):
-    """p = (object_to_world * vec4(pos, 0)).xyz — only the 3x3 part
-    (src/shader.wgsl:345), per triangle in tri_row cols 33:42 (or the one
-    object's row). Explicit mat-vec keeps f32 association fixed."""
-    if pack.n_objects == 1:
-        lin = [pack.object_linear[0, i] for i in range(9)]
-    else:
-        lin = [row[:, 33 + i] for i in range(9)]
-    return torch.stack(
-        [
-            lin[3 * i + 0] * pos[:, 0]
-            + lin[3 * i + 1] * pos[:, 1]
-            + lin[3 * i + 2] * pos[:, 2]
-            for i in range(3)
-        ],
-        dim=-1,
-    )
 
 
 def _in_chunk_grid(px, py, w: int, h: int, cs: int):
@@ -352,104 +278,14 @@ def _mixed_bounce_query(mixed_fn, pack, ro, rd, alive, s_ro, s_rd, s_dist,
 @spanned("raytpu::engine.shade")
 def _shade_core(pack: ScenePack, ro, rd, hit, rng, active):
     """The megakernel's per-bounce shading body (src/shader.wgsl:339-374
-    up to the shadow query): face-forward + hit point + base colour +
-    material dispatch + masked RNG draws + NEE light pick. Pure per-lane
-    math (lanes outside ``active`` draw no RNG and contribute nothing).
-    Returns a dict: emissive_delta [R,4], att_mult [R,4], scattered/p
-    [R,3], bounce_on, ldir/dist/contrib (the shadow ray), and the rng."""
-    r = ro.shape[0]
-    pos, normal, uv, mat, row = _shade_inputs(pack, ro, rd, hit)
-    metallic, emission, ior = mat["metallic"], mat["emission"], mat["ior"]
-    tex_id, has_tex, m_color = mat["tex_id"], mat["has_tex"], mat["color"]
-
-    # face-forward normal (src/shader.wgsl:339-343)
-    front = _dot3(rd, normal) < 0.0
-    normal = torch.where(front[:, None], normal, -normal)
-
-    # hit point with the w=0 translation-dropping quirk (:345)
-    p = _apply_linear(pack, row, pos) + normal * F32_EPSILON
-
-    # base colour: bilinear texture or factor (:349-353)
-    if pack.has_textures:
-        tex_rgba = sample_bilinear(pack.tex_atlas, pack.tex_size, tex_id, uv)
-        in_color = torch.where(has_tex[:, None], tex_rgba, m_color)
-    else:
-        in_color = m_color
-
-    # --- material dispatch (:355-368) ---
-    is_emissive = active & (emission > 0.0)
-    is_metal = active & ~is_emissive & (metallic > 0.0)
-    is_mixed = active & ~is_emissive & ~(metallic > 0.0)
-
-    emissive_delta = torch.where(
-        is_emissive[:, None], m_color * emission[:, None], 0.0
-    )
-
-    # metal: perfect mirror, roughness unused (:228-239)
-    d_dot_n = _dot3(rd, normal)[:, None]
-    scat_metal = rd - 2.0 * d_dot_n * normal
-    att_metal = in_color  # out_color / pdf with pdf = 1
-
-    # 50/50 diffuse-glass mix (:362-367); one rand for the choice
-    rng, r_mix = rngk.rand_masked(rng, is_mixed)
-    is_diffuse = is_mixed & (r_mix > 0.5)
-
-    # diffuse: cosine hemisphere in the quirky global-z frame (:212-226)
-    rng, u1 = rngk.rand_masked(rng, is_diffuse)
-    rng, u2 = rngk.rand_masked(rng, is_diffuse)
-    r_disk = torch.sqrt(u1)
-    theta = 2.0 * PI * u2
-    dx = r_disk * torch.cos(theta)
-    dy = r_disk * torch.sin(theta)
-    dz = torch.sqrt(1.0 - dx * dx - dy * dy)
-    dz = torch.where(rd[:, 2] < 0.0, -dz, dz)
-    scat_diffuse = torch.stack([dx, dy, dz], dim=-1)
-    pdf_diffuse = torch.abs(rd[:, 2]) * INV_PI
-    att_diffuse = (in_color / PI) / pdf_diffuse[:, None]
-
-    # glass: the reference's refraction formula verbatim (:241-257),
-    # including `-(1.0 - |out_perp| * normal)` broadcasting 1.0 - vec3
-    uv_dir = _normalize(rd)
-    cos_theta = torch.clamp(-_dot3(uv_dir, normal), max=1.0)
-    out_perp = ior[:, None] * (uv_dir + cos_theta[:, None] * normal)
-    perp_len = torch.sqrt(torch.abs(_dot3(out_perp, out_perp)))
-    out_parallel = -(1.0 - perp_len[:, None] * normal)
-    scat_glass = out_perp + out_parallel
-    att_glass = in_color
-
-    att_mult = torch.where(
-        is_metal[:, None],
-        att_metal,
-        torch.where(is_diffuse[:, None], att_diffuse * 0.5, att_glass * 0.5),
-    )
-    scattered = torch.where(
-        is_metal[:, None],
-        scat_metal,
-        torch.where(is_diffuse[:, None], scat_diffuse, scat_glass),
-    )
-    bounce_on = is_metal | is_mixed
-
-    # --- next-event estimation setup (:370-374) ---
-    rng, r_light = rngk.rand_masked(rng, bounce_on)
-    if pack.n_lights == 1:
-        lrow = pack.light_table[0].expand(r, 8)
-    else:
-        li = torch.clamp(
-            (r_light * pack.n_lights_f).to(torch.int32), 0, pack.n_lights - 1
-        )
-        lrow = pack.light_table[li.long()]
-    lpos = lrow[:, 0:3]
-    lcolor = lrow[:, 4:8]
-    to_light = lpos - p
-    dist = _norm3(to_light)
-    ldir = to_light / dist[:, None]
-    # radiance += (color / sqrt(dist)) / (1/N) — unattenuated (:372-374)
-    contrib = (lcolor / torch.sqrt(dist)[:, None]) / (1.0 / pack.n_lights_f)
-    return dict(
-        rng=rng, p=p, scattered=scattered, att_mult=att_mult,
-        bounce_on=bounce_on, emissive_delta=emissive_delta,
-        ldir=ldir, dist=dist, contrib=contrib,
-    )
+    up to the shadow query), kernels/shade.py's: one ``csrc/shade.cu``
+    launch on CUDA tensors, the plain torch version on the CPU. Returns a
+    dict: emissive_delta [R,4], att_mult [R,4], scattered/p [R,3],
+    bounce_on, ldir/dist/contrib (the shadow ray), and the rng; callers
+    read all but rng, bounce_on and emissive_delta under bounce_on."""
+    if ro.device.type == "cuda":
+        return shade_core_cuda(pack, ro, rd, hit, rng, active)
+    return shade_core_torch(pack, ro, rd, hit, rng, active)
 
 
 def _compact_tiers(r: int):
