@@ -72,12 +72,10 @@ launch count can be read:
   ``treelets="never"`` pack over a shrunk budget taking raytpu's TPU
   route (``bvh``), and the CLI in a child process under
   ``RAYTPU_NO_NATIVE=1`` (the pure-Python BVH builder);
-* phase 10, raytpu's remaining engine arms on phase 5's frame: (a)
+* phase 10a, raytpu's remaining engine arm on phase 5's frame:
   ``bounce_backend="mixed"`` (deferred NEE through the strand walk's
   mixed form), whose PNG must equal phase 7b's and whose mixed queries
-  are sampled against the brute sweep; (b) ``RAYTPU_WAVE_MODE=resort``
-  and ``compact``; (c) ``RAYTPU_SORT_MODE=gather``, ``seg`` and
-  ``RAYTPU_COMPACT=1``, each PNG equal to phase 5's;
+  are sampled against the brute sweep;
 * phase 11, raytpu's kernel options: (a) phase 5's frame and 10a's with
   ``RAYTPU_RIBBON=1`` and ``=4`` (the strand walks over the pack's ribbon
   rows, one record a step and with the K-wide fetch), each PNG equal to
@@ -113,7 +111,7 @@ launch count can be read:
 * phase 14, raytpu's measurement drivers (``raytpu_torch/tools/``): (a)
   ``headline_ab`` in a child process an arm (the atrium at 1920x1080,
   best of 3; the multi-mesh, pbr+nee and cube stand-in configs; the atrium
-  with ``RAYTPU_WAVE_MODE=query``), the atrium PNGs equal to 13a's; (b)
+  in the query schedule), the atrium PNGs equal to 13a's; (b)
   ``frame_profile`` on 13a's frame, its groups summing to the device
   total and its strand kernel group holding the frame's 8 strand_walk
   launches; (c) ``sort_bench`` and ``gather_bench`` with ``--check``; (d)
@@ -499,6 +497,10 @@ def rounds_note() -> str:
     per = q["rounds"] / q["queries"] if q["queries"] else 0.0
     return (f"{q['queries']} binned queries, {per:.2f} rounds per query "
             f"(max {q['max_rounds']})")
+
+
+# the query schedule on every wave: fused mode starts at a wider wave
+QUERY_SCHEDULE = dict(RAYTPU_LARGE_WAVE=str(1 << 30))
 
 
 @contextlib.contextmanager
@@ -2040,23 +2042,13 @@ def bounce0_wave(pack, cam, cfg):
     import torch
 
     from raytpu_torch.engine import render
-    from raytpu_torch.kernels import rng as rngk
 
-    closest, _, packet_mode, _, _, bounce_pair = render._route(pack, cfg)
-    if bounce_pair is not None:
-        closest = bounce_pair[0]
-    w, h = cfg.width, cfg.height
-    px, py, _ = render._pixel_layout(w, h, packet_mode, pack.device)
-    rng = rngk.seed_pixels(px, py, w, cfg.chunk_size, cfg.seed)
-    in_grid = render._in_chunk_grid(px, py, w, h, cfg.chunk_size)
-    rng, jx = rngk.rand(rng)
-    rng, jy = rngk.rand(rng)
-    ro, rd = render.cast_rays(px.to(torch.float32) + jx,
-                              py.to(torch.float32) + jy, cam.world,
-                              cam.projection, w, h)
-    hit = closest(ro, rd, 0.001, torch.where(in_grid, F32_MAX,
+    tile = render._tile(pack, 0, cfg, cfg.height, cfg.seed)
+    closest = (tile.route.bounce_pair or tile.route)[0]
+    ro, rd, rng = render._camera_rays(tile, cam, cfg, tile.rng)
+    hit = closest(ro, rd, 0.001, torch.where(tile.in_grid, F32_MAX,
                                              float("-inf")))
-    return pack, ro, rd, hit, rng, in_grid & hit.valid
+    return pack, ro, rd, hit, rng, tile.in_grid & hit.valid
 
 
 def shade_differs(got: dict, want: dict) -> dict:
@@ -2471,7 +2463,7 @@ def phase_main(tmp: str, errs: list) -> dict:
     """Phase 5: the strand route, path mode on the 259k-triangle gallery
     at 1920x1080: two frames in the default schedule (fused wave mode at
     this width), its work tier per bounce, two frames of the same pack
-    with RAYTPU_WAVE_MODE=query (0 PNG pixels may differ), a fused frame
+    in the query schedule (0 PNG pixels may differ), a fused frame
     whose every shading call (the bounce-0 wave and the tier slices) is
     held bit-equal to the plain version, the primary wave through
     strand_walk and its plain version, then the CLI run (its kernel
@@ -2514,7 +2506,7 @@ def phase_main(tmp: str, errs: list) -> dict:
         return out, secs, dict(WAVE_STATS)
 
     frame, frame_s, waves = frames()
-    with env(RAYTPU_WAVE_MODE="query"):
+    with env(**QUERY_SCHEDULE):
         frame_q, query_s, waves_q = frames()
     n_diff = png_pixels_differ(frame, frame_q)
     print(f"phase 5 wave modes: default '{waves['mode']}', work width per "
@@ -2539,7 +2531,7 @@ def phase_main(tmp: str, errs: list) -> dict:
              "fused frame's calls")
     print("phase 5 profile, fused: "
           + profile_frame(lambda: render_frame(pack, cam, cfg)))
-    with env(RAYTPU_WAVE_MODE="query"):
+    with env(**QUERY_SCHEDULE):
         print("phase 5 profile, query: "
               + profile_frame(lambda: render_frame(pack, cam, cfg)))
 
@@ -3395,44 +3387,6 @@ def phase_mixed_route(main_rec: dict, deferred_rec: dict,
     recs["strand"].update(launches=counts["strand_mixed"], frame=frame,
                           query=(ro, rd, tmax, smask, tmin, shadow_tmin))
     return recs["strand"], recs["packet"]
-
-
-def phase_sorted_arms(main_rec: dict) -> None:
-    """Phases 10b and 10c: phase 5's frame with RAYTPU_WAVE_MODE=resort and
-    compact (10b), and with RAYTPU_SORT_MODE=gather, seg (RAYTPU_SORT_SEG at
-    its default, 131,072) and RAYTPU_COMPACT=1 (10c), each knob set just
-    before and restored just after: each PNG must equal phase 5's, and
-    only strand_walk may launch."""
-    import torch
-
-    from raytpu_torch.engine.render import WAVE_STATS, render_frame
-    from raytpu_torch.types import RenderConfig
-
-    pack, cam = main_rec["pack"], main_rec["cam"]
-    cfg = RenderConfig(**MAIN_ARGS)
-    arms = [("10b", dict(RAYTPU_WAVE_MODE="resort")),
-            ("10b", dict(RAYTPU_WAVE_MODE="compact")),
-            ("10c", dict(RAYTPU_SORT_MODE="gather")),
-            ("10c", dict(RAYTPU_SORT_MODE="seg")),
-            ("10c", dict(RAYTPU_COMPACT="1"))]
-    for label, knobs in arms:
-        with env(**knobs):
-            reset_launches()
-            secs = warm_s(lambda: render_frame(pack, cam, cfg))
-            counts = read_launches()
-            frame = render_frame(pack, cam, cfg)
-            torch.cuda.synchronize()
-            waves = dict(WAVE_STATS)
-        n_diff = png_pixels_differ(frame, main_rec["frame"])
-        n_f32 = int(np.any(frame != main_rec["frame"], -1).sum())
-        name = " ".join(f"{k}={v}" for k, v in knobs.items())
-        print(f"phase {label} {name}: mode '{waves['mode']}', work width per "
-              f"bounce {waves['widths']}; frames {secs[0]:.3f} / "
-              f"{secs[1]:.3f} s (phase 5 {main_rec['frame_s'][1]:.3f} s); "
-              f"vs phase 5's frame: {n_diff} PNG pixels differ ({n_f32} f32 "
-              "pixels); " + launched(label, counts, ("strand",)))
-        if n_diff:
-            fail(f"phase {label} {name}: the PNG is not phase 5's")
 
 
 def in_turns(calls: dict, reps: int = 5) -> dict:
@@ -4679,8 +4633,7 @@ def phase_atrium(errs: dict) -> dict:
     strand_primary("13a", pack, cam, cfg, errs["strand"])
     strand_bounce_lost_hits("13a", pack, calls)
     notes = []
-    for arm, kw, want in (("query", dict(RAYTPU_WAVE_MODE="query"),
-                           ("strand",)),
+    for arm, kw, want in (("query", QUERY_SCHEDULE, ("strand",)),
                           ("block walk", dict(RAYTPU_STRAND_PERSISTENT="0"),
                            ("block",))):
         with env(**kw):
@@ -4838,7 +4791,7 @@ def phase_captured_waves(atrium: dict) -> None:
 
 # phase 14: raytpu's measurement drivers (raytpu_torch/tools/)
 HEADLINE_ARMS = (("atrium", {}), ("multi", {}), ("pbr", {}), ("cube", {}),
-                 ("atrium", dict(RAYTPU_WAVE_MODE="query")))
+                 ("atrium", QUERY_SCHEDULE))
 SORT_SAMPLE = 16384  # 14d: rays of each set held to the plain packet walk
 
 
@@ -4884,7 +4837,7 @@ def phase_headline(atrium: dict, tmp: str) -> None:
     """Phase 14a: ``tools/headline_ab.py``, one child process per arm as
     raytpu runs its tool: the atrium (bench.py config 5 at 1920x1080, 4
     bounces, best of 3), the multi-mesh, pbr+nee and cube stand-in configs,
-    and the atrium with ``RAYTPU_WAVE_MODE=query``; each with Mrays/s from
+    and the atrium in the query schedule; each with Mrays/s from
     count_rays. The atrium arms' PNGs must equal 13a's frame's."""
     from raytpu_torch.io.png import quantize_rgba32f
 
@@ -5085,8 +5038,6 @@ def main() -> int:
             recs["strand_mixed"], recs["packet_mixed"] = phase_mixed_route(
                 recs["strand"], deferred, errs)
         recs["packet_mixed"]["launches"] = packet_mixed_launches
-        with timed(secs, "10b-10c"):
-            phase_sorted_arms(recs["strand"])
         with timed(secs, "11a"):
             recs.update(phase_ribbon_route(recs["strand"],
                                            recs["strand_mixed"], errs))

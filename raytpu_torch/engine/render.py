@@ -1,11 +1,11 @@
 """The renderer: ray generation, bounce loop, sample accumulation, tiling.
 
 Torch counterpart of ``raytpu.engine.render``: path mode's *query*
-schedule and, on waves of 2^20 lanes or more, its *fused* wave mode
-(``_wave_mode``, ``_fused_bounces``). One wavefront of rays per
-framebuffer tile: every per-bounce
-step is a vectorised op over the tile, with boolean masks standing in for
-the reference megakernel's divergent branches (src/shader.wgsl:299-419),
+schedule and, on sorted waves of RAYTPU_LARGE_WAVE (2^20) lanes or
+more, its *fused* wave mode (``_wave_mode``, ``_fused_bounces``). One
+wavefront of rays per framebuffer tile: every per-bounce step is a
+vectorised op over the tile, with boolean masks standing in for the
+reference megakernel's divergent branches (src/shader.wgsl:299-419),
 and the data-dependent material/RNG control flow replayed exactly
 (masked RNG advances, kernels/rng.py), so images match raytpu at matched
 seed rather than merely statistically.
@@ -21,12 +21,13 @@ treelet route when it has no strand tree. The binned route, and
 ``bounce_backend="binned"``, defer each bounce's shadow rays into the next
 bounce's mixed binned query (``_mixed_bounce_query``);
 ``bounce_backend="mixed"`` does the same through the strand walk's mixed
-form. raytpu's wave modes (``query``, ``fused``, ``resort``, ``compact``)
-and sort knobs (RAYTPU_SORT_MODE, RAYTPU_SORT_SEG, RAYTPU_COMPACT,
-RAYTPU_MORTON_BITS, RAYTPU_B0_STRAND, RAYTPU_B0S_NOSORT,
-RAYTPU_SORT_MIN_TRIS) are read where raytpu reads them; each leaves the
-frame bit-identical. Every kernel runs
-as CUDA on a CUDA device and as its plain version on the CPU. The
+form. raytpu's sort knobs RAYTPU_MORTON_BITS, RAYTPU_B0_STRAND,
+RAYTPU_B0S_NOSORT and RAYTPU_SORT_MIN_TRIS are read where raytpu reads
+them; each leaves the frame bit-identical. raytpu's other wave modes
+(resort, compact) and sort plumbing (gather, seg, the live-prefix cut)
+are not ported: they change raytpu's schedule, never its frame (README).
+Every kernel runs as CUDA on a CUDA device and as its plain version on
+the CPU. The
 ``brute`` sweep and the threaded-BVH walk (``bvh``) are plain torch ops on
 either device and run only when asked for. ``_shade_core`` shades the
 hits: one ``kernels/csrc/shade.cu`` launch a call on the card, its plain
@@ -51,6 +52,7 @@ Reference quirks reproduced on purpose (as in raytpu):
 from __future__ import annotations
 
 import os
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -157,20 +159,6 @@ def _ray_sort_key(pack: ScenePack, ro, rd, alive):
     return torch.where(alive, key, _dead_key())
 
 
-def _compact_prefix(r: int, alive) -> int:
-    """RAYTPU_COMPACT's live-prefix width for a sorted query of ``r`` rays
-    (raytpu's payload mode): the smallest of the tiers r/4 and r/2, rounded
-    up to 128, that holds every live lane, else r. Off (r) unless
-    RAYTPU_COMPACT is set to anything but "0", and below 512 rays."""
-    if os.environ.get("RAYTPU_COMPACT", "0") == "0" or r < 512:
-        return r
-    tiers = [p for p in (-(-(r // 4) // 128) * 128, -(-(r // 2) // 128) * 128)
-             if 0 < p < r]
-    with span("raytpu::engine.sync.compact"):
-        n = int(alive.sum())
-    return next((p for p in tiers if n <= p), r)
-
-
 def _unsort(out, idx, n: int, returns_hit):
     """The results ``out`` of the rays at positions ``idx`` scattered back
     among ``n`` lanes; a lane not in ``idx`` gets a dead lane's result
@@ -189,63 +177,21 @@ def _unsort(out, idx, n: int, returns_hit):
 
 @spanned("raytpu::engine.sort")
 def _sorted_query(fn, pack, ro, rd, tmin, tmax, alive, returns_hit):
-    """Run an intersector on coherence-sorted rays and unsort the result.
-    Per-ray results never depend on the order (ties break on the tie keys)
-    and every mode restores the exact original positions, so the modes
-    are bit-identical. RAYTPU_SORT_MODE picks the permutation plumbing, as
-    in raytpu:
-
-    * ``payload`` (the default; ``payload_split``, raytpu's two-sort split
-      of the same permutation, is the same here): a stable sort of the key,
-      the rays gathered in, a closest query's bound taken from the sorted
-      key (dead lanes carry -inf, live ones F32_MAX), one scatter out. With
-      RAYTPU_COMPACT the query runs on the live prefix only
-      (``_compact_prefix``); the dead tail gets a dead lane's result;
-    * ``gather``: the key alone argsorted, every column (the bound too)
-      moved with gathers, and the inverse permutation built with one
-      scatter and gathered from;
-    * ``seg``: segments of RAYTPU_SORT_SEG rays (131,072) sorted
-      independently, the last padded with dead lanes (the dead key, ro 0,
-      rd 1, bound -inf), the padded wave queried and cut back."""
+    """Run an intersector on coherence-sorted rays and unsort the result
+    (raytpu's ``payload`` mode): a stable sort of the key, the rays
+    gathered in, a closest query's bound taken from the sorted key (dead
+    lanes carry -inf, live ones F32_MAX), one scatter out. Per-ray results
+    never depend on the order (ties break on the tie keys), so the frame is
+    the unsorted query's."""
     r = ro.shape[0]
-    dev = ro.device
-    key = _ray_sort_key(pack, ro, rd, alive)
-    tm = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
-    mode = os.environ.get("RAYTPU_SORT_MODE", "payload")
-    if mode == "seg":
-        seg = int(os.environ.get("RAYTPU_SORT_SEG", "131072"))
-        n_seg = max(1, -(-r // seg))
-        pad = n_seg * seg - r
-        key = torch.cat([key, key.new_full((pad,), _dead_key())])
-        perm = torch.sort(key.reshape(n_seg, seg), dim=1, stable=True)[1]
-        perm = (perm + torch.arange(n_seg, device=dev)[:, None] * seg
-                ).reshape(-1)
-        ro = torch.cat([ro, ro.new_zeros((pad, 3))])
-        rd = torch.cat([rd, rd.new_ones((pad, 3))])
-        tm = torch.cat([tm, tm.new_full((pad,), NEG_INF)])
-        out = _unsort(fn(ro[perm], rd[perm], tmin, tm[perm]), perm, r + pad,
-                      returns_hit)
-        return Hit(*(x[:r] for x in out)) if returns_hit else out[:r]
-    if mode == "gather":
-        perm = torch.argsort(key, stable=True)
-        out = fn(ro[perm], rd[perm], tmin, tm[perm])
-        inv = torch.empty_like(perm)
-        inv.scatter_(0, perm, torch.arange(r, device=dev))
-        if returns_hit:
-            return Hit(t=out.t[inv], tri=out.tri[inv],
-                       valid=out.tri[inv] >= 0)
-        return out[inv]
-    if mode not in ("payload", "payload_split"):
-        raise ValueError(f"unknown RAYTPU_SORT_MODE {mode!r}")
-    key_s, perm = torch.sort(key, stable=True)
+    key_s, perm = torch.sort(_ray_sort_key(pack, ro, rd, alive), stable=True)
     if returns_hit:
         # a closest query's bound is the alive bit: F32_MAX or -inf
         tm_s = torch.where(key_s == _dead_key(), NEG_INF, F32_MAX)
     else:
-        tm_s = tm[perm]
-    live = perm[:_compact_prefix(r, alive)]
-    return _unsort(fn(ro[live], rd[live], tmin, tm_s[:live.shape[0]]), live,
-                   r, returns_hit)
+        tm_s = torch.as_tensor(tmax, dtype=torch.float32,
+                               device=ro.device).expand(r)[perm]
+    return _unsort(fn(ro[perm], rd[perm], tmin, tm_s), perm, r, returns_hit)
 
 
 @spanned("raytpu::engine.sort")
@@ -324,17 +270,11 @@ def _bounce_work(pack: ScenePack, closest, any_hit, sop, sdp, rngp, alivep,
 
 def _wave_mode(r: int, fusable: bool) -> str:
     """raytpu's bounce-wave schedule for a tile of ``r`` lanes
-    (``render.py:1080-1086``): RAYTPU_WAVE_MODE, by default "fused" on
-    waves of at least RAYTPU_LARGE_WAVE lanes (2^20) and "query" below;
-    "resort" and "compact" are raytpu's other two. The three sorted modes
-    apply only to sorted waves with immediate NEE (``fusable``); elsewhere
-    the query schedule runs."""
+    (``render.py:1080-1086``): "fused" on sorted waves with immediate NEE
+    (``fusable``) of at least RAYTPU_LARGE_WAVE lanes (2^20), else
+    "query"."""
     large_wave = r >= int(os.environ.get("RAYTPU_LARGE_WAVE", str(1 << 20)))
-    mode = os.environ.get("RAYTPU_WAVE_MODE",
-                          "fused" if large_wave else "query")
-    if mode not in ("fused", "query", "resort", "compact"):
-        raise ValueError(f"unknown RAYTPU_WAVE_MODE {mode!r}")
-    return mode if fusable else "query"
+    return "fused" if fusable and large_wave else "query"
 
 
 # the schedule of the last _trace_paths call: the wave mode and the work
@@ -346,58 +286,49 @@ WAVE_STATS = dict(mode=None, widths=[])
 
 
 @spanned("raytpu::engine.paths")
-def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
-                 bounces: int, mask=None, sort_bounced=False,
-                 bounce_pair=None, count_mask=None, mixed_fn=None):
+def _trace_paths(pack: ScenePack, route: Route, ro, rd, rng, bounces: int,
+                 mask=None, count: bool = False):
     """One full path per lane: the reference's ``pixel_color``
-    (src/shader.wgsl:321-381), vectorised with masks. ``mask`` restricts
-    which lanes trace at all (lanes outside return 0 radiance). Query
-    schedule: immediate NEE, and with ``sort_bounced`` every query but
-    the primary one runs coherence-sorted (RAYTPU_B0S_NOSORT leaves the
-    first shadow wave unsorted). When ``bounce_pair`` (the strand pair) is
-    given, every bounce wave uses it, and so do the primary and first
-    shadow waves unless RAYTPU_B0_STRAND=0, as raytpu does. The bounce
-    loop stops once no lane is alive (a bounce over dead lanes changes
-    nothing).
+    (src/shader.wgsl:321-381), vectorised with masks, through ``route``'s
+    kernels. ``mask`` restricts which lanes trace at all (lanes outside
+    return 0 radiance). Query schedule: immediate NEE, and with
+    ``route.sort_bounced`` every query but the primary one runs
+    coherence-sorted (RAYTPU_B0S_NOSORT leaves the first shadow wave
+    unsorted). When ``route.bounce_pair`` (the strand pair) is given,
+    every bounce wave uses it, and so do the primary and first shadow
+    waves unless RAYTPU_B0_STRAND=0, as raytpu does. The bounce loop stops
+    once no lane is alive (a bounce over dead lanes changes nothing).
 
-    The sorted wave modes (``_wave_mode``) run bounce 0 as above and
-    bounces 1.. their own way; per-lane math never depends on order or
-    width, so each frame is the query schedule's:
+    On waves ``_wave_mode`` calls large, bounce 0 runs as above and
+    bounces 1.. in raytpu's fused wave mode (``fused_step``,
+    ``_fused_bounces``): the wave stays in coherence-sorted order; each
+    bounce sorts only the previous bounce's work tier (the live lanes lie
+    inside it) by the unique key ``key << 32 | pixel``, runs
+    ``_bounce_work`` on the smallest tier of ``_compact_tiers`` holding
+    every live lane, and passes the lanes beyond it through; one scatter
+    by pixel index at path exit restores the order. Per-lane math never
+    depends on order or width, so the frame is the query schedule's.
 
-    * fused (raytpu's ``fused_step``): the wave stays in coherence-sorted
-      order; each bounce sorts only the previous bounce's work tier (the
-      live lanes lie inside it) by the unique key ``key << 32 | pixel``,
-      runs ``_bounce_work`` on the smallest tier of ``_compact_tiers``
-      holding every live lane, and passes the lanes beyond it through;
-      one scatter by pixel index at path exit restores the order;
-    * resort (raytpu's ``persistent_sort``): each bounce moves the whole
-      path state by one sort of ``key << 32 | pixel`` and runs its queries
-      and shading in that order, the shadow wave unsorted; one scatter at
-      path exit;
-    * compact (raytpu's ``compact_step``): each bounce sorts the wave,
-      runs the whole bounce on the smallest tier holding every live lane,
-      and scatters radiance and path state back.
-
-    With ``mixed_fn`` (a binned or strand mixed query) NEE is deferred, as
-    raytpu's ``use_mixed`` branch does it: bounce b's shadow rays ride
-    bounce b+1's continuation query in one mixed call
+    With ``route.mixed_fn`` (a binned or strand mixed query) NEE is
+    deferred, as raytpu's ``use_mixed`` branch does it: bounce b's shadow
+    rays ride bounce b+1's continuation query in one mixed call
     (``_mixed_bounce_query``), and the last bounce's shadow rays go
     through the any-hit query after the loop. Each lane's pending NEE
     radiance lands before the next bounce's emissive term, the reference's
     per-lane order, so the image is the immediate schedule's up to
     triangle ties.
 
-    With ``count_mask`` also returns the number of ray queries issued by
-    masked lanes, as a Python int: 1 primary + 2 per bounce iteration a
-    lane survives (the reference's cost model, SURVEY.md §3.4)."""
-    b_closest, b_any = bounce_pair if bounce_pair is not None else (
-        closest, any_hit)
+    Returns (radiance [R, 4], rng, n_rays). With ``count``, n_rays is the
+    number of ray queries the masked lanes issue, as a Python int: 1
+    primary + 2 per bounce iteration a lane survives (the reference's cost
+    model, SURVEY.md §3.4); else None. A lane stays alive only inside the
+    mask (the shading sets ``bounce_on`` on active lanes alone), so the
+    live lanes are the ones to count."""
+    sort_bounced, mixed_fn = route.sort_bounced, route.mixed_fn
+    closest, any_hit = route.closest, route.any_hit
+    b_closest, b_any = route.bounce_pair or (closest, any_hit)
     if os.environ.get("RAYTPU_B0_STRAND", "1") != "0":
         closest, any_hit = b_closest, b_any
-    n_rays = None
-    if count_mask is not None:
-        with span("raytpu::engine.sync.count"):
-            n_rays = int(count_mask.sum())
     r = ro.shape[0]
     dev = ro.device
     radiance = torch.zeros((r, 4), dtype=torch.float32, device=dev)
@@ -408,16 +339,20 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
     alive = torch.ones(r, dtype=torch.bool, device=dev)
     if mask is not None:
         alive = alive & mask
+    n_rays = None
+    if count:
+        with span("raytpu::engine.sync.count"):
+            n_rays = int(alive.sum())
     pend = None  # the deferred shadow rays: (p, ldir, dist, contrib, on)
     mode = _wave_mode(r, sort_bounced and mixed_fn is None)
     WAVE_STATS.update(mode=mode, widths=[])
 
     for b in range(bounces):
-        if b == 1 and mode != "query":
-            run = dict(fused=_fused_bounces, resort=_resort_bounces,
-                       compact=_compact_bounces)[mode]
-            return run(pack, b_closest, b_any, ro, rd, rng, radiance,
-                       attenuation, alive, bounces, count_mask, n_rays)
+        if b == 1 and mode == "fused":
+            out, rng, n = _fused_bounces(pack, b_closest, b_any, ro, rd, rng,
+                                         radiance, attenuation, alive,
+                                         bounces, count)
+            return out, rng, n_rays + n if count else None
         with span("raytpu::engine.bounce"):
             with span("raytpu::engine.sync.alive"):
                 any_alive = bool(alive.any())
@@ -470,133 +405,32 @@ def _trace_paths(pack: ScenePack, closest, any_hit, ro, rd, rng,
                 bounce_on[:, None], attenuation * mult, attenuation
             )
             alive = bounce_on
-            if n_rays is not None:
+            if count:
                 with span("raytpu::engine.sync.count"):
-                    n_rays += 2 * int((alive & count_mask).sum())
+                    n_rays += 2 * int(alive.sum())
     if pend is not None:
         with span("raytpu::engine.sync.pending"):
             any_pending = bool(pend[4].any())
         if any_pending:
             # the last bounce's shadow wave, alone (raytpu's resolve_last)
             radiance = radiance + _nee(pack, b_any, *pend, sort_bounced)
-    if n_rays is not None:
-        return radiance * attenuation, rng, n_rays
-    return radiance * attenuation, rng
-
-
-def _resort_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
-                    attenuation, alive, bounces, count_mask, n_rays):
-    """Bounces 1..B-1 of ``_trace_paths`` in resort wave mode, from bounce
-    0's state, with the strand pair; returns what ``_trace_paths``
-    returns. Each bounce permutes the whole path state (the count mask
-    too) by one sort of the unique key ``key << 32 | pixel`` and runs at
-    full width in that order, its shadow wave unsorted (its origins are
-    the sorted hit points); one scatter by pixel index at path exit."""
-    r = ro.shape[0]
-    state = dict(ro=ro, rd=rd, rng=rng, rad=radiance, att=attenuation,
-                 alive=alive,
-                 pxi=torch.arange(r, dtype=torch.int32, device=ro.device))
-    if n_rays is not None:
-        state["cm"] = count_mask
-    for _ in range(1, bounces):
-        with span("raytpu::engine.bounce"):
-            with span("raytpu::engine.sync.alive"):
-                any_alive = bool(state["alive"].any())
-            if not any_alive:
-                break  # a bounce over dead lanes changes nothing
-            WAVE_STATS["widths"].append(r)
-            with span("raytpu::engine.sort"):
-                key = _ray_sort_key(pack, state["ro"], state["rd"],
-                                    state["alive"])
-                perm = torch.sort((key.long() << 32) | state["pxi"].long())[1]
-                state = {k: x[perm] for k, x in state.items()}
-            delta, mult, nro, nrd, bounce_on, rng_b = _bounce_work(
-                pack, closest, any_hit, state["ro"], state["rd"], state["rng"],
-                state["alive"], sort_shadow=False)
-            state.update(
-                ro=nro, rd=nrd, rng=rng_b, rad=state["rad"] + delta,
-                att=torch.where(bounce_on[:, None], state["att"] * mult,
-                                state["att"]),
-                alive=bounce_on)
-            if n_rays is not None:
-                with span("raytpu::engine.sync.count"):
-                    n_rays += 2 * int((bounce_on & state["cm"]).sum())
-    # one scatter back to pixel order, radiance * attenuation first
-    pxi = state["pxi"].long()
-    out = torch.empty((r, 4), dtype=torch.float32, device=ro.device)
-    out[pxi] = state["rad"] * state["att"]
-    rng_out = torch.empty_like(state["rng"])
-    rng_out[pxi] = state["rng"]
-    if n_rays is not None:
-        return out, rng_out, n_rays
-    return out, rng_out
-
-
-def _compact_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
-                     attenuation, alive, bounces, count_mask, n_rays):
-    """Bounces 1..B-1 of ``_trace_paths`` in compact wave mode, from bounce
-    0's state, with the strand pair; returns what ``_trace_paths``
-    returns. Each bounce sorts the wave by its coherence key (dead lanes
-    last), runs ``_bounce_work`` on the smallest tier of ``_compact_tiers``
-    holding every live lane, and scatters the radiance delta, the
-    attenuation multiplier and the path state back to pixel order; the
-    lanes beyond the tier are dead and pass through. Radiance and
-    attenuation take three colour columns per bounce (w is left as
-    raytpu's ``compact_step`` leaves it)."""
-    r = ro.shape[0]
-    dev = ro.device
-    tiers = _compact_tiers(r)
-    for _ in range(1, bounces):
-        with span("raytpu::engine.bounce"):
-            with span("raytpu::engine.sync.alive"):
-                n_alive = int(alive.sum())
-            if n_alive == 0:
-                break  # a bounce over dead lanes changes nothing
-            with span("raytpu::engine.sort"):
-                perm = torch.sort(_ray_sort_key(pack, ro, rd, alive),
-                                  stable=True)[1]
-            p = next((t for t in tiers if n_alive <= t), r)
-            WAVE_STATS["widths"].append(p)
-            live = perm[:p]
-            delta, mult, nro, nrd, bounce_on, rng_p = _bounce_work(
-                pack, closest, any_hit, ro[live], rd[live], rng[live],
-                alive[live])
-            # the dead lanes beyond the tier keep their state: zero delta,
-            # no bounce
-            d3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-            m3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-            on = torch.zeros(r, dtype=torch.bool, device=dev)
-            ro, rd, rng = ro.clone(), rd.clone(), rng.clone()
-            d3[live], m3[live], on[live] = delta[:, :3], mult[:, :3], bounce_on
-            ro[live], rd[live], rng[live] = nro, nrd, rng_p
-            zero = torch.zeros((r, 1), dtype=torch.float32, device=dev)
-            radiance = radiance + torch.cat([d3, zero], dim=1)
-            attenuation = torch.where(
-                on[:, None], attenuation * torch.cat([m3, zero + 1.0], dim=1),
-                attenuation)
-            alive = on
-            if n_rays is not None:
-                with span("raytpu::engine.sync.count"):
-                    n_rays += 2 * int((alive & count_mask).sum())
-    if n_rays is not None:
-        return radiance * attenuation, rng, n_rays
-    return radiance * attenuation, rng
+    return radiance * attenuation, rng, n_rays
 
 
 def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
-                   attenuation, alive, bounces, count_mask, n_rays):
+                   attenuation, alive, bounces, count):
     """Bounces 1..B-1 of ``_trace_paths`` in fused wave mode, from bounce
-    0's state; returns what ``_trace_paths`` returns."""
+    0's state: (radiance * attenuation, rng, the queries of these bounces
+    with ``count``, else 0)."""
     r = ro.shape[0]
     tiers = _compact_tiers(r)
     # the path state in sorted order: radiance/attenuation as 3 columns
-    # (their w columns are 0 at exit), the pixel index, the count mask
+    # (their w columns are 0 at exit), the pixel index
     state = dict(ro=ro.clone(), rd=rd.clone(), rng=rng.clone(),
                  rad=radiance[:, :3].clone(), att=attenuation[:, :3].clone(),
                  alive=alive.clone(),
                  pxi=torch.arange(r, dtype=torch.int32, device=ro.device))
-    if n_rays is not None:
-        state["cm"] = count_mask.clone()
+    n_rays = 0
     wsz = r  # the first sort window: every lane may be alive
     for _ in range(1, bounces):
         with span("raytpu::engine.bounce"):
@@ -626,9 +460,9 @@ def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
             s["rd"].copy_(nrd)
             s["rng"].copy_(rng_p)
             s["alive"].copy_(bounce_on)
-            if n_rays is not None:
+            if count:
                 with span("raytpu::engine.sync.count"):
-                    n_rays += 2 * int((bounce_on & s["cm"]).sum())
+                    n_rays += 2 * int(bounce_on.sum())
             wsz = p  # the next sort window: this bounce's work tier
     # one scatter back to pixel order, radiance * attenuation first
     pxi = state["pxi"].long()
@@ -636,9 +470,7 @@ def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
     out[pxi, :3] = state["rad"] * state["att"]
     rng_out = torch.empty_like(state["rng"])
     rng_out[pxi] = state["rng"]
-    if n_rays is not None:
-        return out, rng_out, n_rays
-    return out, rng_out
+    return out, rng_out, n_rays
 
 
 @spanned("raytpu::engine.nee")
@@ -668,9 +500,20 @@ def _flat_shade(pack: ScenePack, closest, ro, rd):
     return torch.where(hit.valid[:, None], color, 0.0)
 
 
-def _choose_intersectors(pack: ScenePack, config: RenderConfig):
-    """Resolve config.intersector to ((closest, any), packet_mode,
-    mixed_fn, prefer_mixed, bounce_pair), as raytpu's TPU branch does.
+class Route(NamedTuple):
+    """One tile's kernels and schedule (``_route``)."""
+
+    closest: Callable
+    any_hit: Callable
+    packet_mode: bool  # rays in 32x32-block order (``_pixel_layout``)
+    sort_bounced: bool  # every query but the primary one coherence-sorted
+    mixed_fn: Callable | None  # deferred NEE's mixed query, else None
+    bounce_pair: tuple | None  # the strand (closest, any_hit) pair
+
+
+def _route(pack: ScenePack, config: RenderConfig) -> Route:
+    """Resolve config.intersector and config.bounce_backend to a ``Route``,
+    as raytpu's TPU branch does.
 
     "auto" applies raytpu's budget rule (``packet_tables_fit``: the BVH8
     rows and leaf rows at 128-lane padding within 100 MiB; a stream pack
@@ -682,25 +525,31 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
     (above 256 slots, where its tables fit the pack budget or the pack
     streams: scene/pack.py), else None, and ``_trace_paths`` then sends
     every path-mode wave through it.
-    With ``bounce_backend="binned"`` ``mixed_fn`` is the binned query,
+    With ``bounce_backend="binned"`` the mixed query is the binned query,
     with ``"mixed"`` the strand walk's mixed query
     (``make_strand_mixed_query``; a pack without a strand tree raises);
     either carries the deferred-NEE bounces.
     "strand" uses the strand pair everywhere, with the strand mixed query
     for ``bounce_backend="mixed"``, and raises on a pack without a tree.
-    "binned" runs every query through the treelets, with
-    ``prefer_mixed`` set (deferred NEE above 256 slots). Each kernel is the
-    CUDA one for a pack on a CUDA device, its plain version on the CPU;
-    all walk rays in 32x32-block order. "brute" and "bvh" go through
+    "binned" runs every query through the treelets, with deferred NEE
+    above 256 slots. Each kernel is the CUDA one for a pack on a CUDA
+    device, its plain version on the CPU; all walk rays in 32x32-block
+    order (``packet_mode``). "brute" and "bvh" go through
     ``make_intersectors`` in row order, with ``packet_mode`` False, as
     raytpu's last branch does: the torch sweep, and the threaded-BVH walk
     with raytpu's visit-order ties. "auto" picks them only for a pack
     with no BVH8 rows, strand tree or treelets, at the end of raytpu's TPU
     branch (raytpu's CPU "auto" picks them at 2048 slots; the port follows
-    its TPU branch on both devices)."""
+    its TPU branch on both devices).
+
+    ``sort_bounced`` holds on the walk routes above RAYTPU_SORT_MIN_TRIS
+    slots, and ``mixed_fn`` is the mixed query only where the waves are
+    sorted and the route is "binned" or ``bounce_backend`` is "binned" or
+    "mixed" (raytpu's ``use_mixed`` rule); else None."""
     which = config.intersector
-    if config.bounce_backend not in ("sorted", "binned", "mixed"):
-        raise ValueError(f"unknown bounce_backend {config.bounce_backend!r}")
+    backend = config.bounce_backend
+    if backend not in ("sorted", "binned", "mixed"):
+        raise ValueError(f"unknown bounce_backend {backend!r}")
     if which == "auto":
         if packetk.packet_tables_fit(pack):
             which = "packet"
@@ -712,6 +561,8 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
             which = "brute"
         else:
             which = "bvh"
+    packet_mode, mixed, bounce_pair = True, None, None
+    prefer_mixed = which == "binned"
     if which == "binned":
         if pack.tl_nodes is None:
             raise ValueError(
@@ -719,17 +570,15 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
                 "scene with treelets='always' (or 'auto' above 4096 "
                 "triangles)"
             )
-        return (make_binned_intersectors(pack), True, make_binned_query(pack),
-                True, None)
-    if which == "packet":
+        pair, mixed = make_binned_intersectors(pack), make_binned_query(pack)
+    elif which == "packet":
         if pack.bvh.node8_rows is None:
             raise ValueError(
                 "intersector='packet' needs the BVH8 rows, which a "
                 "tables='stream' pack drops; use 'auto', 'strand' or "
                 "'binned'"
             )
-        mixed = None
-        if config.bounce_backend == "binned":
+        if backend == "binned":
             if pack.tl_nodes is None:
                 raise ValueError(
                     "bounce_backend='binned' needs treelet tables; pack "
@@ -737,42 +586,32 @@ def _choose_intersectors(pack: ScenePack, config: RenderConfig):
                     "4096 triangles)"
                 )
             mixed = make_binned_query(pack)
-        elif config.bounce_backend == "mixed":
+        elif backend == "mixed":
             if pack.bvh.strand_rows is None:
                 raise ValueError(
                     "bounce_backend='mixed' needs a strand tree; pack "
                     "the scene with the default packed tables"
                 )
             mixed = make_strand_mixed_query(pack)
-        bounce_pair = None
         if pack.bvh.strand_rows is not None:
             bounce_pair = make_strand_intersectors(pack)
-        return make_packet_intersectors(pack), True, mixed, False, bounce_pair
-    if which == "strand":
-        pair = make_strand_intersectors(pack)
-        mixed = None
-        if config.bounce_backend == "mixed":
+        pair = make_packet_intersectors(pack)
+    elif which == "strand":
+        pair = bounce_pair = make_strand_intersectors(pack)
+        if backend == "mixed":
             mixed = make_strand_mixed_query(pack)
-        return pair, True, mixed, False, pair
-    if which in ("brute", "bvh"):
-        return (make_intersectors(
+    elif which in ("brute", "bvh"):
+        pair = make_intersectors(
             pack, bruteforce_max_tris=config.bruteforce_max_tris,
-            which=which), False, None, False, None)
-    raise ValueError(f"unknown intersector {which!r}")
-
-
-def _route(pack: ScenePack, config: RenderConfig):
-    """(closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair)
-    for one tile: ``mixed_fn`` is None unless the waves are sorted and the
-    route prefers deferred NEE or ``bounce_backend`` is "binned" or
-    "mixed" (raytpu's ``use_mixed`` rule)."""
-    (closest, any_hit), packet_mode, mixed_fn, prefer_mixed, bounce_pair = (
-        _choose_intersectors(pack, config))
+            which=which)
+        packet_mode = False
+    else:
+        raise ValueError(f"unknown intersector {which!r}")
     sort_bounced = packet_mode and pack.n_triangles > _sort_min_tris()
     use_mixed = sort_bounced and (
-        prefer_mixed or config.bounce_backend in ("binned", "mixed"))
-    return (closest, any_hit, packet_mode, sort_bounced,
-            mixed_fn if use_mixed else None, bounce_pair)
+        prefer_mixed or backend in ("binned", "mixed"))
+    return Route(*pair, packet_mode, sort_bounced,
+                 mixed if use_mixed else None, bounce_pair)
 
 
 def _pixel_layout(w: int, tile_h: int, packet_mode: bool, device):
@@ -821,6 +660,45 @@ def placed(pack: ScenePack, camera: CameraPack, device=None) -> tuple:
     return pack.to(device), camera.to(device)
 
 
+class _Tile(NamedTuple):
+    """A tile's lanes before its first sample (``_tile``)."""
+
+    route: Route
+    py: torch.Tensor  # each lane's frame row
+    in_grid: torch.Tensor  # the lanes the reference renders
+    unpermute: Callable  # [R, 4] lanes -> [tile_h, W, 4]
+    rng: torch.Tensor  # the per-pixel seeds
+    pxf: torch.Tensor  # the lanes' pixel coordinates as float32
+    pyf: torch.Tensor
+
+
+def _tile(pack: ScenePack, y0: int, config: RenderConfig, tile_h: int,
+          seed: int) -> _Tile:
+    """Rows [y0, y0 + tile_h) as lanes: the route, its pixel layout,
+    per-pixel RNG seeding and the chunk grid (pixels outside it stay
+    black: ``_in_chunk_grid``)."""
+    w = config.width
+    route = _route(pack, config)
+    px, py_local, unpermute = _pixel_layout(w, tile_h, route.packet_mode,
+                                            pack.device)
+    py = y0 + py_local
+    rng = rngk.seed_pixels(px, py, w, config.chunk_size, seed)
+    in_grid = _in_chunk_grid(px, py, w, config.height, config.chunk_size)
+    return _Tile(route, py, in_grid, unpermute, rng, px.to(torch.float32),
+                 py.to(torch.float32))
+
+
+def _camera_rays(tile: _Tile, camera: CameraPack, config: RenderConfig,
+                 rng):
+    """One sample's camera rays, each pixel jittered by + vec2(rand(),
+    rand()) (src/shader.wgsl:413): (ro, rd, rng)."""
+    rng, jx = rngk.rand(rng)
+    rng, jy = rngk.rand(rng)
+    ro, rd = cast_rays(tile.pxf + jx, tile.pyf + jy, camera.world,
+                       camera.projection, config.width, config.height)
+    return ro, rd, rng
+
+
 @spanned("raytpu::entry.tile")
 def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
                 config: RenderConfig, tile_h: int, seed=None,
@@ -828,40 +706,24 @@ def render_tile(pack: ScenePack, camera: CameraPack, y0: int,
     """Render rows [y0, y0 + tile_h) of the frame; returns [tile_h, W, 4]
     on the pack's device (``placed``'s). ``seed`` overrides config.seed."""
     pack, camera = placed(pack, camera, device)
-    w, h = config.width, config.height
-    dev = pack.device
-    closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair = (
-        _route(pack, config))
-    px, py_local, unpermute = _pixel_layout(w, tile_h, packet_mode, dev)
-    py = y0 + py_local
-    rng = rngk.seed_pixels(px, py, w, config.chunk_size,
-                           config.seed if seed is None else seed)
-
-    # pixels outside the dispatched chunk grid stay black (_in_chunk_grid)
-    in_grid = _in_chunk_grid(px, py, w, h, config.chunk_size)
-
-    pxf = px.to(torch.float32)
-    pyf = py.to(torch.float32)
-    acc = torch.zeros((px.shape[0], 4), dtype=torch.float32, device=dev)
+    tile = _tile(pack, y0, config, tile_h,
+                 config.seed if seed is None else seed)
+    rng = tile.rng
+    acc = torch.zeros((rng.shape[0], 4), dtype=torch.float32,
+                      device=pack.device)
     for _ in range(config.samples):
         with span("raytpu::entry.sample"):
-            # per-pixel jitter: + vec2(rand(), rand()) (src/shader.wgsl:413)
-            rng, jx = rngk.rand(rng)
-            rng, jy = rngk.rand(rng)
-            ro, rd = cast_rays(pxf + jx, pyf + jy, camera.world,
-                               camera.projection, w, h)
+            ro, rd, rng = _camera_rays(tile, camera, config, rng)
             if config.mode == "flat":
-                color = _flat_shade(pack, closest, ro, rd)
+                color = _flat_shade(pack, tile.route.closest, ro, rd)
             else:
-                color, rng = _trace_paths(
-                    pack, closest, any_hit, ro, rd, rng, config.bounces,
-                    mask=in_grid, sort_bounced=sort_bounced,
-                    bounce_pair=bounce_pair, mixed_fn=mixed_fn,
-                )
+                color, rng, _ = _trace_paths(pack, tile.route, ro, rd, rng,
+                                             config.bounces,
+                                             mask=tile.in_grid)
             acc = acc + color
     img = acc / float(config.samples)
-    img = torch.where(in_grid[:, None], img, 0.0)
-    return unpermute(img)
+    img = torch.where(tile.in_grid[:, None], img, 0.0)
+    return tile.unpermute(img)
 
 
 def count_rays(pack: ScenePack, camera: CameraPack,
@@ -883,30 +745,16 @@ def count_rays(pack: ScenePack, camera: CameraPack,
 
 def _count_tile(pack: ScenePack, camera: CameraPack, y0: int,
                 config: RenderConfig, tile_h: int, valid_rows: int) -> int:
-    w, h = config.width, config.height
-    dev = pack.device
-    closest, any_hit, packet_mode, sort_bounced, mixed_fn, bounce_pair = (
-        _route(pack, config))
-    px, py_local, _ = _pixel_layout(w, tile_h, packet_mode, dev)
-    py = y0 + py_local
-    rng = rngk.seed_pixels(px, py, w, config.chunk_size, config.seed)
+    tile = _tile(pack, y0, config, tile_h, config.seed)
     # (py < y0 + valid_rows) also drops padding lanes that alias the next
     # tile's pixels: they must not be counted twice
-    in_grid = _in_chunk_grid(px, py, w, h, config.chunk_size) & (
-        py < y0 + valid_rows)
-    pxf = px.to(torch.float32)
-    pyf = py.to(torch.float32)
+    mask = tile.in_grid & (tile.py < y0 + valid_rows)
+    rng = tile.rng
     total = 0
     for _ in range(config.samples):
-        rng, jx = rngk.rand(rng)
-        rng, jy = rngk.rand(rng)
-        ro, rd = cast_rays(pxf + jx, pyf + jy, camera.world,
-                           camera.projection, w, h)
-        _, rng, n = _trace_paths(
-            pack, closest, any_hit, ro, rd, rng, config.bounces,
-            mask=in_grid, sort_bounced=sort_bounced,
-            bounce_pair=bounce_pair, count_mask=in_grid, mixed_fn=mixed_fn,
-        )
+        ro, rd, rng = _camera_rays(tile, camera, config, rng)
+        _, rng, n = _trace_paths(pack, tile.route, ro, rd, rng,
+                                 config.bounces, mask=mask, count=True)
         total += n
     return total
 

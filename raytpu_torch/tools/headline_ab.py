@@ -1,7 +1,7 @@
 """Time the headline atrium frame end to end (no trace): the port's
 counterpart of raytpu's ``benchmarks/headline_ab.py``, the A/B tool for
 engine-glue changes. Prints steady-state ms and Mrays/s. Knobs ride
-environment variables (e.g. ``RAYTPU_SORT_MODE``), so run one process per
+environment variables (e.g. ``RAYTPU_LARGE_WAVE``), so run one process per
 arm; the tool has no A/B loop of its own.
 
 The four configs are raytpu's (``--scene``):

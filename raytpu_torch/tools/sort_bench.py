@@ -8,18 +8,14 @@ gather. So this tool times the sort shapes ``engine/render.py`` issues,
 each with the payload it moves, at ``--rows`` (2,088,960, the 1080p
 frame's lanes):
 
-* ``_sorted_query`` in its three modes (``RAYTPU_SORT_MODE``): ``payload``
-  (the default; a stable key sort, then the rays gathered: a closest-hit
-  query's bound comes from the sorted key, a shadow query's is gathered),
-  ``gather`` (the key argsorted, every column gathered, the inverse
-  permutation scattered) and ``seg`` (``RAYTPU_SORT_SEG`` = 131,072-row
-  segments sorted apart, the last padded with dead lanes);
+* ``_sorted_query``'s: a stable key sort, then the rays gathered (a
+  closest-hit query's bound comes from the sorted key, a shadow query's
+  is gathered);
 * ``_mixed_bounce_query``'s sort over a bounce's rays and its deferred
   shadow rays (2 x ``--rows`` lanes);
-* the sorted wave modes' state sorts, on the unique int64 key
-  ``key << 32 | pixel``: ``resort`` (the whole path state moved),
-  ``compact`` (a stable key sort, the tier's rays gathered) and ``fused``
-  (the default on waves of 2^20 lanes: the state permuted in place).
+* the fused wave mode's state sort (``_fused_bounces``, on waves of 2^20
+  lanes), on the unique int64 key ``key << 32 | pixel``: the state
+  permuted in place.
 
 Each row names the engine line it stands for and counts its operands as
 raytpu's table does: the key, each payload column, and the permutation.
@@ -29,8 +25,7 @@ skipped), queued behind a sleep kernel (``tools/timing.py``); the row's ms
 is the median of ``--repeats`` chains less the same chain with the sort
 taken out (the port's counterpart of raytpu's RPC floor, printed beside
 it), over ``--inner``. raytpu's per-bounce line follows, built from the
-default mode's rows (the fused state sort and the payload shadow sort)
-x 3.5 bounce-equivalents.
+fused state sort and the shadow sort x 3.5 bounce-equivalents.
 
 ``--check`` holds each row's permutation and payload, on the unperturbed
 key, to a stable ``torch.argsort`` plus gathers of the same inputs.
@@ -42,7 +37,6 @@ key, to a stable ``torch.argsort`` plus gathers of the same inputs.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 from dataclasses import dataclass
 from typing import Callable
@@ -107,10 +101,8 @@ class Row:
     key: str
     payload: tuple
     body: Callable
-    seg: int = 0  # > 0: sorted in segments of this many rows
     # what the body returns after the moved columns: "bound" (a closest-hit
-    # query's bound, from the sorted key) or "inverse" (the inverse
-    # permutation)
+    # query's bound, from the sorted key)
     extra: str = ""
     reset: Callable | None = None  # restores what the body moves in place
 
@@ -119,53 +111,25 @@ class Row:
                        for k in self.payload)
 
 
-def rows(x: dict, seg: int) -> list:
+def rows(x: dict) -> list:
     """The engine's sort shapes over the inputs ``x``."""
     r = x["key"].shape[0]
-    dev = x["key"].device
 
-    def payload_closest(k):  # render.py:311-316
+    def payload_closest(k):  # _sorted_query, returns_hit
         key_s, perm = torch.sort(k, stable=True)
         tm_s = torch.where(key_s == DEAD, -np.inf, F32_MAX)
         return perm, [x["ro"][perm], x["rd"][perm], tm_s]
 
-    def payload_shadow(k):  # render.py:311-318
+    def payload_shadow(k):  # _sorted_query, any-hit
         _, perm = torch.sort(k, stable=True)
         return perm, [x["ro"][perm], x["rd"][perm], x["tm"][perm]]
 
-    def gather(k):  # render.py:301-304
-        perm = torch.argsort(k, stable=True)
-        inv = torch.empty_like(perm)
-        inv.scatter_(0, perm, torch.arange(r, device=dev))
-        return perm, [x["ro"][perm], x["rd"][perm], x["tm"][perm], inv]
-
-    def segmented(k):  # render.py:291-299
-        n_seg = max(1, -(-r // seg))
-        pad = n_seg * seg - r
-        k = torch.cat([k, k.new_full((pad,), DEAD)])
-        perm = torch.sort(k.reshape(n_seg, seg), dim=1, stable=True)[1]
-        perm = (perm + torch.arange(n_seg, device=dev)[:, None] * seg
-                ).reshape(-1)
-        ro = torch.cat([x["ro"], x["ro"].new_zeros((pad, 3))])
-        rd = torch.cat([x["rd"], x["rd"].new_ones((pad, 3))])
-        tm = torch.cat([x["tm"], x["tm"].new_full((pad,), -np.inf)])
-        return perm, [ro[perm], rd[perm], tm[perm]]
-
-    def mixed(k):  # render.py:337-340
+    def mixed(k):  # _mixed_bounce_query
         perm = torch.sort(k, stable=True)[1]
         return perm, [x["m_ro"][perm], x["m_rd"][perm], x["m_tm"][perm],
                       x["smask"][perm]]
 
     state = ("ro", "rd", "rng", "rad", "att", "alive", "pxi")
-
-    def resort(k):  # render.py:652-653
-        perm = torch.sort(k)[1]
-        return perm, [x[c][perm] for c in state]
-
-    def compact(k):  # render.py:693-697
-        perm = torch.sort(k, stable=True)[1]
-        live = perm[:r]  # the tier that holds every live lane: all here
-        return perm, [x[c][live] for c in ("ro", "rd", "rng", "alive")]
 
     # the fused mode's state (radiance and attenuation as 3 columns),
     # permuted in place as the engine does
@@ -173,7 +137,7 @@ def rows(x: dict, seg: int) -> list:
               .contiguous() for c in state})
     fused_state = {c: x[f"f_{c}"].clone() for c in state}
 
-    def fused(k):  # render.py:745-748
+    def fused(k):  # _fused_bounces
         perm = torch.sort(k)[1]
         for v in fused_state.values():
             v[:r] = v[:r][perm]
@@ -185,35 +149,15 @@ def rows(x: dict, seg: int) -> list:
 
     fused_payload = tuple(f"f_{c}" for c in state)
     return [
-        Row("payload, closest-hit (render.py:311)", "key",
-            ("ro", "rd"), payload_closest, extra="bound"),
-        Row("payload, shadow (render.py:311)", "key", ("ro", "rd", "tm"),
+        Row("sorted query, closest-hit", "key", ("ro", "rd"),
+            payload_closest, extra="bound"),
+        Row("sorted query, shadow", "key", ("ro", "rd", "tm"),
             payload_shadow),
-        Row("gather (render.py:301)", "key", ("ro", "rd", "tm"), gather,
-            extra="inverse"),
-        Row(f"seg, {seg}-row segments (render.py:291)", "key",
-            ("ro", "rd", "tm"), segmented, seg=seg),
-        Row("mixed query, 2 x rows lanes (render.py:337)", "m_key",
+        Row("mixed query, 2 x rows lanes", "m_key",
             ("m_ro", "m_rd", "m_tm", "smask"), mixed),
-        Row("resort state, int64 key (render.py:652)", "key64", state,
-            resort),
-        Row("compact, stable key (render.py:693)", "key",
-            ("ro", "rd", "rng", "alive"), compact),
-        Row("fused state, int64 key (render.py:745)", "key64",
-            fused_payload, fused, reset=fused_reset),
+        Row("fused state, int64 key", "key64", fused_payload, fused,
+            reset=fused_reset),
     ]
-
-
-def _reference_perm(row: Row, k):
-    """A stable ``torch.argsort`` of the row's key (segments: keyed by
-    segment, then key; the pad is the dead key)."""
-    if not row.seg:
-        return torch.argsort(k, stable=True)
-    r = k.shape[0]
-    n_seg = max(1, -(-r // row.seg))
-    k = torch.cat([k, k.new_full((n_seg * row.seg - r,), DEAD)]).long()
-    seg_of = torch.arange(k.shape[0], device=k.device) // row.seg
-    return torch.argsort((seg_of << 32) | k, stable=True)
 
 
 def check(row: Row, x: dict) -> str:
@@ -224,22 +168,12 @@ def check(row: Row, x: dict) -> str:
     if row.reset is not None:
         row.reset()
     perm, outs = row.body(k)
-    want = _reference_perm(row, k)
+    want = torch.argsort(k, stable=True)
     if not torch.equal(perm, want):
         return "permutation"
-    r = k.shape[0]
     for name, got in zip(row.payload, outs):
-        col = x[name]
-        if row.seg:
-            pad = want.shape[0] - r
-            fill = {"ro": 0.0, "rd": 1.0, "tm": -np.inf}[name]
-            col = torch.cat([col, col.new_full((pad,) + col.shape[1:],
-                                               fill)])
-        if not torch.equal(got, col[want]):
+        if not torch.equal(got, x[name][want]):
             return name
-    if row.extra == "inverse" and not torch.equal(
-            outs[-1][want], torch.arange(r, device=k.device)):
-        return "inverse permutation"
     if row.extra == "bound" and not torch.equal(
             outs[-1], torch.where(k[want] == DEAD, -np.inf, F32_MAX)):
         return "bound"
@@ -283,9 +217,8 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu")
     cuda = args.device == "cuda"
-    seg = int(os.environ.get("RAYTPU_SORT_SEG", "131072"))
     x = inputs(args.rows, args.device)
-    table = rows(x, seg)
+    table = rows(x)
     _log(f"[sort] rows {args.rows}, device {args.device}"
          + (f" ({torch.cuda.get_device_name(0)})" if cuda else ""))
     bad = []
@@ -307,10 +240,10 @@ def main(argv=None) -> int:
              f"{args.inner}")
         print(f"| {row.name} | {row.operands(x)} ops | {dt:7.3f} ms |",
               flush=True)
-    per_bounce = (ms["fused state, int64 key (render.py:745)"]
-                  + ms["payload, shadow (render.py:311)"])
-    print(f"[sort] per-bounce total (fused state sort + payload shadow "
-          f"sort) {per_bounce:.3f} ms, x3.5 bounce-equivalents ~= "
+    per_bounce = (ms["fused state, int64 key"]
+                  + ms["sorted query, shadow"])
+    print(f"[sort] per-bounce total (fused state sort + shadow sort) "
+          f"{per_bounce:.3f} ms, x3.5 bounce-equivalents ~= "
           f"{per_bounce * 3.5:.2f} ms/frame", flush=True)
     if bad:
         raise SystemExit(f"sort_bench: {', '.join(bad)} differ from a "

@@ -118,37 +118,25 @@ def capture(pack, camera, width: int = 1920, height: int = 1080,
     """Tile 0's waves (rows [0, tile_rows), at most the frame) from the
     engine's trace on the pack's device, in query mode and unsorted:
     {name: dict(ro, rd, tmax, tmin, kind, bounce)}, numpy."""
-    from ..engine.render import (
-        _in_chunk_grid,
-        _pixel_layout,
-        _route,
-        _trace_paths,
-        cast_rays,
-    )
-    from ..kernels import rng as rngk
+    from ..engine.render import Route, _camera_rays, _tile, _trace_paths
     from ..types import RenderConfig
 
     cfg = RenderConfig(width=width, height=height, seed=seed, samples=1,
                        bounces=bounces, chunk_size=chunk_size)
-    closest, any_hit, packet_mode, _, _, bounce_pair = _route(pack, cfg)
-    if not packet_mode:
+    tile = _tile(pack, 0, cfg, min(tile_rows, height), seed)
+    route = tile.route
+    if not route.packet_mode:
         raise ValueError("wave capture expects the packet or strand route")
-    rec = Recorder(*(bounce_pair or (closest, any_hit)))
-    tile_h = min(tile_rows, height)
-    px, py, _ = _pixel_layout(width, tile_h, True, pack.device)
-    in_grid = _in_chunk_grid(px, py, width, height, chunk_size)
-    rng = rngk.seed_pixels(px, py, width, chunk_size, seed)
-    rng, jx = rngk.rand(rng)
-    rng, jy = rngk.rand(rng)
-    ro, rd = cast_rays(px.to(torch.float32) + jx, py.to(torch.float32) + jy,
-                       camera.world, camera.projection, width, height)
+    rec = Recorder(*(route.bounce_pair or (route.closest, route.any_hit)))
+    ro, rd, rng = _camera_rays(tile, camera, cfg, tile.rng)
     _log(f"[waves] tracing tile 0 ({ro.shape[0]} rays, {bounces} "
          "bounces)...")
-    # sort_bounced=False: the recorder sees each wave in engine order; the
-    # A/Bs apply the sort under test themselves
-    _trace_paths(pack, rec.closest, rec.any_hit, ro, rd, rng, bounces,
-                 mask=in_grid, sort_bounced=False,
-                 bounce_pair=(rec.closest, rec.any_hit))
+    # unsorted (sort_bounced False): the recorder sees each wave in engine
+    # order; the A/Bs apply the sort under test themselves
+    pair = (rec.closest, rec.any_hit)
+    _trace_paths(pack, Route(*pair, packet_mode=True, sort_bounced=False,
+                             mixed_fn=None, bounce_pair=pair),
+                 ro, rd, rng, bounces, mask=tile.in_grid)
     waves = {}
     counts = {"closest": 0, "shadow": 0}
     for kind, wro, wrd, wtmin, wtmax in rec.calls:

@@ -591,9 +591,9 @@ def test_route_errors():
         render.render_tile(small, p["cam"], 0,
                            RenderConfig(**cfg, intersector="packet",
                                         bounce_backend="mixed"), 8)
-    mixed_fn = render._choose_intersectors(
-        p["full"], RenderConfig(**cfg, bounce_backend="mixed"))[2]
-    assert callable(mixed_fn)
+    route = render._route(p["full"],
+                          RenderConfig(**cfg, bounce_backend="mixed"))
+    assert callable(route.mixed_fn)
 
 
 @pytest.mark.cuda

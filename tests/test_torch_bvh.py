@@ -160,8 +160,8 @@ def test_bvh_frame_matches_raytpu_bvh_frame(name, mode):
     assert (quantize_rgba32f(port).max(-1) > 0).mean() > 0.5
     assert_images_equiv(quantize_rgba32f(port) / 255.0,
                         quantize_rgba32f(ref) / 255.0)
-    route = render._choose_intersectors(pack, RenderConfig(**cfg))
-    assert route[1:] == (False, None, False, None)
+    route = render._route(pack, RenderConfig(**cfg))
+    assert route[2:] == (False, False, None, None)
 
 
 def test_bvh_route_refuses_a_pack_without_leaf_rows():

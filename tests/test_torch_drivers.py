@@ -497,10 +497,10 @@ def test_sort_and_gather_bench_check_on_the_cpu(tool, capsys):
     out = capsys.readouterr().out.splitlines()
     if tool == "sort_bench":
         checks = [ln for ln in out if ln.startswith("check ")]
-        assert len(checks) == 8 and all(
+        assert len(checks) == 4 and all(
             ln.endswith("equal to a stable argsort plus gathers")
             for ln in checks)
-        assert out[8] == "| sort | operands | ms |"
+        assert out[4] == "| sort | operands | ms |"
         assert "x3.5 bounce-equivalents" in out[-1]
     else:
         assert out[0] == "| cols | ms | Mrows/s | GB/s |"
@@ -510,7 +510,7 @@ def test_sort_and_gather_bench_check_on_the_cpu(tool, capsys):
 
 def test_sort_bench_check_catches_a_wrong_permutation():
     x = sort_bench.inputs(4096, "cpu")
-    rows = sort_bench.rows(x, 131072)
+    rows = sort_bench.rows(x)
     row = rows[1]
     good = row.body
     assert sort_bench.check(row, x) == ""

@@ -1,7 +1,8 @@
 """raytpu's fused wave mode in the port's engine
 (raytpu_torch.engine.render: ``_compact_tiers``, ``_bounce_work``,
-``_fused_bounces``, the mode switch ``_wave_mode``) against its query
-schedule and against raytpu.
+``_fused_bounces``, the width switch ``_wave_mode``) against its query
+schedule and against raytpu. RAYTPU_LARGE_WAVE forces either schedule
+on the gallery's 2,048-lane tile: 1 fused, 2^30 query.
 
 Fused mode sorts only the previous bounce's work tier, runs each bounce
 on the smallest tier holding every live lane and unsorts once at path
@@ -39,12 +40,16 @@ def test_compact_tiers_equal_raytpu(monkeypatch, r, div):
     assert all(t % 256 == 0 and t < r for t in got)
 
 
-def _render(monkeypatch, mode=None, persistent=None, **extra):
+# RAYTPU_LARGE_WAVE that forces each schedule on a 2,048-lane tile
+LARGE_WAVE = {"fused": "1", "query": str(1 << 30), None: None}
+
+
+def _render(monkeypatch, mode=None, persistent=None, cfg=CFG, **extra):
     """The gallery at 64x32 through the strand route, with
-    RAYTPU_COMPACT_DIV=8,2 and the given wave mode: (frame, the last
-    path's WAVE_STATS)."""
+    RAYTPU_COMPACT_DIV=8,2 and the given wave mode (None: the width's):
+    (frame, the last path's WAVE_STATS)."""
     monkeypatch.setenv("RAYTPU_COMPACT_DIV", "8,2")
-    for name, value in (("RAYTPU_WAVE_MODE", mode),
+    for name, value in (("RAYTPU_LARGE_WAVE", LARGE_WAVE[mode]),
                         ("RAYTPU_STRAND_PERSISTENT", persistent)):
         if value is None:
             monkeypatch.delenv(name, raising=False)
@@ -53,7 +58,7 @@ def _render(monkeypatch, mode=None, persistent=None, **extra):
     for name, value in extra.items():
         monkeypatch.setenv(name, value)
     (pack, cam), _ = _packs("gallery", 64, 32)
-    frame = render.render_frame(pack, cam, RenderConfig(**CFG))
+    frame = render.render_frame(pack, cam, RenderConfig(**cfg))
     return frame, dict(render.WAVE_STATS)
 
 
@@ -96,13 +101,33 @@ def test_count_rays_equal_in_both_modes(monkeypatch):
     monkeypatch.setenv("RAYTPU_COMPACT_DIV", "8,2")
     counts = {}
     for mode in ("fused", "query"):
-        monkeypatch.setenv("RAYTPU_WAVE_MODE", mode)
+        monkeypatch.setenv("RAYTPU_LARGE_WAVE", LARGE_WAVE[mode])
         counts[mode] = render.count_rays(pack, cam, RenderConfig(**CFG))
         assert render.WAVE_STATS["mode"] == mode
     assert counts["fused"] == counts["query"]
-    monkeypatch.delenv("RAYTPU_WAVE_MODE")
+    monkeypatch.delenv("RAYTPU_LARGE_WAVE")
     assert counts["query"] == rt_render.count_rays(
         rpack, rcam, raytpu.RenderConfig(**CFG))
+
+
+@pytest.mark.parametrize("layout", [
+    {}, {"tile_rows": 7}, {"samples": 2}],
+    ids=["one_tile", "tile_rows7", "samples2"])
+@pytest.mark.parametrize("mode", ["fused", "query"])
+def test_count_rays_equals_raytpu(monkeypatch, mode, layout):
+    """``count_rays`` counts the live lanes: raytpu's count in either
+    schedule, on one tile, on 7-row tiles (each padded to 32 rows, whose
+    padding lanes alias the next tile's pixels and are not counted) and
+    over two samples."""
+    (pack, cam), (rpack, rcam) = _packs("gallery", 64, 32)
+    monkeypatch.setenv("RAYTPU_COMPACT_DIV", "8,2")
+    monkeypatch.setenv("RAYTPU_LARGE_WAVE", LARGE_WAVE[mode])
+    cfg = {**CFG, **layout}
+    got = render.count_rays(pack, cam, RenderConfig(**cfg))
+    assert render.WAVE_STATS["mode"] == mode
+    monkeypatch.delenv("RAYTPU_LARGE_WAVE")
+    assert got == rt_render.count_rays(rpack, rcam,
+                                       raytpu.RenderConfig(**cfg)) > 64 * 32
 
 
 def test_large_wave_threshold_selects_fused(monkeypatch):
@@ -118,15 +143,10 @@ def test_large_wave_threshold_selects_fused(monkeypatch):
     assert waves["mode"] == "query"
 
 
-def test_unknown_wave_mode_raises(monkeypatch):
-    with pytest.raises(ValueError, match="RAYTPU_WAVE_MODE"):
-        _render(monkeypatch, "fast")
-
-
 def test_fused_mode_needs_sorted_immediate_waves(monkeypatch):
     """Fused mode applies to sorted waves with immediate NEE; the brute
     route (unsorted) keeps the query schedule."""
-    monkeypatch.setenv("RAYTPU_WAVE_MODE", "fused")
+    monkeypatch.setenv("RAYTPU_LARGE_WAVE", LARGE_WAVE["fused"])
     (pack, cam), _ = _packs("gallery", 64, 32)
     render.render_frame(pack, cam, RenderConfig(**CFG, intersector="brute"))
     assert render.WAVE_STATS["mode"] == "query"
@@ -139,3 +159,17 @@ def test_block_route_fused_equals_persistent_route(monkeypatch):
     block, waves = _render(monkeypatch, "fused", persistent="0")
     assert waves["mode"] == "fused"
     assert _png_diff(block, persistent) == 0
+
+
+@pytest.mark.parametrize("persistent", [None, "0"], ids=["per_ray", "block"])
+@pytest.mark.parametrize("bounces", [1, 2, 4])
+def test_fused_frame_bit_equal_query_frame(monkeypatch, bounces, persistent):
+    """The fused frame is the query schedule's bit for bit, whatever the
+    bounce count, on the per-ray walk and on the block walk
+    (RAYTPU_STRAND_PERSISTENT=0)."""
+    cfg = {**CFG, "bounces": bounces}
+    fused, waves = _render(monkeypatch, "fused", persistent, cfg)
+    query, waves_q = _render(monkeypatch, "query", persistent, cfg)
+    assert waves["mode"] == "fused" and waves_q["mode"] == "query"
+    assert waves_q["widths"] == [2048] * len(waves_q["widths"])
+    assert np.array_equal(fused, query)

@@ -1,6 +1,6 @@
 """raytpu's remaining engine arms in the port: the mixed-lane forms of the
-strand walk and the packet walk, ``bounce_backend="mixed"``, the
-``resort`` and ``compact`` wave modes and the sort knobs.
+strand walk and the packet walk, ``bounce_backend="mixed"`` and the sort
+knobs.
 
 The mixed forms (``strand_mixed_query_torch``, ``packet_query_torch(...,
 smask=...)``) are held to raytpu's kernels in interpret mode: closest
@@ -232,8 +232,7 @@ def _png_diff(a, b) -> int:
 def _frame(monkeypatch, env=None, pack=None, **cfg):
     """The 64x32 gallery (4,096 slots) with the given knobs set: (frame,
     the last path's WAVE_STATS)."""
-    for name in ("RAYTPU_WAVE_MODE", "RAYTPU_LARGE_WAVE", "RAYTPU_SORT_MODE",
-                 "RAYTPU_SORT_SEG", "RAYTPU_COMPACT", "RAYTPU_MORTON_BITS",
+    for name in ("RAYTPU_LARGE_WAVE", "RAYTPU_MORTON_BITS",
                  "RAYTPU_B0_STRAND", "RAYTPU_B0S_NOSORT",
                  "RAYTPU_COMPACT_DIV"):
         monkeypatch.delenv(name, raising=False)
@@ -314,51 +313,15 @@ def test_mixed_backend_frame_matches_raytpu(monkeypatch, intersector):
                         quantize_rgba32f(_raytpu_bvh_frame()) / 255.0)
 
 
-@pytest.mark.parametrize("mode", ["resort", "compact"])
-def test_sorted_wave_modes_equal_query_frame(monkeypatch, mode):
-    """RAYTPU_WAVE_MODE=resort and compact (RAYTPU_COMPACT_DIV=8,2: tiers
-    of 256 and 1024 lanes) against the query schedule."""
-    frame, waves = _frame(monkeypatch, {"RAYTPU_WAVE_MODE": mode,
-                                        "RAYTPU_COMPACT_DIV": "8,2"})
-    query, waves_q = _frame(monkeypatch, {"RAYTPU_WAVE_MODE": "query"})
-    assert waves["mode"] == mode and waves_q["mode"] == "query"
-    assert waves["widths"][0] == 2048
-    if mode == "compact":
-        assert len(set(waves["widths"])) > 1
-        assert all(w in (256, 1024, 2048) for w in waves["widths"])
-    else:
-        assert set(waves["widths"]) == {2048}
-    assert _png_diff(frame, query) == 0
-    np.testing.assert_allclose(frame, query, rtol=0, atol=1e-6)
-
-
-@pytest.mark.parametrize("mode", ["resort", "compact"])
-def test_sorted_wave_modes_count_rays_unchanged(monkeypatch, mode):
-    (pack, cam), _ = _packs("gallery", 64, 32)
-    monkeypatch.setenv("RAYTPU_COMPACT_DIV", "8,2")
-    counts = {}
-    for m in (mode, "query"):
-        monkeypatch.setenv("RAYTPU_WAVE_MODE", m)
-        counts[m] = render.count_rays(pack, cam, RenderConfig(**CFG))
-        assert render.WAVE_STATS["mode"] == m
-    assert counts[mode] == counts["query"] > 64 * 32
-
-
 @pytest.mark.parametrize("env", [
-    {"RAYTPU_SORT_MODE": "gather"},
-    {"RAYTPU_SORT_MODE": "seg", "RAYTPU_SORT_SEG": "512"},
-    {"RAYTPU_SORT_MODE": "seg", "RAYTPU_SORT_SEG": "700"},
-    {"RAYTPU_COMPACT": "1"},
     {"RAYTPU_MORTON_BITS": "4"},
     {"RAYTPU_B0_STRAND": "0"},
     {"RAYTPU_B0S_NOSORT": "1"},
-], ids=["gather", "seg512", "seg700", "compact", "morton4", "b0_packet",
-        "b0s_nosort"])
+], ids=["morton4", "b0_packet", "b0s_nosort"])
 def test_sort_knobs_leave_the_frame(monkeypatch, env):
-    """Each knob changes which code runs, never the frame. SEG 512 cuts the
-    2,048-lane waves into 4 segments; 700 into 3, the last padded with
-    dead lanes. RAYTPU_B0_STRAND=0 takes the primary and first shadow
-    waves to the packet walk."""
+    """Each knob changes which code runs, never the frame.
+    RAYTPU_B0_STRAND=0 takes the primary and first shadow waves to the
+    packet walk."""
     calls = set()
     _spy(monkeypatch, calls)
     frame, _ = _frame(monkeypatch, env)
@@ -366,27 +329,6 @@ def test_sort_knobs_leave_the_frame(monkeypatch, env):
     assert _png_diff(frame, default) == 0
     np.testing.assert_allclose(frame, default, rtol=0, atol=1e-6)
     assert ("packet closest" in calls) == ("RAYTPU_B0_STRAND" in env)
-
-
-def test_unknown_sort_mode_raises(monkeypatch):
-    with pytest.raises(ValueError, match="RAYTPU_SORT_MODE"):
-        _frame(monkeypatch, {"RAYTPU_SORT_MODE": "bitonic"})
-
-
-def test_compact_prefix_tiers(monkeypatch):
-    """RAYTPU_COMPACT's tiers: r/4 and r/2 rounded up to 128, from 512
-    rays, the smallest holding every live lane."""
-    monkeypatch.setenv("RAYTPU_COMPACT", "1")
-    alive = torch.zeros(2048, dtype=torch.bool)
-    alive[:300] = True
-    assert render._compact_prefix(2048, alive) == 512
-    alive[:600] = True
-    assert render._compact_prefix(2048, alive) == 1024
-    alive[:] = True
-    assert render._compact_prefix(2048, alive) == 2048
-    assert render._compact_prefix(511, alive[:511]) == 511
-    monkeypatch.setenv("RAYTPU_COMPACT", "0")
-    assert render._compact_prefix(2048, alive[:0].new_zeros(2048)) == 2048
 
 
 @pytest.mark.parametrize("value", [None, "100", "5000"])
@@ -403,8 +345,7 @@ def test_sort_min_tris_is_raytpus_and_pack_and_route_agree(monkeypatch,
     pack = pack_scene(load_scene(scene_path("gallery")), "cpu")
     above = pack.n_triangles > port_pack._sort_min_tris()
     assert (pack.bvh.strand_rows is not None) == above
-    sort_bounced = render._route(pack, RenderConfig(**CFG))[3]
-    assert sort_bounced == above
+    assert render._route(pack, RenderConfig(**CFG)).sort_bounced == above
 
 
 @pytest.mark.cuda

@@ -734,7 +734,7 @@ def _routes(monkeypatch, port_pack, rt_pack, intersector):
     monkeypatch.setattr(jax, "devices", lambda *a: [tpu()])
     size = dict(width=8, height=8, seed=1, samples=1, bounces=1,
                 chunk_size=8, intersector=intersector)
-    render._choose_intersectors(port_pack, RenderConfig(**size))
+    render._route(port_pack, RenderConfig(**size))
     rt_render._choose_intersectors(rt_pack, RtRenderConfig(**size))
     return (sorted(c[0] for c in pr.calls),
             sorted(c[0] for r in rr for c in r.calls))

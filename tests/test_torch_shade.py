@@ -319,7 +319,7 @@ FRAMES = {
                               chunk_size=8), {}),
     "atrium fused": ("atrium", dict(width=64, height=36, samples=1,
                                     bounces=4, chunk_size=8),
-                     {"RAYTPU_WAVE_MODE": "fused"}),
+                     {"RAYTPU_LARGE_WAVE": "1"}),
     "atrium deferred NEE": ("atrium", dict(width=64, height=36, samples=1,
                                            bounces=4, chunk_size=8,
                                            bounce_backend="mixed"), {}),

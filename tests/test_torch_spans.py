@@ -184,7 +184,7 @@ def test_flat_frame_has_no_bounce_engine():
 def test_fused_wave_mode_spans(monkeypatch):
     """The fused wave mode's bounces, sorts and live-lane reads are spans
     too (a 1080p tile's mode; forced here on a small one)."""
-    monkeypatch.setenv("RAYTPU_WAVE_MODE", "fused")
+    monkeypatch.setenv("RAYTPU_LARGE_WAVE", "1")
     pack, cam = _packed("cpu")
     cfg = _config("path", samples=1, tile_rows=None)
     _, events = _traced(lambda: render_frame(pack, cam, cfg))
