@@ -797,13 +797,26 @@ def render_frame_tiles(pack: ScenePack, camera: CameraPack,
 @spanned("raytpu::entry.frame")
 def render_frame(pack: ScenePack, camera: CameraPack,
                  config: RenderConfig, device=None) -> np.ndarray:
-    """Full frame, stitched from tiles on the host; returns [H, W, 4] f32
-    (the SAMPLES texture contents, src/state.rs:691-696). The device is
+    """Full frame; returns a new [H, W, 4] f32 array on every call (the
+    SAMPLES texture contents, src/state.rs:691-696). Each tile's rows are
+    copied once, asynchronously, straight into the host frame, and the
+    host waits once a frame. On a card the frame is page-locked: while
+    the caller holds the array its memory is a block of torch's pinned
+    host cache, which takes it back when the array is dropped. Every row
+    comes from a tile, so the frame is never zeroed. The device is
     ``placed``'s: the pack's, or the card for an ``as_numpy`` pack."""
+    pack, camera = placed(pack, camera, device)
+    cuda = pack.device.type == "cuda"
     with span("raytpu::entry.alloc"):
-        out = np.zeros((config.height, config.width, 4), np.float32)
-    for y0, rows, tile in render_frame_tiles(pack, camera, config,
-                                             device=device):
-        with span("raytpu::entry.stitch"):
-            out[y0 : y0 + rows] = tile
-    return out
+        frame = torch.empty((config.height, config.width, 4),
+                            dtype=torch.float32, pin_memory=cuda)
+    tile_h = _auto_tile_rows(config, pack.n_triangles)
+    for y0 in range(0, config.height, tile_h):
+        rows = min(tile_h, config.height - y0)
+        tile = render_tile(pack, camera, y0, config, tile_h)
+        with span("raytpu::entry.readback"):
+            frame[y0 : y0 + rows].copy_(tile[:rows], non_blocking=True)
+    with span("raytpu::entry.sync.readback"):
+        if cuda:
+            torch.cuda.current_stream(pack.device).synchronize()
+    return frame.numpy()

@@ -177,6 +177,65 @@ def test_tiles_stitch_to_the_frame():
     assert rows == [12, 12, 8]
 
 
+def _bits(frame) -> np.ndarray:
+    return np.ascontiguousarray(frame).view(np.uint32)
+
+
+def _stitched(pack, cam, cfg):
+    """The frame as ``render_frame_tiles``' tiles stitched into zeros, and
+    the tiles' row counts."""
+    out = np.zeros((cfg.height, cfg.width, 4), np.float32)
+    rows = []
+    for y0, n, tile in render.render_frame_tiles(pack, cam, cfg):
+        out[y0 : y0 + n] = tile
+        rows.append(n)
+    return out, rows
+
+
+@pytest.mark.parametrize("tile_rows,rows", [(None, [32]), (12, [12, 12, 8])])
+def test_frame_is_its_tiles_stitched_into_zeros(tile_rows, rows):
+    """``render_frame`` reads each tile straight into its frame: bit-equal
+    to the tiles stitched into zeros, at a width of 48 (not a multiple of
+    the 32-pixel blocks), as a new, writable, C-contiguous f32 array."""
+    (pack, cam), _ = _packs("small")
+    cfg = RenderConfig(**CFG, tile_rows=tile_rows)
+    want, got_rows = _stitched(pack, cam, cfg)
+    assert got_rows == rows
+    frame = render.render_frame(pack, cam, cfg)
+    assert frame.dtype == np.float32 and frame.shape == (32, 48, 4)
+    assert frame.flags.c_contiguous and frame.flags.writeable
+    assert _lit(frame) > 0.5
+    np.testing.assert_array_equal(_bits(frame), _bits(want))
+
+
+@pytest.mark.parametrize("tile_rows", [None, 12])
+def test_frame_needs_no_zeroed_memory(tile_rows):
+    """A frame filled with NaN and dropped leaves its memory to the next
+    frame of the same size, which still comes back with the first frame's
+    bits: every pixel is written by a tile, none is left from the
+    allocation."""
+    (pack, cam), _ = _packs("small")
+    cfg = RenderConfig(**CFG, tile_rows=tile_rows)
+    first = render.render_frame(pack, cam, cfg)
+    want = _bits(first).copy()
+    first.fill(np.nan)
+    del first
+    again = render.render_frame(pack, cam, cfg)
+    np.testing.assert_array_equal(_bits(again), want)
+
+
+def test_frames_do_not_share_memory():
+    """Two frames of two seeds are two arrays: the first keeps its bits
+    after the second is rendered."""
+    (pack, cam), _ = _packs("small")
+    a = render.render_frame(pack, cam, RenderConfig(**CFG))
+    bits = _bits(a).copy()
+    b = render.render_frame(pack, cam, RenderConfig(**dict(CFG, seed=12)))
+    assert not np.shares_memory(a, b)
+    assert not np.array_equal(a, b)
+    np.testing.assert_array_equal(_bits(a), bits)
+
+
 @pytest.mark.parametrize("which", ["binned"])
 def test_unported_routes_raise(which):
     """Every route is ported; "binned" on a pack without treelets raises

@@ -4,8 +4,9 @@ trace: a small atrium frame (path and flat, two tiles, two samples), a
 profiler name every layer's work with ``raytpu::<layer>.<what>`` spans
 that nest on one thread; with no profiler running no span is made and
 the frame is bit-equal. On the card (``cuda`` marker), the ``.sync``
-spans of a frame are its host syncs and every walk kernel is launched
-inside a ``raytpu::kernels.*`` span.
+spans of a frame are its host syncs, every walk kernel is launched
+inside a ``raytpu::kernels.*`` span, and each frame is read back into
+page-locked memory that later frames reuse.
 
 Nothing here imports JAX or raytpu: on a machine with the card,
 ``python -m pytest --noconftest tests/test_torch_spans.py -m cuda``."""
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from raytpu_torch import obs
-from raytpu_torch.engine.render import render_frame
+from raytpu_torch.engine.render import render_frame, render_frame_tiles
 from raytpu_torch.scene.pack import pack_camera, pack_scene
 from raytpu_torch.scene.camera import load_camera_json
 from raytpu_torch.scene.gltf import load_scene
@@ -133,8 +134,9 @@ def test_one_frame_span_and_every_span_in_a_layer(mode):
     assert _count(spans, "raytpu::entry.frame") == 1
     assert _count(spans, "raytpu::entry.tile") == 2
     assert _count(spans, "raytpu::entry.sample") == 2 * FRAME["samples"]
-    assert _count(spans, "raytpu::entry.sync.readback") == 2
-    assert _count(spans, "raytpu::entry.stitch") == 2
+    assert _count(spans, "raytpu::entry.readback") == 2
+    assert _count(spans, "raytpu::entry.sync.readback") == 1
+    assert _count(spans, "raytpu::entry.stitch") == 0
     assert {_layer(s[2]) for s in spans} <= set(LAYERS)
 
 
@@ -147,7 +149,7 @@ def test_spans_nest_inside_the_frame_on_one_thread(mode):
     assert [s[2] for s in roots] == ["raytpu::entry.frame"]
     for s, p in parents.items():
         if s[2] in ("raytpu::entry.tile", "raytpu::entry.alloc",
-                    "raytpu::entry.stitch", "raytpu::entry.sync.readback"):
+                    "raytpu::entry.readback", "raytpu::entry.sync.readback"):
             assert p[2] == "raytpu::entry.frame", s
         if s[2] == "raytpu::entry.sample":
             assert p[2] == "raytpu::entry.tile", s
@@ -246,7 +248,7 @@ CANNED = [
     _annotation("raytpu::engine.paths", 150, 600),
     _annotation("raytpu::engine.sync.alive", 200, 40),
     _annotation("raytpu::kernels.strand", 300, 30),
-    _annotation("raytpu::entry.stitch", 850, 100),
+    _annotation("raytpu::entry.readback", 850, 100),
     _annotation("raytpu::engine.shade", 0, 1000, tid=2),  # another thread
     {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 310, "dur": 10,
      "pid": 1, "tid": 1},
@@ -271,7 +273,7 @@ def test_frame_profile_reads_idle_by_innermost_span():
     want = {"raytpu::entry.alloc": 100, "raytpu::entry.tile": 50 + 50,
             "raytpu::engine.paths": 50 + 20 + 120,
             "raytpu::engine.sync.alive": 20, "raytpu::kernels.strand": 30,
-            "raytpu::entry.stitch": 100, "raytpu::entry.frame": 50 + 40,
+            "raytpu::entry.readback": 100, "raytpu::entry.frame": 50 + 40,
             frame_profile.OUTSIDE: 0}
     got = {k: round(v * 1e3, 6) for k, v in rep["idle"].items()}
     assert {k: v for k, v in got.items() if v} == {
@@ -414,3 +416,39 @@ def test_cube_sync_spans_are_the_frames_host_syncs():
     marked = [s[2] for s in _spans(events) if ".sync" in s[2]]
     print(f"cube: {len(syncs)} syncs, {len(marked)} .sync spans")
     assert len(marked) == len(syncs) == CUBE_SYNCS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["path", "flat"])
+@pytest.mark.parametrize("width,height,tile_rows", [
+    (64, 36, 18), (1920, 1080, None)])
+def test_frame_reads_back_into_reused_pinned_memory(mode, width, height,
+                                                    tile_rows):
+    """On the card a frame (two tiles at 64x36, one at 1080p) is bit-equal
+    to ``render_frame_tiles``' tiles stitched into zeros and lives in
+    page-locked memory; after three warm-up frames, ten more, each
+    rendered while the one before is held (as the benchmark holds it),
+    take every block from the pinned host cache and allocate none."""
+    dev = _card()
+    pack, cam = _packed(dev)
+    cfg = _config(mode, width=width, height=height, samples=1,
+                  tile_rows=tile_rows)
+    want = np.zeros((height, width, 4), np.float32)
+    for y0, rows, tile in render_frame_tiles(pack, cam, cfg):
+        want[y0 : y0 + rows] = tile
+    frame = render_frame(pack, cam, cfg)
+    assert torch.from_numpy(frame).is_pinned()
+    np.testing.assert_array_equal(frame.view(np.uint32),
+                                  want.view(np.uint32))
+    for _ in range(3):
+        frame = render_frame(pack, cam, cfg)
+    before = torch.cuda.host_memory_stats()
+    for _ in range(10):
+        frame = render_frame(pack, cam, cfg)
+    after = torch.cuda.host_memory_stats()
+    print(f"{mode} {width}x{height}: pinned blocks "
+          f"{after['allocations.current']}, "
+          f"{after['allocated_bytes.current']} B")
+    assert after["num_host_alloc"] == before["num_host_alloc"]
+    np.testing.assert_array_equal(frame.view(np.uint32),
+                                  want.view(np.uint32))
