@@ -259,6 +259,14 @@ KERNELS["shade"] = dict(
     source="raytpu_torch/kernels/csrc/shade.cu",
     replaces="none: XLA fused raytpu/engine/render.py:473 _shade_core",
 )
+# the engine's coherence sort key: no Pallas kernel stands behind it either
+# (raytpu's _ray_sort_key is jnp that XLA fuses into the bounce's program)
+KERNELS["coherence"] = dict(
+    name="coherence_key",
+    route="cuda",
+    source="raytpu_torch/kernels/csrc/coherence_key.cu",
+    replaces="none: XLA fused raytpu/engine/render.py:207 _ray_sort_key",
+)
 # phase 3i's schedule sets (raytpu's keywords): raytpu's factory defaults
 # (strand.py:507-546 at >= 4096 triangles), tests/test_strand.py:150-159's
 # small pool with many refills, and one set per fetch form; the ribbon sets
@@ -322,6 +330,14 @@ SHADE_OPS = 236
 # its row
 SHADE_LANE_BYTES = 5 + 93
 SHADE_ACTIVE_BYTES = 12 + 4
+# bytes every lane of a coherence key call moves: its alive flag in and
+# its key out (1 + 4); the composite form also reads the pixel index and
+# writes 8 bytes (1 + 4 + 8); a live lane also reads its ray (24). A live
+# lane's float operations: a subtraction, a division and a product an axis
+KEY_LANE_BYTES = 1 + 4
+KEY_COMPOSITE_LANE_BYTES = 1 + 4 + 8
+KEY_LIVE_BYTES = 24
+KEY_OPS = 9
 MAIN_ARGS = dict(width=1920, height=1080, seed=1, chunk_size=64, samples=1,
                  bounces=4)
 # rays of phase 5b's frame on which the two strand walks differ, and on
@@ -439,6 +455,7 @@ def _counters() -> dict:
     wrapper counts its mixed form and its near-first instances apart, the
     strand walks' wrappers their launches over ribbon rows."""
     from raytpu_torch.kernels.binned import binned_walk_cuda
+    from raytpu_torch.kernels.coherence import coherence_key_cuda
     from raytpu_torch.kernels.packet import packet_query_cuda
     from raytpu_torch.kernels.shade import shade_core_cuda
     from raytpu_torch.kernels.strand import (
@@ -472,7 +489,8 @@ def _counters() -> dict:
                 packet_near=(packet_query_cuda, "ordered_launches"),
                 packet_mixed_near=(packet_query_cuda,
                                    "mixed_ordered_launches"),
-                shade=(shade_core_cuda, "launches"))
+                shade=(shade_core_cuda, "launches"),
+                coherence=(coherence_key_cuda, "launches"))
 
 
 def reset_launches() -> None:
@@ -2173,6 +2191,147 @@ def phase_shade_kernel(errs: list, stream=None) -> dict:
     return rec  # the path360 wave's
 
 
+def phase_coherence_kernel(errs: list, atrium: dict, stream: dict) -> dict:
+    """Phase 3k: ``csrc/coherence_key.cu`` against its plain version
+    (kernels/coherence.py) on the live arguments of every key of two
+    frames: path360's (``stream``, phase 13b's 3.5 M-triangle atrium at
+    640x360: query wave mode, 230,400-lane waves) and path1080's
+    (``atrium``, phase 13a's 300k-triangle atrium at 1920x1080: fused wave
+    mode, 2,088,960 lanes at first, its bounces' composite keys over the
+    path state's row slices). Every key bit-equal to the plain version's
+    on the same tensors at the call, 7 launches a 4-bounce frame (the
+    counter from 0), 0 in a flat frame of 13a's pack and in a cube512
+    frame (the packet route); a profiled frame of each: its device
+    events, the kernel's events and device ms. Then each captured wave's
+    device ms a call (queued behind a sleep kernel,
+    ``tools/timing.py:queued_ms``, 5 x 32 calls) against its bound: the
+    bytes of every lane (KEY_LANE_BYTES, or KEY_COMPOSITE_LANE_BYTES) and
+    of each live lane's ray (KEY_LIVE_BYTES) over 3.35 TB/s, KEY_OPS a
+    live lane over 67 TFLOP/s; the plain version host-paced (CUDA events
+    around 5 calls: its ~60 launches a call fill the launch queue behind
+    a sleep). The record is path360's first wave's; its launches are
+    phase 5's main path's, set by the caller. It replaces no Pallas
+    kernel: XLA fuses raytpu's _ray_sort_key (raytpu/engine/render.py:207)
+    on the TPU."""
+    import dataclasses as dc
+
+    import torch
+
+    from raytpu_torch.engine import render
+    from raytpu_torch.kernels.coherence import coherence_key_torch
+    from raytpu_torch.scene.camera import load_camera_json
+    from raytpu_torch.scene.gltf import load_scene
+    from raytpu_torch.scene.pack import pack_camera, pack_scene
+    from raytpu_torch.tools import frame_profile
+    from raytpu_torch.tools.scenes import write_cube, write_cube_camera
+    from raytpu_torch.tools.timing import queued_ms
+    from raytpu_torch.types import RenderConfig
+
+    real = render.coherence_key_cuda
+    frames = dict(path360=(stream, RenderConfig(**STREAM_ARGS), "query"),
+                  path1080=(atrium, RenderConfig(**ATRIUM_ARGS), "fused"))
+    notes, rec = [], None
+    for label, (scene, cfg, mode) in frames.items():
+        pack, cam = scene["pack"], scene["cam"]
+        draw = lambda: render.render_frame(pack, cam, cfg)  # noqa: E731
+        calls = []
+
+        def held(ro, rd, alive, bmin, bmax, bits, pxi=None):
+            got = real(ro, rd, alive, bmin, bmax, bits, pxi)
+            want = coherence_key_torch(ro, rd, alive, bmin, bmax, bits, pxi)
+            calls.append(dict(
+                args=(ro.clone(), rd.clone(), alive.clone(), bmin, bmax,
+                      bits, None if pxi is None else pxi.clone()),
+                differ=int((got != want).sum()),
+                # a view of part of a larger tensor (the path state's rows)
+                sliced=ro.untyped_storage().nbytes()
+                > ro.numel() * ro.element_size()))
+            return got
+
+        reset_launches()
+        render.coherence_key_cuda = held
+        try:
+            draw()
+            torch.cuda.synchronize()
+        finally:
+            render.coherence_key_cuda = real
+        launches = read_launches()["coherence"]
+        if render.WAVE_STATS["mode"] != mode:
+            fail(f"phase 3k {label}: the frame ran wave mode "
+                 f"'{render.WAVE_STATS['mode']}', want '{mode}'")
+        if launches != 7 or len(calls) != 7:
+            fail(f"phase 3k {label}: a 4-bounce frame launched {launches} "
+                 f"keys over {len(calls)} calls, want 7")
+        differ = [c["differ"] for c in calls]
+        if any(differ):
+            fail(f"phase 3k {label}: coherence_key.cu differs from the "
+                 f"plain version on {differ} lanes of the frame's keys")
+        errs.append(0.0)
+        rep = frame_profile.profile(draw)
+        key = [v for (op, _), v in rep["ops"].items() if "key_kernel" in op]
+        key_events, key_ms = sum(v[1] for v in key), sum(v[0] for v in key)
+        if key_events != 7:
+            fail(f"phase 3k {label}: the profiled frame holds {key_events} "
+                 "key_kernel events, want 7")
+        waves = []
+        for c in calls:
+            ro, _, alive, *_, pxi = c["args"]
+            r, live = ro.shape[0], int(alive.sum())
+            lane = KEY_LANE_BYTES if pxi is None else KEY_COMPOSITE_LANE_BYTES
+            b = bound(r * lane + live * KEY_LIVE_BYTES, live * KEY_OPS)
+            ms = queued_ms(lambda: real(*c["args"]), inner=32)
+            waves.append(dict(b, ms=ms, r=r, live=live, composite=pxi
+                              is not None, sliced=c["sliced"]))
+        plain_ms = cuda_ms(lambda: coherence_key_torch(*calls[0]["args"]), 5)
+        if rec is None:
+            rec = dict(waves[0], plain_ms=plain_ms)
+        notes.append(
+            f"{label} ('{mode}'): 7 keys, each bit-equal to the plain "
+            f"version on the frame's own tensors, 7 launches; profiled "
+            f"frame {rep['n_events']} device events, busy "
+            f"{rep['busy_ms']:.3f} ms, {key_events} key_kernel events "
+            f"{key_ms * 1e3:.1f} us; a wave (lanes, live, form): kernel us "
+            f"a call, bound us (MB), share: " + ", ".join(
+                f"({w['r']}, {w['live']}, "
+                f"{'composite' if w['composite'] else 'key'}"
+                f"{', row slice' if w['sliced'] else ''}) "
+                f"{w['ms'] * 1e3:.2f}, {w['bound_ms'] * 1e3:.2f} "
+                f"({w['n_bytes'] / 1e6:.2f}), "
+                f"{w['bound_ms'] / w['ms'] * 100:.1f}%" for w in waves)
+            + f"; plain version host-paced {plain_ms:.3f} ms a key "
+            f"({waves[0]['r']} lanes)")
+    # no key where no wave is sorted: flat mode, and the packet route
+    with tempfile.TemporaryDirectory() as tmp:
+        glb, cam_json = (os.path.join(tmp, "cube.glb"),
+                         os.path.join(tmp, "camera.json"))
+        write_cube(glb)
+        write_cube_camera(cam_json)
+        cube_pack = pack_scene(load_scene(glb), "cuda")
+        cube_cam = pack_camera(load_camera_json(cam_json, 512, 512), "cuda")
+    unsorted = dict(
+        flat1080=lambda: render.render_frame(
+            atrium["pack"], atrium["cam"],
+            dc.replace(RenderConfig(**ATRIUM_ARGS), mode="flat")),
+        cube512=lambda: render.render_frame(
+            cube_pack, cube_cam, RenderConfig(width=512, height=512, seed=3,
+                                              samples=4, bounces=4,
+                                              chunk_size=64)))
+    zero = []
+    for label, draw in unsorted.items():
+        reset_launches()
+        draw()
+        torch.cuda.synchronize()
+        n = read_launches()["coherence"]
+        zero.append(f"{label} {n}")
+        if n:
+            fail(f"phase 3k {label}: {n} coherence_key launches, want 0")
+    notes.append("launches a frame: " + ", ".join(zero))
+    print("phase 3k coherence_key (csrc/coherence_key.cu; replaces no Pallas "
+          "kernel: XLA fused raytpu/engine/render.py:207 _ray_sort_key): "
+          + "; ".join(notes))
+    return rec  # path360's first wave's
+
+
 def phase_card_vs_cpu(tmp: str):
     """A <= 256-slot scene (the packet route) rendered on the card and on
     the CPU, in path and in flat mode: the PNG pixels must agree within
@@ -2570,15 +2729,19 @@ def phase_main(tmp: str, errs: list) -> dict:
     print(f"phase 5 cli: raytpu_torch.cli.main({' '.join(argv)}) -> "
           f"rc 0 in {cli_s:.2f} s, {img.shape[1]}x{img.shape[0]} PNG, "
           f"{lit:.3f} non-black, {counts['strand']} strand_walk / "
-          f"{counts['packet']} packet_walk / {counts['shade']} shade_core "
-          "launches")
+          f"{counts['packet']} packet_walk / {counts['shade']} shade_core / "
+          f"{counts['coherence']} coherence_key launches")
     if img.shape != (h, w, 3) or lit <= 0.10:
         fail("main-path PNG is wrong or mostly black")
     if counts["strand"] == 0 or counts["packet"] or counts["block"]:
         fail("the path waves of a >256-slot scene did not all take strand_walk")
     if pack.bvh.ribbon_rows is None:
         fail("phase 5: the pack has no ribbon rows")
+    if counts["coherence"] == 0:
+        fail("phase 5: the fused frame's sorted queries launched no "
+             "coherence_key")
     return dict(launches=counts["strand"], shade_launches=counts["shade"],
+                key_launches=counts["coherence"],
                 ms=ms, plain_ms=plain_ms, **bnd,
                 glb=glb, cam_json=cam_json, png=png, pack=pack, cam=cam,
                 frame=frame, frame_s=frame_s, ro=ro, rd=rd)
@@ -4015,8 +4178,10 @@ def warm_s(render, reps: int = 2) -> list:
 def launched(label: str, counts: dict, want: tuple) -> str:
     """Fail unless every walk in ``want`` launched in the run and no other
     walk did (the shading kernel, which every path-mode frame on the card
-    launches whatever its route, is not a walk); the counts as a note."""
-    used = {k for k, n in counts.items() if n and k != "shade"}
+    launches whatever its route, and the coherence key, which every sorted
+    query launches, are not walks); the counts as a note."""
+    used = {k for k, n in counts.items()
+            if n and k not in ("shade", "coherence")}
     if used != set(want):
         fail(f"phase {label}: launched {sorted(used)}, want {sorted(want)}")
     return (", ".join(f"{counts[k]} {KERNELS[k]['name']}" for k in want)
@@ -5056,6 +5221,10 @@ def main() -> int:
         with timed(secs, "3j"):
             recs["shade"] = phase_shade_kernel(errs["shade"], stream)
         recs["shade"]["launches"] = recs["strand"]["shade_launches"]
+        with timed(secs, "3k"):
+            recs["coherence"] = phase_coherence_kernel(errs["coherence"],
+                                                       atrium, stream)
+        recs["coherence"]["launches"] = recs["strand"]["key_launches"]
         with timed(secs, "13c"):
             phase_captured_waves(atrium)
         sim = start_strand_sim()

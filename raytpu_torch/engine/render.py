@@ -31,7 +31,9 @@ the CPU. The
 ``brute`` sweep and the threaded-BVH walk (``bvh``) are plain torch ops on
 either device and run only when asked for. ``_shade_core`` shades the
 hits: one ``kernels/csrc/shade.cu`` launch a call on the card, its plain
-version (kernels/shade.py) on the CPU.
+version (kernels/shade.py) on the CPU; ``_ray_sort_key`` likewise writes
+each coherence key with one ``kernels/csrc/coherence_key.cu`` launch
+(kernels/coherence.py).
 
 Reference quirks reproduced on purpose (as in raytpu):
 
@@ -60,6 +62,8 @@ import torch
 from ..kernels import rng as rngk
 from ..kernels.intersect import F32_MAX, Hit, make_intersectors
 from ..kernels.binned import make_binned_intersectors, make_binned_query
+from ..kernels.coherence import (coherence_key_cuda, coherence_key_torch,
+                                 dead_key)
 from ..kernels import packet as packetk
 from ..kernels.packet import make_packet_intersectors
 from ..kernels.shade import (_normalize, _shade_inputs, shade_core_cuda,
@@ -112,19 +116,6 @@ def _in_chunk_grid(px, py, w: int, h: int, cs: int):
     return (px // cs < w // cs) & (py < h) & (chunk < (w * h) // cs)
 
 
-def _morton(q, bits: int):
-    """Interleave three ``bits``-wide integer coordinates into a
-    3*bits-bit Morton code."""
-    def spread(x):  # Part1By2 bit spreading (<= 10-bit inputs)
-        x = (x | (x << 16)) & 0x030000FF
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        x = (x | (x << 2)) & 0x09249249
-        return x
-
-    return spread(q[0]) | (spread(q[1]) << 1) | (spread(q[2]) << 2)
-
-
 def _morton_bits() -> int:
     """Origin-quantisation bits per axis of the coherence key:
     RAYTPU_MORTON_BITS, default 6, at most 9 (so ``octant << 3*bits``
@@ -132,31 +123,20 @@ def _morton_bits() -> int:
     return min(int(os.environ.get("RAYTPU_MORTON_BITS", "6")), 9)
 
 
-def _dead_key() -> int:
-    """The key of a dead lane: above every live key, so dead lanes sort
-    last."""
-    return 1 << (3 * _morton_bits() + 3)
-
-
-def _ray_sort_key(pack: ScenePack, ro, rd, alive):
+def _ray_sort_key(pack: ScenePack, ro, rd, alive, bits: int | None = None,
+                  pxi=None):
     """Coherence key: dead lanes last, then direction octant (major), then
-    the Morton cell of the origin (scene bounds quantised,
-    ``_morton_bits()`` per axis)."""
-    bits = _morton_bits()
-    cells = float(1 << bits)
-    ext = torch.clamp(pack.scene_bmax - pack.scene_bmin, min=1e-6)
-    q = torch.clamp(
-        ((ro - pack.scene_bmin) / ext * cells).to(torch.int32), 0,
-        (1 << bits) - 1,
-    )
-    morton = _morton((q[:, 0], q[:, 1], q[:, 2]), bits)
-    octant = (
-        (rd[:, 0] < 0).to(torch.int32)
-        | ((rd[:, 1] < 0).to(torch.int32) << 1)
-        | ((rd[:, 2] < 0).to(torch.int32) << 2)
-    )
-    key = (octant << (3 * bits)) | morton
-    return torch.where(alive, key, _dead_key())
+    the Morton cell of the origin (scene bounds quantised, ``bits`` per
+    axis, ``_morton_bits()`` unless given); with ``pxi`` the fused loop's
+    unique int64 ``key << 32 | pxi``. One ``csrc/coherence_key.cu``
+    launch on CUDA tensors, the plain version (kernels/coherence.py) on
+    the CPU."""
+    if bits is None:
+        bits = _morton_bits()
+    args = (ro, rd, alive, pack.scene_bmin, pack.scene_bmax, bits, pxi)
+    if ro.device.type == "cuda":
+        return coherence_key_cuda(*args)
+    return coherence_key_torch(*args)
 
 
 def _unsort(out, idx, n: int, returns_hit):
@@ -184,10 +164,12 @@ def _sorted_query(fn, pack, ro, rd, tmin, tmax, alive, returns_hit):
     never depend on the order (ties break on the tie keys), so the frame is
     the unsorted query's."""
     r = ro.shape[0]
-    key_s, perm = torch.sort(_ray_sort_key(pack, ro, rd, alive), stable=True)
+    bits = _morton_bits()
+    key_s, perm = torch.sort(_ray_sort_key(pack, ro, rd, alive, bits),
+                             stable=True)
     if returns_hit:
         # a closest query's bound is the alive bit: F32_MAX or -inf
-        tm_s = torch.where(key_s == _dead_key(), NEG_INF, F32_MAX)
+        tm_s = torch.where(key_s == dead_key(bits), NEG_INF, F32_MAX)
     else:
         tm_s = torch.as_tensor(tmax, dtype=torch.float32,
                                device=ro.device).expand(r)[perm]
@@ -441,11 +423,10 @@ def _fused_bounces(pack, closest, any_hit, ro, rd, rng, radiance,
             if n_alive == 0:
                 break  # a bounce over dead lanes changes nothing
             with span("raytpu::engine.sort"):
-                key = _ray_sort_key(pack, state["ro"][:wsz], state["rd"][:wsz],
-                                    state["alive"][:wsz])
                 # (key, pixel) is unique, so this is raytpu's two-level sort
-                perm = torch.sort(
-                    (key.long() << 32) | state["pxi"][:wsz].long())[1]
+                perm = torch.sort(_ray_sort_key(
+                    pack, state["ro"][:wsz], state["rd"][:wsz],
+                    state["alive"][:wsz], pxi=state["pxi"][:wsz]))[1]
                 for x in state.values():
                     x[:wsz] = x[:wsz][perm]
             p = next((t for t in tiers if n_alive <= t), r)

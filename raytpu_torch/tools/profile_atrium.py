@@ -103,7 +103,7 @@ def shadow_set(pack, hitp):
 
 
 def _morton6(q):
-    from ..engine.render import _morton
+    from ..kernels.coherence import _morton
 
     return _morton((q[:, 0], q[:, 1], q[:, 2]), 6)
 

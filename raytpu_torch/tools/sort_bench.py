@@ -47,7 +47,8 @@ import torch
 from .timing import SHORT_SLEEP_CYCLES, queued_ms
 
 F32_MAX = float(np.finfo(np.float32).max)
-# the engine's dead-lane key at RAYTPU_MORTON_BITS 6 (render.py:_dead_key)
+# the engine's dead-lane key at RAYTPU_MORTON_BITS 6 (kernels/coherence.py:
+# dead_key)
 DEAD = 1 << 21
 
 

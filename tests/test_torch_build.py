@@ -13,7 +13,8 @@ from types import SimpleNamespace
 
 import pytest
 
-from raytpu_torch.kernels import _build, binned, packet, shade, strand
+from raytpu_torch.kernels import (_build, binned, coherence, packet, shade,
+                                  strand)
 from raytpu_torch.tools import step_bench
 
 
@@ -85,7 +86,8 @@ class _FakeLib:
 @pytest.mark.parametrize("module,arg", [(packet, None), (binned, None),
                                         (strand, "strand_walk"),
                                         (strand, "strand_block"),
-                                        (step_bench, None), (shade, None)])
+                                        (step_bench, None), (shade, None),
+                                        (coherence, None)])
 def test_lazy_initialisers_load_once(monkeypatch, module, arg):
     loads = []
 
